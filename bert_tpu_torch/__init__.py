@@ -1,0 +1,27 @@
+"""bert_tpu_torch — the PyTorch/CUDA port of bert_tpu for an NVIDIA H100.
+
+A second package beside the JAX reference (``bert_tpu``), with its
+structure and names: ggml-bin loading, WordPiece tokenizing, packed and
+bucketed batching, and the Q4 BERT encoder with hand-written CUDA kernels
+(csrc/) for the Q4 dequant-matmul, the fused QKV attention and the fused
+LayerNorm. It imports torch and numpy, never JAX or ``bert_tpu``.
+
+Entry points run on the card unless the caller asks for the CPU
+(``BertTorch.from_file(path, device="cpu")``), where every kernel's plain
+PyTorch version runs instead.
+"""
+
+import torch as _torch
+
+# f32 means f32: TF32 keeps ~10 mantissa bits, the H100 form of the
+# reduced-precision trap recorded at bert_tpu/ops/common.py:14-25.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from .engine import BertTorch  # noqa: E402,F401
+from .params import BertConfig  # noqa: E402,F401
+from .quant import QuantTensor  # noqa: E402,F401
+from .tokenizer import WordPieceTokenizer  # noqa: E402,F401
+from .vocab import Vocab  # noqa: E402,F401
+
+__version__ = "0.1.0"

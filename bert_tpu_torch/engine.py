@@ -1,0 +1,323 @@
+"""The public embedding engine: ``BertTorch``, the counterpart of
+``bert_tpu.engine.BertTPU`` (and of the reference's C API, bert.h:33-82):
+
+  reference                      bert_tpu_torch.BertTorch
+  ---------                      ------------------------
+  bert_load_from_file            BertTorch.from_file(path)
+  bert_tokenize                  .tokenize(text)
+  bert_encode                    .encode(text)
+  bert_encode_batch              .encode_batch(texts)
+  bert_eval / bert_eval_batch    .eval_tokens(token_lists)
+  bert_n_embd                    .n_embd
+  bert_n_max_tokens              .n_max_tokens
+  bert_vocab_id_to_token         .id_to_token(id)
+
+It runs on the card unless the caller asks for the CPU: ``device=None``
+means ``"cuda"``, and without a CUDA device construction raises unless
+``device="cpu"`` is passed. Inputs are routed exactly as BertTPU routes
+them — short sentences packed several per row with block-diagonal
+attention, the rest padded into length buckets — every batch is
+dispatched before any result is gathered, and each result is copied
+device→host without blocking into pinned memory as soon as its batch is
+queued.
+
+Streaming (``encode_iter``), warmup and its manifest, ``save_cache``, the
+W8A8 int8 regime and multi-device execution are not ported yet
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .batching import (
+    default_seq_buckets,
+    pick_bucket,
+    plan_buckets,
+    size_bucket as _size_bucket,
+)
+from .loader import LoadedModel, load_model
+from .model import BertModel, bert_forward, bert_forward_packed
+from .packing import PackPlan, Placement, pack_batch, plan_packing
+from .params import BertConfig, params_to_torch
+from .profiling import PhaseTimers
+from .tokenizer import WordPieceTokenizer
+
+_WIRE_DTYPES = {"f32": torch.float32, "f16": torch.float16,
+                "int8": torch.int8}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → the card. Raises when a CUDA device is asked for (or
+    defaulted to) and none is present: nothing falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "bert_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    return dev
+
+
+class BertTorch:
+    """Sentence-embedding engine for BERT-family encoders on an H100."""
+
+    def __init__(
+        self,
+        loaded: LoadedModel,
+        *,
+        device=None,
+        compute_dtype: Optional[torch.dtype] = None,
+        max_batch: int = 128,
+        seq_buckets: Optional[Sequence[int]] = None,
+        wire_dtype: Optional[str] = None,
+        packing: bool = True,
+        pack_seq: int = 64,
+        pack_segments: int = 16,
+        pooling: Optional[str] = None,
+    ):
+        self.device = resolve_device(device)
+        self.config: BertConfig = loaded.config
+        self.vocab = loaded.vocab
+        self.tokenizer = WordPieceTokenizer(loaded.vocab)
+        if compute_dtype is None:
+            compute_dtype = (torch.bfloat16 if self.device.type == "cuda"
+                             else torch.float32)
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, "
+                             f"got {compute_dtype}")
+        self.compute_dtype = compute_dtype
+        self.max_batch = max_batch
+        self.seq_buckets = list(seq_buckets) if seq_buckets is not None else \
+            default_seq_buckets(self.config.n_max_tokens)
+        # Wire dtype of the device→host result copy. bf16 compute keeps 8
+        # mantissa bits, so an f16 wire (10 bits) loses nothing relative to
+        # it while halving the bytes; f32 compute keeps an exact f32 wire.
+        # "int8" quarters the bytes (unit-norm outputs scaled by 127,
+        # re-normalized on host).
+        if wire_dtype is None:
+            wire_dtype = "f16" if compute_dtype == torch.bfloat16 else "f32"
+        if wire_dtype not in _WIRE_DTYPES:
+            raise ValueError(f"wire_dtype must be f32/f16/int8, "
+                             f"got {wire_dtype!r}")
+        self.wire_dtype = wire_dtype
+        if pooling is None:
+            pooling = loaded.pooling or "mean"
+        if pooling not in ("mean", "cls"):
+            raise ValueError(f"pooling must be 'mean' or 'cls', "
+                             f"got {pooling!r}")
+        self.pooling = pooling
+        self.timers = PhaseTimers()
+        self._min_rows = 8  # smallest row bucket (single device: dp = 1)
+        self._packing = packing
+        self._pack_seq = min(pack_seq, self.config.n_max_tokens)
+        self._pack_segments = pack_segments
+
+        self.load_phases = dict(loaded.load_phases or {})
+        t0 = time.perf_counter()
+        # tables and dense weights are stored in the compute dtype: the
+        # model casts them to it at use, so the numbers are the same
+        state = params_to_torch(loaded.params, device=self.device,
+                                dtype=compute_dtype)
+        self.model = BertModel(state, self.config).eval()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.load_phases["to_device"] = round(time.perf_counter() - t0, 3)
+
+    # -- constructors --------------------------------------------------------
+    @classmethod
+    def from_file(cls, path: str, device=None,
+                  quantize_ftype: Optional[int] = None,
+                  **kw) -> "BertTorch":
+        """Load a ggml-bin file onto ``device`` (default: the card)."""
+        resolve_device(device)  # fail before parsing the file
+        return cls(load_model(path, quantize_ftype=quantize_ftype),
+                   device=device, **kw)
+
+    # -- introspection (bert.h:79-82) ---------------------------------------
+    @property
+    def n_embd(self) -> int:
+        return self.config.n_embd
+
+    @property
+    def n_max_tokens(self) -> int:
+        return self.config.n_max_tokens
+
+    @property
+    def n_vocab(self) -> int:
+        return self.config.n_vocab
+
+    def id_to_token(self, token_id: int) -> Optional[str]:
+        return self.vocab.id_to_token(token_id)
+
+    # -- tokenize ------------------------------------------------------------
+    def tokenize(self, text: str) -> List[int]:
+        return self.tokenizer.tokenize(text, self.config.n_max_tokens)
+
+    # -- evaluation ----------------------------------------------------------
+    def eval_tokens(self, token_lists: Sequence[Sequence[int]]) -> np.ndarray:
+        """Embed pre-tokenized inputs; returns [n, n_embd] f32 (L2-normed).
+
+        Every batch is queued on the device first, each with its
+        device→host copy, and the results are gathered once at the end, so
+        the host pads the next batch while the device computes."""
+        n = len(token_lists)
+        out = np.empty((n, self.config.n_embd), dtype=np.float32)
+        pending = self._dispatch_all(token_lists)
+        self._gather_pending(pending, out)
+        self.timers.add_sentences(n)
+        return out
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device, non_blocking=True)
+
+    def _wire(self, emb: torch.Tensor) -> torch.Tensor:
+        if self.wire_dtype == "f16":
+            return emb.to(torch.float16)
+        if self.wire_dtype == "int8":
+            return torch.clamp(torch.round(emb * 127.0), -127, 127
+                               ).to(torch.int8)
+        return emb
+
+    def _copy_to_host(self, emb: torch.Tensor):
+        """Start the device→host copy of one batch's rows; returns the host
+        tensor and the event that marks its arrival (None on the CPU)."""
+        if self.device.type != "cuda":
+            return emb, None
+        host = torch.empty(emb.shape, dtype=emb.dtype, pin_memory=True)
+        host.copy_(emb, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return host, done
+
+    @torch.inference_mode()
+    def _dispatch_all(self, token_lists: Sequence[Sequence[int]]) -> list:
+        """Route + dispatch every input; returns the pending
+        (original-index array, host rows, arrival event) entries."""
+        n = len(token_lists)
+        lengths = [len(t) for t in token_lists]
+
+        # Routing, as BertTPU routes: short sentences go through the packed
+        # path (several per row, block-diagonal attention); everything else
+        # through length-bucketed padding. Small batches ALWAYS pack; large
+        # batches pack only when that pads fewer tokens than bucketing.
+        pack_idx: List[int] = []
+        pack_plan = None
+        bucket_idx = list(range(n))
+        if self._packing:
+            short = [i for i in bucket_idx if lengths[i] <= self._pack_seq]
+            use_packed = False
+            if short:
+                plan = plan_packing([lengths[i] for i in short],
+                                    self._pack_seq, self._pack_segments)
+                if len(short) <= 64:
+                    use_packed = True
+                else:
+                    remaining = plan.n_rows
+                    packed_tokens = 0
+                    while remaining > 0:
+                        chunk = min(remaining, self.max_batch)
+                        packed_tokens += (_size_bucket(chunk,
+                                                       self._min_rows)
+                                          * self._pack_seq)
+                        remaining -= chunk
+                    bucketed_tokens = sum(
+                        pick_bucket(lengths[i], self.seq_buckets)
+                        for i in short
+                    )
+                    use_packed = packed_tokens <= 1.15 * bucketed_tokens
+            if use_packed:
+                pack_idx = short
+                pack_plan = plan
+                in_pack = set(short)
+                bucket_idx = [i for i in bucket_idx if i not in in_pack]
+
+        pending = []
+        with self.timers.phase("dispatch"):
+            if pack_idx:
+                pending.extend(self._dispatch_packed(token_lists, pack_idx,
+                                                     pack_plan))
+            if bucket_idx:
+                plan = plan_buckets([lengths[i] for i in bucket_idx],
+                                    self.seq_buckets, self.max_batch)
+                for seq_b, batch_b, sub in plan.groups:
+                    idxs = [bucket_idx[j] for j in sub]
+                    ids, mask = self.tokenizer.pad_batch(
+                        [token_lists[i] for i in idxs], seq_b,
+                        batch_size=batch_b
+                    )
+                    emb = bert_forward(
+                        self.model, self._to_device(ids.astype(np.int64)),
+                        self._to_device(mask),
+                        compute_dtype=self.compute_dtype,
+                        pooling=self.pooling)[: len(idxs)]
+                    host, done = self._copy_to_host(self._wire(emb))
+                    self.timers.record_bucket(batch_b, seq_b)
+                    pending.append((np.asarray(idxs), host, done))
+        return pending
+
+    def _dispatch_packed(self, token_lists, idxs, plan=None):
+        """Pack short sentences into fixed (rows, pack_seq) batches and
+        dispatch them; returns pending entries."""
+        tl = [token_lists[i] for i in idxs]
+        if plan is None:
+            plan = plan_packing([len(t) for t in tl], self._pack_seq,
+                                self._pack_segments)
+        pending = []
+        row_cap = self.max_batch
+        for start in range(0, plan.n_rows, row_cap):
+            end = min(plan.n_rows, start + row_cap)
+            pls = [Placement(p.index, p.row - start, p.offset, p.length,
+                             p.slot)
+                   for p in plan.placements if start <= p.row < end]
+            sub = PackPlan(pls, end - start, plan.seq_len, plan.max_segments)
+            n_rows = min(_size_bucket(sub.n_rows, self._min_rows), row_cap)
+            ids, seg, pos, flat = pack_batch(tl, sub, n_rows=n_rows)
+            emb3 = bert_forward_packed(
+                self.model, self._to_device(ids.astype(np.int64)),
+                self._to_device(seg), self._to_device(pos.astype(np.int64)),
+                n_segments=self._pack_segments,
+                compute_dtype=self.compute_dtype, pooling=self.pooling)
+            # valid slots only: [B, S, D] → [n_sent, D]
+            rows = emb3.reshape(-1, emb3.shape[-1])[
+                self._to_device(flat.astype(np.int64))]
+            host, done = self._copy_to_host(self._wire(rows))
+            self.timers.record_bucket(n_rows, self._pack_seq, kind="packed")
+            orig = np.asarray([idxs[p.index] for p in pls])
+            pending.append((orig, host, done))
+        return pending
+
+    def _gather_pending(self, pending: list, out: np.ndarray) -> None:
+        """Wait for each batch's host copy and place its rows in ``out``."""
+        with self.timers.phase("gather"):
+            for idxs, host, done in pending:
+                if done is not None:
+                    done.synchronize()
+                out[idxs] = host.numpy().astype(np.float32)
+        if self.wire_dtype == "int8":
+            # fixed-point wire: undo the 127 scale by re-normalizing (outputs
+            # are unit-norm by construction, bert.cpp:911-913 semantics)
+            norms = np.linalg.norm(out, axis=-1, keepdims=True)
+            np.divide(out, np.maximum(norms, 1e-12), out=out)
+
+    def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
+        """Tokenize + embed a batch of sentences (bert_encode_batch)."""
+        with self.timers.phase("tokenize"):
+            toks = self.tokenizer.tokenize_batch(texts,
+                                                 self.config.n_max_tokens)
+        return self.eval_tokens(toks)
+
+    def encode(self, text: str) -> np.ndarray:
+        """Single-sentence convenience (bert_encode, bert.cpp:943-950)."""
+        return self.encode_batch([text])[0]
+
+    def stats(self) -> dict:
+        """Host-side phase timings + bucket execution counts, plus the
+        load-phase breakdown (parse / emb_dequant / repack / quantize /
+        to_device, seconds)."""
+        out = self.timers.summary()
+        out["load_phases"] = dict(self.load_phases)
+        return out
