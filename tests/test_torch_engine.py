@@ -121,7 +121,7 @@ def test_unported_formats_raise(tmp_path):
         load_model(str(tmp_path / "cache.npz"))
 
 
-@pytest.mark.parametrize("use_native", [None, False],
+@pytest.mark.parametrize("use_native", [True, False],
                          ids=["native", "python"])
 @pytest.mark.parametrize("case", range(len(GOLDEN_CASES)))
 def test_tokenizer_goldens(case, use_native):
