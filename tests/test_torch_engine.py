@@ -32,6 +32,11 @@ from bert_tpu_torch.ops.layer_norm import fused_layer_norm
 from bert_tpu_torch.ops.q4_matmul import q4_matmul
 from fixture_vocab import GOLDEN_CASES, KNOWN_TOKENS, build_fixture_tokens
 
+# One intra-op thread: the suite runs several test files at once, and
+# torch's default pool (one thread per core, in every worker) starves
+# the timing-sensitive tests running beside these.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "bert_tpu_torch")
 

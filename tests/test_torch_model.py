@@ -39,6 +39,11 @@ from fixture_vocab import build_fixture_tokens, build_fixture_vocab
 from make_goldens import CFG_KW, PAD_T, SEED, SENTENCES
 from test_goldens import GOLDEN_PATH, TOLS
 
+# One intra-op thread: the suite runs several test files at once, and
+# torch's default pool (one thread per core, in every worker) starves
+# the timing-sensitive tests running beside these.
+torch.set_num_threads(1)
+
 SMALL = dict(n_vocab=512, n_max_tokens=64, n_embd=128, n_intermediate=256,
              n_head=4, n_layer=2)
 DTYPES = {"f32": (torch.float32, jnp.float32, 2e-5),

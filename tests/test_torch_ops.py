@@ -35,6 +35,11 @@ from bert_tpu_torch.ops.layer_norm import fused_layer_norm, layer_norm_plain
 from bert_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain
 from bert_tpu_torch.quant import QuantTensor
 
+# One intra-op thread: the suite runs several test files at once, and
+# torch's default pool (one thread per core, in every worker) starves
+# the timing-sensitive tests running beside these.
+torch.set_num_threads(1)
+
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
 TOL_JNP = {"f32": 1e-5, "bf16": 2e-2}

@@ -34,6 +34,11 @@ from bert_tpu_torch.params import params_from_named_tensors as t_params_from_nam
 from bert_tpu_torch.params import random_named_tensors as t_random_named
 from fixture_vocab import build_fixture_tokens
 
+# One intra-op thread: the suite runs several test files at once, and
+# torch's default pool (one thread per core, in every worker) starves
+# the timing-sensitive tests running beside these.
+torch.set_num_threads(1)
+
 FTYPES = [tq.GGML_FTYPE_Q4_0, tq.GGML_FTYPE_Q4_1]
 SMALL = dict(n_vocab=30522, n_max_tokens=64, n_embd=64, n_intermediate=128,
              n_head=2, n_layer=2)
