@@ -215,6 +215,24 @@ def kernel_phase(dev, rng):
                         dense_bf16_matmul_ms=dense_ms)
             torch.cuda.synchronize()
 
+    # the router's other branch: M > FUSED_MAX_M rows take the plain
+    # dequantize-then-matmul on the card, and launch no kernel
+    m, k, n = Q.FUSED_MAX_M + 8, 384, 1536
+    qt = quantize_tensor_tpu(
+        (rng.standard_normal((k, n)) * 0.02).astype(np.float32), 2)
+    qd = QuantTensor(t(qt.packed, torch.uint8), t(qt.scales), None)
+    x = t(rng.standard_normal((m, k)).astype(np.float32), torch.bfloat16)
+    before = Q.q4_matmul.launches
+    routed = Q.q4_matmul(x, qd)
+    torch.cuda.synchronize()
+    # same computation twice; 1e-5 only allows cuBLAS another reduction
+    require(Q.q4_matmul.launches == before
+            and torch.allclose(routed, Q.q4_matmul_plain(x, qd),
+                               atol=1e-5, rtol=1e-5),
+            f"q4_matmul router: M={m} did not take the plain branch")
+    log(f"  ok  q4_matmul router     M={m} > {Q.FUSED_MAX_M} took "
+        "dequantize-then-matmul (no launch)")
+
     # -- kernel 3: fused QKV attention -------------------------------------
     log("kernel 3: fused_qkv_attention")
     attn_shapes = [  # tests/test_kernels_tpu.py:50-60, then the main path's
