@@ -1,10 +1,13 @@
 """bert_tpu_torch — the PyTorch/CUDA port of bert_tpu for an NVIDIA H100.
 
 A second package beside the JAX reference (``bert_tpu``), with its
-structure and names: ggml-bin loading, WordPiece tokenizing, packed and
-bucketed batching, and the Q4 BERT encoder with hand-written CUDA kernels
-(csrc/) for the Q4 dequant-matmul, the fused QKV attention and the fused
-LayerNorm. It imports torch and numpy, never JAX or ``bert_tpu``.
+structure and names: ggml-bin, HF-directory and ``.npz`` loading,
+WordPiece tokenizing, packed and bucketed batching, streaming, warmup, the
+BERT encoder with hand-written CUDA kernels (csrc/) for the Q4
+dequant-matmul, the fused QKV attention, the per-(batch, head) attention
+and the fused LayerNorm, and the reference-wire embedding server
+(``python -m bert_tpu_torch.server``). It imports torch and numpy, never
+JAX or ``bert_tpu``.
 
 Entry points run on the card unless the caller asks for the CPU
 (``BertTorch.from_file(path, device="cpu")``), where every kernel's plain

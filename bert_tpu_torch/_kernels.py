@@ -51,6 +51,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         f"fused_attention_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
         for t in ("f32", "bf16")
     },
+    "attention": {
+        # q, k, v, bias, out, B, H, T, d_head, pairwise, scale, stream
+        f"mha_{t}": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
+        for t in ("f32", "bf16")
+    },
 }
 
 _lock = threading.Lock()

@@ -21,15 +21,25 @@ dispatched before any result is gathered, and each result is copied
 device→host without blocking into pinned memory as soon as its batch is
 queued.
 
-Streaming (``encode_iter``), warmup and its manifest, ``save_cache``, the
-W8A8 int8 regime and multi-device execution are not ported yet
-(ROADMAP.md).
+``from_file`` takes a ggml-bin file, an HF checkpoint directory or a
+``.npz`` weight cache (``save_cache`` writes one). ``encode_iter`` /
+``eval_tokens_iter`` stream a corpus with bounded memory. ``warmup`` runs
+each (rows, T) shape once before the first request, or only the shapes a
+previous run recorded in its manifest; on the card that builds the kernels
+and warms cuBLAS and the caching allocator. There is no compile to cache:
+the kernel ``.so`` cache of ``_kernels.py`` stands in for bert_tpu's XLA
+compilation cache. The W8A8 int8 regime and multi-device execution are
+not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import json
+import logging
+import os
 import time
-from typing import List, Optional, Sequence
+from collections import deque
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,6 +57,7 @@ from .params import BertConfig, params_to_torch
 from .profiling import PhaseTimers
 from .tokenizer import WordPieceTokenizer
 
+_logger = logging.getLogger(__name__)
 _WIRE_DTYPES = {"f32": torch.float32, "f16": torch.float16,
                 "int8": torch.int8}
 
@@ -117,6 +128,9 @@ class BertTorch:
         self._pack_segments = pack_segments
 
         self.load_phases = dict(loaded.load_phases or {})
+        # the host tree as loaded, for save_cache: the device copy holds
+        # tables and dense weights in the compute dtype, which may be bf16
+        self.host_params = loaded.params
         t0 = time.perf_counter()
         # tables and dense weights are stored in the compute dtype: the
         # model casts them to it at use, so the numbers are the same
@@ -132,10 +146,20 @@ class BertTorch:
     def from_file(cls, path: str, device=None,
                   quantize_ftype: Optional[int] = None,
                   **kw) -> "BertTorch":
-        """Load a ggml-bin file onto ``device`` (default: the card)."""
+        """Load a ggml-bin file, HF checkpoint directory or ``.npz`` weight
+        cache onto ``device`` (default: the card)."""
         resolve_device(device)  # fail before parsing the file
         return cls(load_model(path, quantize_ftype=quantize_ftype),
                    device=device, **kw)
+
+    def save_cache(self, path: str) -> None:
+        """Write the native .npz weight cache (stacked host params +
+        vocab + pooling), in bert_tpu's format: reloads via from_file
+        without parsing or repacking."""
+        from .checkpoint import save_params
+
+        save_params(path, self.host_params, self.config, self.vocab.tokens,
+                    pooling=self.pooling)
 
     # -- introspection (bert.h:79-82) ---------------------------------------
     @property
@@ -303,6 +327,52 @@ class BertTorch:
             norms = np.linalg.norm(out, axis=-1, keepdims=True)
             np.divide(out, np.maximum(norms, 1e-12), out=out)
 
+    # -- streaming corpus-scale evaluation ----------------------------------
+    def eval_tokens_iter(self, token_lists: Sequence[Sequence[int]],
+                         window: int = 4096, depth: int = 4):
+        """Embed an arbitrarily large pre-tokenized corpus with bounded
+        memory: yields [≤window, n_embd] f32 blocks in input order. At most
+        ``depth`` windows are in flight — windows i+1..i+depth-1 are
+        dispatched before window i is gathered, so the card computes (and
+        its result copies run) ahead while the host places results.
+        Residency is O(depth × window)."""
+        return self._stream(len(token_lists), window, depth,
+                            lambda s, e: token_lists[s:e])
+
+    def encode_iter(self, texts: Sequence[str], window: int = 4096,
+                    depth: int = 4):
+        """Streaming :meth:`encode_batch`: tokenize and embed one window at
+        a time, yielding [≤window, n_embd] blocks in input order."""
+        def toks(s, e):
+            with self.timers.phase("tokenize"):
+                return self.tokenizer.tokenize_batch(
+                    texts[s:e], self.config.n_max_tokens)
+        return self._stream(len(texts), window, depth, toks)
+
+    def _stream(self, n: int, window: int, depth: int, window_tokens):
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        return self._stream_gen(n, window, depth, window_tokens)
+
+    def _stream_gen(self, n, window, depth, window_tokens):
+        q: deque = deque()  # (start, end, pending)
+        for s in range(0, n, window):
+            e = min(n, s + window)
+            q.append((s, e, self._dispatch_all(window_tokens(s, e))))
+            if len(q) >= depth:
+                yield self._materialize_window(q.popleft())
+        while q:
+            yield self._materialize_window(q.popleft())
+
+    def _materialize_window(self, item) -> np.ndarray:
+        s, e, pending = item
+        out = np.empty((e - s, self.config.n_embd), dtype=np.float32)
+        self._gather_pending(pending, out)
+        self.timers.add_sentences(e - s)
+        return out
+
     def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
         """Tokenize + embed a batch of sentences (bert_encode_batch)."""
         with self.timers.phase("tokenize"):
@@ -321,3 +391,129 @@ class BertTorch:
         out = self.timers.summary()
         out["load_phases"] = dict(self.load_phases)
         return out
+
+    # -- warmup --------------------------------------------------------------
+    @torch.inference_mode()
+    def _warm_shape(self, rows: int, seq: int, kind: str) -> None:
+        """Run one (rows, seq) shape on zeros, through its host copy."""
+        ids = self._to_device(np.zeros((rows, seq), dtype=np.int64))
+        if kind == "packed":
+            seg = self._to_device(np.zeros((rows, seq), dtype=np.int32))
+            emb = bert_forward_packed(
+                self.model, ids, seg, ids, n_segments=self._pack_segments,
+                compute_dtype=self.compute_dtype, pooling=self.pooling)
+        else:
+            mask = self._to_device(np.ones((rows, seq), dtype=np.float32))
+            emb = bert_forward(self.model, ids, mask,
+                               compute_dtype=self.compute_dtype,
+                               pooling=self.pooling)
+        _, done = self._copy_to_host(self._wire(emb))
+        if done is not None:
+            done.synchronize()
+
+    def warmup(self, batch_sizes: Optional[Sequence[int]] = None,
+               max_rows: Optional[int] = None,
+               manifest: Optional[Any] = None) -> None:
+        """Run every shape a server will meet once, before its first
+        request. On the card this builds the kernels and warms cuBLAS and
+        the caching allocator (there is no compile to cache).
+
+        With ``manifest`` (a path written by :meth:`save_warmup_manifest`,
+        or its ``shapes`` list), warms exactly the shapes a previous run
+        executed; a corrupt or empty manifest, or one written for another
+        model, falls back to the grid below. Otherwise warms the bucketed
+        (B, T) grid for ``batch_sizes`` (default: 1, 8 and max_batch) plus
+        every packed row bucket up to ``max_rows`` (default max_batch)."""
+        if manifest is not None:
+            shapes = self._load_manifest_shapes(manifest)
+            if shapes:
+                for rows, seq, kind in shapes:
+                    self._warm_shape(rows, seq, kind)
+                return
+            _logger.warning("warmup manifest unusable or empty — "
+                            "falling back to the grid")
+        if batch_sizes is None:
+            batch_sizes = sorted({1, min(8, self.max_batch), self.max_batch})
+        else:
+            batch_sizes = sorted({min(b, self.max_batch) for b in batch_sizes})
+        for t in self.seq_buckets:
+            for b in batch_sizes:
+                self._warm_shape(b, t, "bucketed")
+        if self._packing:
+            cap = min(max_rows or self.max_batch, self.max_batch)
+            for r in sorted({min(_size_bucket(r, self._min_rows), cap)
+                             for r in range(1, cap + 1)}):
+                self._warm_shape(r, self._pack_seq, "packed")
+
+    def _load_manifest_shapes(self, manifest) -> List[tuple]:
+        """Parse + validate a warmup manifest (path or ``shapes`` list) into
+        (rows, seq, kind) tuples for this engine: tolerates corrupt files,
+        rejects manifests recorded for another model, clamps rows to
+        max_batch and snaps seq to this engine's buckets. Returns [] when
+        nothing usable remains."""
+        raw = manifest
+        if isinstance(manifest, (str, bytes)):
+            try:
+                with open(manifest, encoding="utf-8") as f:
+                    data = json.load(f)
+                meta = data.get("model") or {}
+                if meta and (meta.get("n_embd") != self.config.n_embd or
+                             meta.get("n_layer") != self.config.n_layer):
+                    _logger.warning(
+                        "warmup manifest %s was recorded for a different "
+                        "model (%s) — ignoring", manifest, meta)
+                    return []
+                raw = data["shapes"]
+            except (OSError, ValueError, KeyError, TypeError,
+                    AttributeError) as exc:
+                _logger.warning("could not read warmup manifest %s: %r",
+                                manifest, exc)
+                return []
+        shapes = set()
+        try:
+            for sh in raw:
+                rows, seq = int(sh["rows"]), int(sh["seq"])
+                kind = sh.get("kind", "bucketed")
+                if rows < 1 or kind not in ("bucketed", "packed"):
+                    continue
+                if not 1 <= seq <= self.config.n_max_tokens:
+                    continue
+                rows = min(rows, self.max_batch)
+                seq = (self._pack_seq if kind == "packed"
+                       else pick_bucket(seq, self.seq_buckets))
+                shapes.add((rows, seq, kind))
+        except (TypeError, KeyError, ValueError, AttributeError) as exc:
+            _logger.warning("malformed warmup manifest shapes: %r", exc)
+            return []
+        return sorted(shapes)
+
+    def seen_shapes(self) -> List[Dict[str, Any]]:
+        """The (rows, seq) shapes this engine has executed (from the bucket
+        counters) — the warmup set a serving config really needs."""
+        return [{"rows": b, "seq": s,
+                 "kind": "packed" if kind == "packed" else "bucketed"}
+                for (b, s, kind) in sorted(self.timers.bucket_counts)]
+
+    def save_warmup_manifest(self, path: str) -> None:
+        """Persist the union of ``seen_shapes()`` and any shapes already in
+        ``path`` (bert_tpu's manifest format), written atomically."""
+        shapes = {(s["rows"], s["seq"], s["kind"])
+                  for s in self.seen_shapes()}
+        if os.path.exists(path):
+            try:
+                with open(path, encoding="utf-8") as f:
+                    for s in json.load(f)["shapes"]:
+                        shapes.add((int(s["rows"]), int(s["seq"]),
+                                    s.get("kind", "bucketed")))
+            except (ValueError, KeyError, TypeError):
+                pass  # corrupt manifest: rewrite from scratch
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({
+                "version": 1,
+                "model": {"n_embd": self.config.n_embd,
+                          "n_layer": self.config.n_layer},
+                "shapes": [{"rows": r, "seq": s, "kind": k}
+                           for r, s, k in sorted(shapes)],
+            }, f, indent=1)
+        os.replace(tmp, path)

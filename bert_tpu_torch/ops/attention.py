@@ -1,0 +1,104 @@
+"""Per-(batch, head) masked softmax attention over ``[B, H, T, dh]``.
+
+Counterpart of ``bert_tpu/ops/attention.py`` with its public API,
+``multi_head_attention(q, k, v, mask_bias, *, scale)``. On the H100 the
+kernel is ``bert_tpu_torch/csrc/attention.cu`` (it replaces the Pallas
+``_mha_kernel``; the source says what bounds it and how the simple design
+copes). It takes contiguous f32 or bf16 operands with head dims 1..64 and
+an f32 bias, key-side ``[B, T]`` or pairwise ``[B, T, T]`` — the Pallas
+kernel had only the key-side form, and bert_tpu sends pairwise bias to
+``_mha_jnp``; on the card the port has no plain path, so the kernel takes
+both.
+
+:func:`_mha_plain` is ``_mha_jnp`` in torch, and the kernel rounds as both
+do: f32 scores multiplied by ``scale``, then the bias added; an f32
+softmax normalised before p is rounded to v's type; ``p @ v`` summed in
+f32 and cast once. (The fused QKV kernel rounds otherwise: it folds the
+scale into q and defers the normalisation.)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _kernels
+
+MAX_D_HEAD = 64  # the kernel's widest instance (csrc/attention.cu)
+
+
+def _bias4(mask_bias: torch.Tensor) -> torch.Tensor:
+    """[B, T] key-side → [B, 1, 1, T]; [B, T, T] pairwise → [B, 1, T, T]."""
+    if mask_bias.dim() == 2:
+        return mask_bias[:, None, None, :]
+    if mask_bias.dim() == 3:
+        return mask_bias[:, None, :, :]
+    raise ValueError(f"mask_bias rank {mask_bias.dim()} not in (2, 3)")
+
+
+def _mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask_bias: torch.Tensor, scale: float) -> torch.Tensor:
+    """Plain version: ``_mha_jnp`` on [B, H, T, dh] operands."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = s * scale + _bias4(mask_bias)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def _launch(q, k, v, mask_bias, scale):
+    b, h, t, dh = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"multi_head_attention: dtype {q.dtype} not in "
+                        "(f32, bf16)")
+    for name, x in (("k", k), ("v", v)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"multi_head_attention: {name} must match q "
+                             f"(shape, dtype, device), got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    pairwise = mask_bias.dim() == 3
+    want = (b, t, t) if pairwise else (b, t)
+    if (tuple(mask_bias.shape) != want or mask_bias.dtype != torch.float32
+            or mask_bias.device != q.device):
+        raise ValueError(f"multi_head_attention: mask_bias must be f32 "
+                         f"{want} on {q.device}, got {mask_bias.dtype} "
+                         f"{tuple(mask_bias.shape)}")
+    if not all(x.is_contiguous() for x in (q, k, v, mask_bias)):
+        raise ValueError("multi_head_attention: operands must be contiguous")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = "mha_f32" if q.dtype == torch.float32 else "mha_bf16"
+    lib = _kernels.library("attention")
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, fn)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
+            out.data_ptr(), b, h, t, dh, int(pairwise), float(scale),
+            _kernels.stream_of(q))
+    _kernels.check(rc, fn)
+    multi_head_attention.launches += 1
+    return out
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         mask_bias: torch.Tensor, *, scale: float
+                         ) -> torch.Tensor:
+    """Masked MHA over [B, H, T, d_head] tensors; ``mask_bias`` is additive
+    — [B, T] key-side (0 for real tokens, NEG_INF for padding) or [B, T, T]
+    pairwise (packed block-diagonal rows). CPU tensors take
+    :func:`_mha_plain`; CUDA tensors launch the kernel or raise. Head dims
+    above 64 raise on every device (ROADMAP.md)."""
+    if q.dim() != 4:
+        raise ValueError(f"multi_head_attention: q {tuple(q.shape)} is not "
+                         "[B, H, T, dh]")
+    if not 1 <= q.shape[-1] <= MAX_D_HEAD:
+        raise ValueError(f"multi_head_attention: head dim {q.shape[-1]} "
+                         f"outside 1..{MAX_D_HEAD}, the kernel's range "
+                         "(wider heads: ROADMAP.md)")
+    if q.device.type == "cpu":
+        return _mha_plain(q, k, v, mask_bias, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"multi_head_attention: unsupported device "
+                         f"{q.device}")
+    return _launch(q, k, v, mask_bias, scale)
+
+
+multi_head_attention.launches = 0  # kernel launches, counted where they happen

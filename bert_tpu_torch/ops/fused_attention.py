@@ -8,9 +8,9 @@ model's native layout. On the H100 the kernel is
 ``bert_tpu_torch/csrc/fused_attention.cu`` (it replaces the Pallas
 ``_fused_attn_kernel``; the source says what bounds it and how the simple
 design copes). It streams key tiles with an online softmax, so it has no
-compile envelope to probe and every shape the router produces goes
-through it: the per-(batch, head) Pallas kernel of ``bert_tpu/ops/
-attention.py`` has no counterpart yet (ROADMAP.md).
+compile envelope: :func:`fused_route` sends it every shape whose head dim
+has an instance, and the model sends the rest to the per-(batch, head)
+kernel of ``ops/attention.py``.
 
 :func:`attention_plain` is ``_mha_jnp`` applied to the head-interleaved
 layout, what the JAX model runs on a CPU. Its rounding differs from the
@@ -25,17 +25,19 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+from .attention import _mha_plain
 
 HEAD_DIMS = (32, 64)  # the kernel's template instances
 
 
-def _bias4(mask_bias: torch.Tensor) -> torch.Tensor:
-    """[B, T] key-side → [B, 1, 1, T]; [B, T, T] pairwise → [B, 1, T, T]."""
-    if mask_bias.dim() == 2:
-        return mask_bias[:, None, None, :]
-    if mask_bias.dim() == 3:
-        return mask_bias[:, None, :, :]
-    raise ValueError(f"mask_bias rank {mask_bias.dim()} not in (2, 3)")
+def fused_route(t: int, n_head: int, d_head: int, dtype: torch.dtype,
+                pairwise: bool) -> bool:
+    """Whether the fused kernel takes this attention (the port's
+    ``pick_head_chunk``): true exactly when ``d_head`` has an instance. The
+    kernel streams key tiles, so T, the head count, the dtype and the bias
+    form set no envelope; they are parameters so that the call reads like
+    bert_tpu's."""
+    return d_head in HEAD_DIMS
 
 
 def attention_plain(qkv: torch.Tensor, mask_bias: torch.Tensor, *,
@@ -43,11 +45,7 @@ def attention_plain(qkv: torch.Tensor, mask_bias: torch.Tensor, *,
     """Plain version: ``_mha_jnp`` on the head-interleaved layout."""
     b, t, _ = qkv.shape
     q5 = qkv.reshape(b, t, n_head, 3, d_head).permute(0, 2, 3, 1, 4)
-    q, k, v = q5[:, :, 0], q5[:, :, 1], q5[:, :, 2]  # [B, H, T, dh]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    s = s * scale + _bias4(mask_bias)
-    p = torch.softmax(s, dim=-1).to(qkv.dtype)
-    ctx = torch.matmul(p.float(), v.float()).to(qkv.dtype)
+    ctx = _mha_plain(q5[:, :, 0], q5[:, :, 1], q5[:, :, 2], mask_bias, scale)
     return ctx.permute(0, 2, 1, 3).reshape(b, t, n_head * d_head)
 
 

@@ -51,6 +51,9 @@ GGML_FTYPE_F16 = 1
 GGML_FTYPE_Q4_0 = 2
 GGML_FTYPE_Q4_1 = 3
 
+FTYPE_NAMES = {0: "f32", 1: "f16", 2: "q4_0", 3: "q4_1"}
+FTYPE_BY_NAME = {v: k for k, v in FTYPE_NAMES.items()}
+
 
 # ---------------------------------------------------------------------------
 # Core block codecs (numpy, shape [..., K] with K % 32 == 0)

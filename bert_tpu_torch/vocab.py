@@ -76,3 +76,13 @@ class Vocab:
     @classmethod
     def from_tokens(cls, tokens: List[str]) -> "Vocab":
         return cls(tokens=list(tokens))
+
+    @classmethod
+    def from_vocab_txt(cls, path: str) -> "Vocab":
+        """Load a HuggingFace ``vocab.txt`` (one token per line, id = line no)."""
+        with open(path, "r", encoding="utf-8") as f:
+            tokens = [line.rstrip("\n") for line in f]
+        # trailing blank line is not a token
+        while tokens and tokens[-1] == "":
+            tokens.pop()
+        return cls(tokens=tokens)

@@ -7,22 +7,34 @@ Run from the root of a checkout, on a host with one CUDA card and the CUDA
 toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
 
 1. prints the card's name and power limit, then builds every kernel of the
-   main path from bert_tpu_torch/csrc/ (one nvcc per source, in parallel);
+   port from bert_tpu_torch/csrc/ (one nvcc per source, in parallel);
 2. kernel phase: holds each kernel against its plain PyTorch version on the
-   card, at the main path's shapes and at bert-base and bge-large shapes,
-   in f32 and bf16, and times kernel, plain version and (where one PyTorch
-   call computes the same function) that call: device time from CUDA-graph
+   card, at the paths' shapes and at bert-base and bge-large shapes, in f32
+   and bf16, and times kernel, plain version and (where one PyTorch call
+   computes the same function) that call: device time from CUDA-graph
    replay between CUDA events, and the kernel's eager time beside it;
 3. main path: writes a MiniLM-L6 Q4_0 ggml file from seed 0, loads it with
    ``BertTorch.from_file(path)`` (the card, bf16) and answers a few
    mixed-length ``encode_batch`` requests — packed short sentences,
    bucketed sentences over 64 tokens, one of 512 tokens — with every
    kernel's launch count set to 0 just before and read just after; fails
-   if any kernel was not launched; profiles one more request (device time
-   by kernel against wall time). Then checks the result against the same
-   file on the CPU in f32 (card f32: cos > 0.9999 and atol 5e-3; card bf16:
-   cos > 0.999);
-4. prints one JSON line with each kernel's numbers, then as the last line
+   if a kernel of the path was not launched, or if the per-(batch, head)
+   attention kernel was (d_head 32 takes the fused kernel); profiles one
+   more request; checks the result against the same file on the CPU in
+   f32 (card f32: cos > 0.9999 and atol 5e-3; card bf16: cos > 0.999);
+4. hf_server path: writes a random-weight HF checkpoint directory at
+   rubert-tiny2's published widths (D 312, 12 heads of 26, F 600, 3
+   layers, vocab 83,828, 2,048 positions, CLS pooling) from seed 0, loads
+   it with ``BertTorch.from_file(dir)``, warms it up and serves it with
+   ``EmbeddingServer`` in-process; concurrent text clients, an EVAL frame,
+   BATCH frames of a mixed request (packed rows, buckets, one sentence
+   truncated into the 2,048 bucket), META and STATS2 go over the wire
+   with the counts set to 0 just before and read just after; fails unless
+   the per-(batch, head) attention and the LayerNorm kernels launched and
+   the fused attention and Q4 kernels did not; holds every reply against
+   a CPU f32 model on the same directory (cos > 0.999) and a card f32
+   model against it (cos > 0.9999, max|Δ| ≤ 5e-3);
+5. prints one JSON line with each kernel's numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -33,10 +45,13 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import statistics
+import struct
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12,      # dense tensor-core rate
@@ -44,6 +59,14 @@ PEAK_FLOPS = {"bf16": 989e12,      # dense tensor-core rate
 
 MINILM_L6 = dict(n_vocab=30522, n_max_tokens=512, n_embd=384,
                  n_intermediate=1536, n_head=12, n_layer=6)
+# cointegrated/rubert-tiny2, its published config.json: d_head = 312 / 12 =
+# 26, outside the fused kernel's instances; 312 % 64 != 0, so dense weights
+RUBERT_TINY2 = {"vocab_size": 83828, "max_position_embeddings": 2048,
+                "hidden_size": 312, "intermediate_size": 600,
+                "num_attention_heads": 12, "num_hidden_layers": 3,
+                "hidden_act": "gelu", "layer_norm_eps": 1e-12,
+                "type_vocab_size": 2, "model_type": "bert",
+                "architectures": ["BertModel"]}
 
 # atol = rtol per dtype, as tests/test_kernels_tpu.py states them. q4 in
 # bf16 has no TPU-test tolerance; it gets 5e-2: the plain version rounds
@@ -51,9 +74,15 @@ MINILM_L6 = dict(n_vocab=30522, n_max_tokens=512, n_embd=384,
 # the kernel rounds the f32 weight once (as the Pallas kernel does), up to
 # 2 bf16 ulps per weight, and the difference grows with sqrt(K) (Q4_1 at
 # K=1024 measured 2.5e-2 on the card).
+# multi_head_attention in bf16: 2e-2. Kernel and plain version both round
+# p = exp(s - m) / l to bf16 once and the output once, but the kernel sums
+# l tile by tile and takes the card's expf, so a p near a rounding
+# boundary can land one bf16 ulp away (4e-3 at O(1)); measured 1 ulp of
+# the output at every shape on the card (PERF.md).
 TOL = {"q4_matmul": {"f32": 1e-3, "bf16": 5e-2},
        "fused_qkv_attention": {"f32": 2e-4, "bf16": 2e-2},
-       "fused_layer_norm": {"f32": 1e-4, "bf16": 3e-2}}
+       "fused_layer_norm": {"f32": 1e-4, "bf16": 3e-2},
+       "multi_head_attention": {"f32": 1e-4, "bf16": 2e-2}}
 
 REPLACES = {
     "q4_matmul": "bert_tpu/ops/q4_matmul.py:75 (_q4_matmul_kernel)",
@@ -61,10 +90,12 @@ REPLACES = {
                         "(_ln_kernel, _ln_res_kernel, _ln_res_pb_kernel)",
     "fused_qkv_attention": "bert_tpu/ops/fused_attention.py:43 "
                            "(_fused_attn_kernel)",
+    "multi_head_attention": "bert_tpu/ops/attention.py:57 (_mha_kernel)",
 }
 SOURCE = {"q4_matmul": "bert_tpu_torch/csrc/q4_matmul.cu",
           "fused_layer_norm": "bert_tpu_torch/csrc/layer_norm.cu",
-          "fused_qkv_attention": "bert_tpu_torch/csrc/fused_attention.cu"}
+          "fused_qkv_attention": "bert_tpu_torch/csrc/fused_attention.cu",
+          "multi_head_attention": "bert_tpu_torch/csrc/attention.cu"}
 
 
 class SmokeFailure(RuntimeError):
@@ -338,7 +369,81 @@ def kernel_phase(dev, rng):
                     plain_form_ms=ln_only_ms,
                     plain_form_library_ms=ln_only_lib_ms)
         torch.cuda.synchronize()
+    results["multi_head_attention"] = mha_kernel_phase(dev, rng)
     return results
+
+
+def mha_kernel_phase(dev, rng):
+    """Kernel 4, the per-(batch, head) attention: the shapes of
+    tests/test_kernels_tpu.py:101-117, then the hf_server path's (d_head
+    26: bucketed rows at 512, the 2,048 bucket, packed rows with their
+    pairwise bias). Each shape is timed in bf16; the path's 2,048 bucket
+    is the kernel's row in the JSON line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from bert_tpu_torch.ops import attention as M
+
+    log("kernel 4: multi_head_attention")
+    shapes = [(4, 12, 512, 32, False), (2, 16, 512, 64, False),
+              (8, 12, 512, 26, False), (1, 12, 2048, 26, False),
+              (16, 12, 64, 26, True)]
+    timed, row = [], None
+    for (b, h, t, dh, pairwise) in shapes:
+        q32, k32, v32 = (rng.standard_normal((b, h, t, dh)).astype(np.float32)
+                         for _ in range(3))
+        if pairwise:  # packed rows: 4 segments of 16, the last of row 0 pad
+            seg = (np.arange(t) // 16 + 1)[None].repeat(b, 0)
+            seg[0, -16:] = 0
+            same = seg[:, :, None] == seg[:, None, :]
+            bias = np.where(same & (seg > 0)[:, None, :], 0.0, -1e9)
+        else:
+            mask = (rng.random((b, t)) > 0.2).astype(np.float32)
+            mask[:, 0] = 1.0
+            bias = (mask - 1.0) * 1e9
+        bias_t = torch.from_numpy(bias.astype(np.float32)).to(dev)
+        scale = 1.0 / dh ** 0.5
+        form = "pairwise" if pairwise else "key-side"
+        for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = (torch.from_numpy(a).to(dev).to(dt)
+                       for a in (q32, k32, v32))
+            err = compare("multi_head_attention",
+                          M.multi_head_attention(q, k, v, bias_t,
+                                                 scale=scale),
+                          M._mha_plain(q, k, v, bias_t, scale), dn,
+                          f"B,H,T,dh={b},{h},{t},{dh} {form} {dn}")
+            if dn != "bf16":
+                continue
+            bias4 = (bias_t[:, None] if pairwise
+                     else bias_t[:, None, None, :]).to(dt)
+            nbytes = (4 * b * h * t * dh * q.element_size()
+                      + bias_t.numel() * 4)
+            b_ms, b_by = bound(nbytes, 4.0 * b * h * t * t * dh, dn)
+            r = dict(
+                shape=f"B={b} H={h} T={t} dh={dh} {form} bf16",
+                max_abs_err=err,
+                tolerance=TOL["multi_head_attention"][dn],
+                ms=time_ms(lambda: M.multi_head_attention(
+                    q, k, v, bias_t, scale=scale)),
+                eager_ms=eager_ms(lambda: M.multi_head_attention(
+                    q, k, v, bias_t, scale=scale)),
+                plain_ms=time_ms(lambda: M._mha_plain(q, k, v, bias_t,
+                                                      scale)),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias4, scale=scale)),
+                bound_ms=b_ms, bound_by=b_by)
+            log(f"  {r['shape']}: kernel {r['ms']:.5f} ms (eager "
+                f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f}, sdpa "
+                f"{r['library_ms']:.5f}, bound {b_ms:.5f} ({b_by})")
+            timed.append(r)
+            if (b, h, t, dh, pairwise) == (1, 12, 2048, 26, False):
+                row = dict(r)
+        torch.cuda.synchronize()
+    row["shape"] += " (rubert-tiny2's 2048 bucket)"
+    row["max_abs_err"] = max(r["max_abs_err"] for r in timed)
+    row["shapes"] = timed
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -459,6 +564,9 @@ def main_path(dev, rng, counters):
         outs.append(model.encode_batch(r))  # returns after the host copy
         lat.append(time.perf_counter() - t0)
     launches = {c.__name__: c.launches for c in counters}
+    # d_head 32 takes the fused kernel: the per-(b, h) one must stay idle
+    require(launches.pop("multi_head_attention") == 0,
+            "multi_head_attention launched on the MiniLM main path")
     dt = sum(lat)
     n_sent = sum(len(r) for r in requests)
     log(f"main path: {len(requests)} encode_batch requests, {n_sent} "
@@ -500,6 +608,271 @@ def main_path(dev, rng, counters):
     return launches, n_sent / dt
 
 
+# ---------------------------------------------------------------------------
+# hf_server path
+# ---------------------------------------------------------------------------
+
+def write_hf_dir(path: str, seed: int = 0) -> None:
+    """A random-weight HF checkpoint directory at rubert-tiny2's published
+    widths: config.json, pytorch_model.bin (seeded), vocab.txt (the fixture
+    vocab padded to 83,828 entries) and 1_Pooling/config.json declaring CLS
+    pooling, as the model card's example takes the [CLS] vector."""
+    import numpy as np
+    import torch
+
+    from bert_tpu_torch.params import BertConfig, random_named_tensors
+
+    c = RUBERT_TINY2
+    cfg = BertConfig(n_vocab=c["vocab_size"],
+                     n_max_tokens=c["max_position_embeddings"],
+                     n_embd=c["hidden_size"],
+                     n_intermediate=c["intermediate_size"],
+                     n_head=c["num_attention_heads"],
+                     n_layer=c["num_hidden_layers"])
+    os.makedirs(os.path.join(path, "1_Pooling"), exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(c, f, indent=1)
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in
+                random_named_tensors(cfg, seed).items()},
+               os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(fixture_tokens(cfg.n_vocab)) + "\n")
+    with open(os.path.join(path, "1_Pooling", "config.json"), "w") as f:
+        json.dump({"word_embedding_dimension": cfg.n_embd,
+                   "pooling_mode_cls_token": True,
+                   "pooling_mode_mean_tokens": False}, f)
+
+
+def hf_request(rng):
+    """One mixed request: 40 short sentences (packed rows), 8 of 70-400
+    tokens (buckets of 128-512) and one of 2,100 words, truncated into the
+    2,048 bucket."""
+    words = sorted(_WORDS)
+
+    def sentence(n):
+        return " ".join(rng.choice(words, size=n)) + "."
+
+    return ([sentence(int(n)) for n in rng.integers(4, 40, size=40)]
+            + [sentence(int(n)) for n in rng.integers(70, 400, size=8)]
+            + [sentence(2100)])
+
+
+class WireClient:
+    """A blocking client of the reference wire and its framed messages,
+    written from the protocol (bert_tpu_torch/server.py), not with it."""
+
+    EVAL, BATCH = b"\xb5\x87\xe3\x01", b"\xb5\x87\xe3\x02"
+    META, STATS2 = b"\xb5\x87\xe3\x03", b"\xb5\x87\xe3\x05"
+
+    def __init__(self, port: int):
+        self.sock = socket.create_connection(("127.0.0.1", port), 60)
+        (self.n_embd,) = struct.unpack("<i", self.recv(4))
+
+    def recv(self, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            more = self.sock.recv(n - len(buf))
+            if not more:
+                raise ConnectionError("server closed the connection")
+            buf += more
+        return buf
+
+    def rows(self, n: int):
+        import numpy as np
+
+        return np.frombuffer(self.recv(4 * n * self.n_embd),
+                             "<f4").reshape(n, self.n_embd)
+
+    def text(self, t: str):
+        self.sock.sendall(t.encode("utf-8"))
+        return self.rows(1)[0]
+
+    def eval(self, ids):
+        self.sock.sendall(self.EVAL + struct.pack("<i", len(ids))
+                          + struct.pack(f"<{len(ids)}i", *ids))
+        return self.rows(1)[0]
+
+    def batch(self, token_lists):
+        body = b"".join(struct.pack(f"<i{len(t)}i", len(t), *t)
+                        for t in token_lists)
+        self.sock.sendall(self.BATCH + struct.pack("<i", len(token_lists))
+                          + body)
+        return self.rows(len(token_lists))
+
+    def framed(self, magic: bytes, n: int) -> bytes:
+        self.sock.sendall(magic)
+        reply = self.recv(4 + n)
+        require(reply[:4] == magic, f"bad reply magic {reply[:4]!r}")
+        return reply[4:]
+
+    def close(self):
+        self.sock.close()
+
+
+def hf_server_path(rng, counters):
+    import numpy as np
+    import torch
+
+    from bert_tpu_torch import BertTorch
+    from bert_tpu_torch.server import ServerThread
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke", "rubert_tiny2_seed0")
+    t0 = time.perf_counter()
+    write_hf_dir(work)
+    log(f"hf_server: wrote a rubert-tiny2-width HF directory from seed 0 in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    model = BertTorch.from_file(work)  # the card, bf16 compute, f16 wire
+    log(f"hf_server: BertTorch.from_file -> {model.device}, "
+        f"{model.compute_dtype}, d_head {model.config.d_head}, pooling "
+        f"{model.pooling} in {time.perf_counter() - t0:.2f} s; load phases "
+        f"{model.stats()['load_phases']}")
+    require(model.device.type == "cuda" and model.config.d_head == 26
+            and model.pooling == "cls" and model.n_max_tokens == 2048,
+            "hf_server: the directory did not load as rubert-tiny2")
+    max_batch = 64
+    t0 = time.perf_counter()
+    model.warmup(batch_sizes=[1, 8, max_batch], max_rows=max_batch)
+    torch.cuda.synchronize()
+    log(f"hf_server: warmup (every bucket at 1/8/{max_batch} rows, every "
+        f"packed row bucket) in {time.perf_counter() - t0:.2f} s")
+
+    texts = hf_request(rng)
+    toks = model.tokenizer.tokenize_batch(texts, model.n_max_tokens)
+    lengths = [len(t) for t in toks]
+    require(max(lengths) == 2048 and sum(n > 64 for n in lengths) >= 8
+            and sum(n <= 64 for n in lengths) >= 2,
+            "hf_server request does not take both routes and the 2048 "
+            "bucket")
+    log(f"hf_server request: {len(toks)} sentences, tokens min/max "
+        f"{min(lengths)}/{max(lengths)}, {sum(n > 64 for n in lengths)} "
+        "over 64")
+    words = sorted(_WORDS)
+    client_texts = [[" ".join(rng.choice(words, size=int(n))) for n in
+                     rng.integers(3, 150, size=6)] for _ in range(8)]
+    n_frames = 10
+    replies = {}
+
+    with ServerThread(model, max_batch=max_batch) as st:
+        for c in counters:
+            c.launches = 0
+
+        def text_client(batch):
+            cl = WireClient(st.port)
+            try:
+                return [cl.text(t) for t in batch]
+            finally:
+                cl.close()
+
+        with ThreadPoolExecutor(len(client_texts)) as pool:
+            replies["text"] = list(pool.map(text_client, client_texts))
+        cl = WireClient(st.port)
+        replies["eval"] = cl.eval(toks[42])
+        lat = []
+        for _ in range(n_frames):
+            t0 = time.perf_counter()
+            replies["batch"] = cl.batch(toks)
+            lat.append(time.perf_counter() - t0)
+        version, n_embd, n_max = struct.unpack(
+            "<iii", cl.framed(cl.META, 12))
+        served, batches, n_lat, p50, p95, p99 = struct.unpack(
+            "<QQIIII", cl.framed(cl.STATS2, 32))
+        cl.close()
+        launches = {c.__name__: c.launches for c in counters}
+    rate = n_frames * len(toks) / sum(lat)
+    log(f"hf_server: {n_frames} BATCH frames of {len(toks)} sentences in "
+        f"{sum(lat):.4f} s = {rate:.1f} sentences/s (warm; frame latency "
+        f"median {statistics.median(lat) * 1e3:.3f} ms, max "
+        f"{max(lat) * 1e3:.3f} ms; {gpu_line()})")
+    log(f"hf_server: META version {version} n_embd {n_embd} n_max_tokens "
+        f"{n_max}; STATS2 served {served} in {batches} batches, request "
+        f"latency p50 {p50} us p95 {p95} us p99 {p99} us over {n_lat}")
+    log(f"hf_server buckets: {model.stats()['buckets']}")
+    log(f"hf_server kernel launches: {launches}")
+    require((n_embd, n_max) == (312, 2048), "hf_server: META reply wrong")
+    require(served == sum(map(len, client_texts)) + 1
+            + n_frames * len(toks), f"hf_server: STATS2 served {served}")
+    require(launches["multi_head_attention"] > 0
+            and launches["fused_layer_norm"] > 0,
+            "hf_server: the per-(b, h) attention or LayerNorm kernel was "
+            "never launched")
+    require(launches["fused_qkv_attention"] == 0
+            and launches["q4_matmul"] == 0,
+            "hf_server: a d_head 26 dense model launched the fused "
+            "attention or Q4 kernel")
+    before = dict(model.timers.bucket_counts)
+    profile_request(model, texts)
+    one = {k: n - before.get(k, 0) for k, n in
+           model.timers.bucket_counts.items() if n > before.get(k, 0)}
+    split = attention_split(one, model.config, rng)
+
+    # every reply against the plain path on the CPU (f32), same directory
+    t0 = time.perf_counter()
+    cpu = BertTorch.from_file(work, device="cpu")
+    flat_texts = [t for batch in client_texts for t in batch]
+    ref_text = cpu.encode_batch(flat_texts)
+    ref_batch = cpu.eval_tokens(toks)
+    log(f"hf_server: CPU f32 reference in {time.perf_counter() - t0:.2f} s")
+    got_text = np.stack([e for r in replies["text"] for e in r])
+    cos = np.concatenate([np.sum(got_text * ref_text, axis=-1),
+                          np.sum(replies["batch"] * ref_batch, axis=-1),
+                          [float(replies["eval"] @ ref_batch[42])]])
+    log(f"hf_server: every reply (card bf16, f16 wire) vs CPU f32: "
+        f"{len(cos)} replies, min cos {cos.min():.6f}, max|Δ| "
+        f"{float(np.abs(replies['batch'] - ref_batch).max()):.3e} (BATCH)")
+    require(bool(np.all(cos > 0.999)), "hf_server: a reply's cos <= 0.999")
+    gpu32 = BertTorch.from_file(work, device="cuda",
+                                compute_dtype=torch.float32)
+    e32 = gpu32.eval_tokens(toks)
+    cos32 = np.sum(e32 * ref_batch, axis=-1)
+    err32 = float(np.abs(e32 - ref_batch).max())
+    log(f"hf_server: card f32 vs CPU f32: min cos {cos32.min():.7f}, "
+        f"max|Δ| {err32:.3e}")
+    require(bool(np.all(cos32 > 0.9999)), "hf_server: card f32 cos <= 0.9999")
+    require(err32 <= 5e-3, "hf_server: card f32 max|Δ| > 5e-3")
+    return launches, rate, split
+
+
+def attention_split(buckets, cfg, rng):
+    """The per-(b, h) attention's device time in one request, bucket by
+    bucket: each (rows, T) batch the request ran, timed alone by CUDA-graph
+    replay on random bf16 operands (packed rows with a block-diagonal bias
+    of four 16-token segments), times its batches and the layer count."""
+    import numpy as np
+    import torch
+
+    from bert_tpu_torch.ops.attention import multi_head_attention
+
+    h, dh = cfg.n_head, cfg.d_head
+    split = []
+    for (rows, t, kind), n in sorted(buckets.items()):
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (rows, h, t, dh)).astype(np.float32)).cuda().to(torch.bfloat16)
+            for _ in range(3))
+        if kind == "packed":
+            seg = np.arange(t) // 16
+            bias = np.where(seg[:, None] == seg[None, :], 0.0, -1e9)
+            bias = np.ascontiguousarray(np.broadcast_to(bias, (rows, t, t)))
+        else:
+            bias = np.zeros((rows, t))
+        bias = torch.from_numpy(bias.astype(np.float32)).cuda()
+        ms = time_ms(lambda: multi_head_attention(q, k, v, bias,
+                                                  scale=dh ** -0.5))
+        split.append({"bucket": f"{rows}x{t}" + (" packed" if kind else ""),
+                      "batches": n, "ms_per_call": ms,
+                      "ms_per_request": ms * n * cfg.n_layer})
+    total = sum(r["ms_per_request"] for r in split)
+    log(f"hf_server: per-(b, h) attention in one request, by bucket "
+        f"(graph replay, {gpu_line()}): {total:.4f} ms")
+    for r in split:
+        log(f"  {r['bucket']:>14s}: {r['batches']} batch x {cfg.n_layer} "
+            f"layers x {r['ms_per_call']:.5f} ms = {r['ms_per_request']:.4f}"
+            f" ms ({100 * r['ms_per_request'] / total:.1f}%)")
+    return split
+
+
 def main() -> int:
     import torch
 
@@ -511,6 +884,7 @@ def main() -> int:
     import numpy as np
 
     from bert_tpu_torch import _kernels
+    from bert_tpu_torch.ops.attention import multi_head_attention
     from bert_tpu_torch.ops.fused_attention import fused_qkv_attention
     from bert_tpu_torch.ops.layer_norm import fused_layer_norm
     from bert_tpu_torch.ops.q4_matmul import q4_matmul
@@ -531,11 +905,17 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(17)
     results = kernel_phase(dev, rng)
-    counters = [q4_matmul, fused_layer_norm, fused_qkv_attention]
+    counters = [q4_matmul, fused_layer_norm, fused_qkv_attention,
+                multi_head_attention]
     launches, rate = main_path(dev, rng, counters)
+    hf_launches, hf_rate, hf_split = hf_server_path(rng, counters)
+    # each kernel's launches on its path: MiniLM-L6 for the first three,
+    # hf_server for the per-(batch, head) attention
+    launches["multi_head_attention"] = hf_launches["multi_head_attention"]
 
     kernels = []
-    for name in ("q4_matmul", "fused_layer_norm", "fused_qkv_attention"):
+    for name in ("q4_matmul", "fused_layer_norm", "fused_qkv_attention",
+                 "multi_head_attention"):
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
@@ -548,14 +928,19 @@ def main() -> int:
             **{k: v for k, v in r.items()
                if k.endswith("_ms") and k not in
                ("ms", "plain_ms", "bound_ms", "library_ms")},
+            **({"shapes": r["shapes"], "path": "hf_server",
+                "hf_server_launches": hf_launches,
+                "hf_request_split": hf_split} if "shapes" in r
+               else {"path": "main"}),
         })
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.5f}")
         log(f"{name:20s} {r['shape']}: kernel {r['ms']:.5f} ms (eager "
             f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f}, library "
             f"{lib}, bound {r['bound_ms']:.5f} ({r['bound_by']}), "
-            f"{launches[name]} launches on the main path")
+            f"{launches[name]} launches on its path")
     log(f"warm encode_batch: {rate:.1f} sentences/s on {card}")
+    log(f"warm hf_server BATCH frames: {hf_rate:.1f} sentences/s on {card}")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

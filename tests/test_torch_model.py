@@ -5,7 +5,9 @@ JAX package's params tree, carried across with params_from_jax — go
 through bert_tpu.model (use_pallas=False, the jnp path the JAX model runs
 on a CPU) and through bert_tpu_torch.model, bucketed and packed, mean and
 CLS pooled. At the full MiniLM-L6 width the port reproduces the committed
-golden embeddings within the tolerances of tests/test_goldens.py.
+golden embeddings within the tolerances of tests/test_goldens.py. A
+d_head = 26 config (rubert-tiny2's head dim) takes the other attention
+route, the per-(batch, head) kernel's, in both packages.
 
 Tolerances: f32 2e-5 (the goldens' f32 bound: same arithmetic, other
 summation order); bf16 5e-3 (the goldens' bf16 bound: the frameworks round
@@ -26,6 +28,7 @@ from bert_tpu.params import params_from_named_tensors as j_params_from_named
 from bert_tpu.params import random_named_tensors as j_random_named
 from bert_tpu.tokenizer import WordPieceTokenizer as JTokenizer
 from bert_tpu_torch import model as tmodel
+from bert_tpu_torch.ops.fused_attention import fused_route
 from bert_tpu_torch.params import BertConfig as TConfig
 from bert_tpu_torch.params import (
     params_from_jax,
@@ -174,3 +177,86 @@ def test_golden_token_ids_from_port_tokenizer(golden_port):
         assert t == jtok.tokenize(s, CFG_KW["n_max_tokens"])
         assert len(t) <= PAD_T and list(row[:len(t)]) == t
         assert not row[len(t):].any()
+
+
+# d_head = 52 / 2 = 26: no fused-kernel instance, so both packages take the
+# per-(batch, head) route (bert_tpu: multi_head_attention on the CPU)
+DH26 = dict(n_vocab=512, n_max_tokens=256, n_embd=52, n_intermediate=96,
+            n_head=2, n_layer=2)
+
+
+@pytest.fixture(scope="module")
+def dh26_models():
+    named = j_random_named(JConfig(**DH26), seed=12)
+    jtree = j_params_from_named(named, JConfig(**DH26))
+    host = jax.tree_util.tree_map(np.asarray, jtree)
+    state = params_from_jax(host, TConfig(**DH26), device="cpu")
+    return jtree, tmodel.BertModel(state, TConfig(**DH26))
+
+
+@pytest.mark.parametrize("pooling", ["mean", "cls"])
+def test_dh26_bert_forward_matches_bert_tpu(dh26_models, pooling):
+    jtree, tm = dh26_models
+    rng = np.random.default_rng(3)
+    ids, mask = _batch(rng, b=4, t=80)
+    want = jmodel.bert_forward(jtree, jnp.asarray(ids), jnp.asarray(mask),
+                               JConfig(**DH26), use_pallas=False,
+                               pooling=pooling)
+    with torch.inference_mode():
+        got = tmodel.bert_forward(tm, torch.from_numpy(ids).long(),
+                                  torch.from_numpy(mask), pooling=pooling)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_dh26_bert_forward_packed_matches_bert_tpu(dh26_models):
+    jtree, tm = dh26_models
+    rng = np.random.default_rng(4)
+    lists = [list(rng.integers(1, DH26["n_vocab"], size=int(n)))
+             for n in rng.integers(3, 30, size=7)]
+    plan = plan_packing([len(t) for t in lists], 64, 4)
+    ids, seg, pos, _ = pack_batch(lists, plan, n_rows=plan.n_rows + 1)
+    want = jmodel.bert_forward_packed(
+        jtree, jnp.asarray(ids), jnp.asarray(seg), jnp.asarray(pos),
+        JConfig(**DH26), n_segments=4, use_pallas=False)
+    with torch.inference_mode():
+        got = tmodel.bert_forward_packed(
+            tm, torch.from_numpy(ids).long(), torch.from_numpy(seg),
+            torch.from_numpy(pos).long(), n_segments=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("d_head,fused", [(26, False), (32, True),
+                                          (64, True), (128, False)])
+def test_fused_route(d_head, fused):
+    for t, pairwise in ((64, True), (512, False), (2048, False)):
+        assert fused_route(t, 12, d_head, torch.bfloat16,
+                           pairwise=pairwise) is fused
+
+
+@pytest.mark.parametrize("cfg,route", [(DH26, "mha"), (SMALL, "fused")],
+                         ids=["dh26", "dh32"])
+def test_encoder_layer_takes_its_route(monkeypatch, cfg, route):
+    """A spy on both attention entry points: d_head 26 goes to
+    multi_head_attention on [B, H, T, dh] operands, d_head 32 to the fused
+    QKV kernel on the [B, T, 3D] projection."""
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            calls.append((name, tuple(args[0].shape)))
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(tmodel, "multi_head_attention",
+                        spy("mha", tmodel.multi_head_attention))
+    monkeypatch.setattr(tmodel, "fused_qkv_attention",
+                        spy("fused", tmodel.fused_qkv_attention))
+    c = TConfig(**cfg)
+    model = tmodel.BertModel(params_to_torch(params_from_named_tensors(
+        random_named_tensors(c, 1), c), device="cpu"), c)
+    ids = torch.ones((2, 16), dtype=torch.long)
+    with torch.inference_mode():
+        tmodel.bert_forward(model, ids, torch.ones((2, 16)))
+    want = ((2, c.n_head, 16, c.d_head) if route == "mha"
+            else (2, 16, 3 * c.n_embd))
+    assert calls == [(route, want)] * c.n_layer
