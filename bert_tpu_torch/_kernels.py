@@ -5,8 +5,9 @@ that on the H100. Each source is compiled by ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface under
 ``build/bert_tpu_torch/`` (beside the package, git-ignored), the first time
 it is needed, and loaded with ctypes. Libraries are keyed by a hash of
-their source and flags, so an edited kernel rebuilds and an unchanged one
-is reused. :func:`build` starts one ``nvcc`` per source, all at once.
+their source, the shared headers and the flags, so an edited kernel
+rebuilds and an unchanged one is reused. :func:`build` starts one ``nvcc``
+per source, all at once.
 
 Every pointer and the stream are passed as ``ctypes.c_void_p`` (a bare
 Python int would be cut to 32 bits). Each C entry point launches on the
@@ -79,9 +80,12 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> str:
     """Where the library of ``csrc/<name>.cu`` lives for its current
-    source and flags."""
-    with open(os.path.join(SRC_DIR, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read())
+    source, the shared headers (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(SRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(SRC_DIR, fname), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

@@ -6,9 +6,10 @@ bert_tpu_torch/params.py) plus an additive f32 bias — key-side ``[B, T]``
 or packed pairwise ``[B, T, T]`` — gives the context ``[B, T, D]`` in the
 model's native layout. On the H100 the kernel is
 ``bert_tpu_torch/csrc/fused_attention.cu`` (it replaces the Pallas
-``_fused_attn_kernel``; the source says what bounds it and how the simple
-design copes). It streams key tiles with an online softmax, so it has no
-compile envelope: :func:`fused_route` sends it every shape whose head dim
+``_fused_attn_kernel``; the source says what bounds it and how its
+tensor-core design copes). It streams key tiles with an online softmax, so
+it has no compile envelope: :func:`fused_route` sends it every shape whose
+head dim
 has an instance, and the model sends the rest to the per-(batch, head)
 kernel of ``ops/attention.py``.
 
@@ -49,6 +50,16 @@ def attention_plain(qkv: torch.Tensor, mask_bias: torch.Tensor, *,
     return ctx.permute(0, 2, 1, 3).reshape(b, t, n_head * d_head)
 
 
+def _check_alignment(qkv: torch.Tensor, mask_bias: torch.Tensor) -> None:
+    """The bf16 kernel copies qkv rows by 16 bytes and reads the bias by 8:
+    raise where an operand is not aligned for that; never fall back."""
+    for name, t, need in (("qkv", qkv, 16), ("mask_bias", mask_bias, 8)):
+        if t.data_ptr() % need:
+            raise ValueError(f"fused_qkv_attention: {name} at "
+                             f"0x{t.data_ptr():x} is not {need}-byte "
+                             "aligned")
+
+
 def _launch(qkv, mask_bias, n_head, d_head, scale):
     if qkv.dim() != 3 or qkv.shape[-1] != 3 * n_head * d_head:
         raise ValueError(f"fused_qkv_attention: qkv {tuple(qkv.shape)} is "
@@ -69,6 +80,8 @@ def _launch(qkv, mask_bias, n_head, d_head, scale):
                          f"{tuple(mask_bias.shape)}")
     if not (qkv.is_contiguous() and mask_bias.is_contiguous()):
         raise ValueError("fused_qkv_attention: operands must be contiguous")
+    if qkv.dtype == torch.bfloat16:
+        _check_alignment(qkv, mask_bias)
     out = torch.empty((b, t, n_head * d_head), dtype=qkv.dtype,
                       device=qkv.device)
     if b == 0 or t == 0:

@@ -2,8 +2,8 @@
 
 Counterpart of ``bert_tpu/ops/q4_matmul.py``. On the H100 the fused kernel
 is ``bert_tpu_torch/csrc/q4_matmul.cu`` (it replaces the Pallas
-``_q4_matmul_kernel``; the source says what bounds it and how the simple
-design copes). Weights use the group-local layout of
+``_q4_matmul_kernel``; the source says what bounds it and how its
+tensor-core design copes). Weights use the group-local layout of
 :mod:`bert_tpu_torch.quant`: ``packed[K//2, N]`` uint8, ``scales[K//32, N]``
 f32 and, for Q4_1, ``mins[K//32, N]`` f32.
 
@@ -22,10 +22,16 @@ import torch
 from .. import _kernels
 from ..quant import GROUP, QK, QuantTensor
 
-# Router: the fused kernel for M ≤ FUSED_MAX_M rows, dequantize-then-matmul
-# above. 2048 was measured on a TPU v5e (bert_tpu/ops/q4_matmul.py:177-183);
-# it has not been measured on the H100 yet (ROADMAP.md).
-FUSED_MAX_M = 2048
+# Router: the fused kernel for M ≤ fused_max_m(x.dtype) rows,
+# dequantize-then-matmul above; chip_smoke.py times both at 1,024-16,384
+# rows at the QKV and FFN-up shapes (PERF.md). On an NVIDIA H100 80GB HBM3
+# at 700 W the bf16 kernel (tensor cores) beat the plain branch at every M
+# measured, by more than 4x at 16,384 rows, so FUSED_MAX_M is the largest
+# M measured. The f32 instance (CUDA cores) lost to the plain branch's f32
+# cuBLAS GEMM at every M measured; its threshold, 1,024 rows, the largest
+# M of the paths, keeps the f32 agreement runs on their kernel.
+FUSED_MAX_M = 16384
+FUSED_MAX_M_F32 = 1024
 
 
 def q4_dequantize(qt: QuantTensor, dtype: torch.dtype = torch.float32
@@ -78,12 +84,34 @@ def _check_operands(x: torch.Tensor, qt: QuantTensor) -> None:
         raise ValueError("q4_matmul: x must be contiguous")
 
 
+def bf16_alignment(n: int) -> dict:
+    """Byte alignment the bf16 kernel's loads need of each operand at N = n:
+    x rows by 16 bytes; the packed band by 16, 4 or 1 bytes and the scale
+    and min rows by 16 or 4, the widest that N's row stride allows."""
+    band = 16 if n % 16 == 0 else 4 if n % 4 == 0 else 1
+    rows = 16 if n % 4 == 0 else 4
+    return {"x": 16, "packed": band, "scales": rows, "mins": rows}
+
+
+def _check_alignment(x: torch.Tensor, qt: QuantTensor) -> None:
+    """Raise where an operand (a per-layer slice, say) is not aligned for
+    the bf16 kernel's loads; never fall back."""
+    need = bf16_alignment(qt.packed.shape[-1])
+    for name, t in (("x", x), ("packed", qt.packed), ("scales", qt.scales),
+                    ("mins", qt.mins)):
+        if t is not None and t.data_ptr() % need[name]:
+            raise ValueError(f"q4_matmul: {name} at 0x{t.data_ptr():x} is "
+                             f"not {need[name]}-byte aligned")
+
+
 def _launch(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     m, k = x.shape
     n = qt.packed.shape[-1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
+    if x.dtype == torch.bfloat16:
+        _check_alignment(x, qt)
     fn = "q4_matmul_f32" if x.dtype == torch.float32 else "q4_matmul_bf16"
     lib = _kernels.library("q4_matmul")
     with torch.cuda.device(x.device):
@@ -100,17 +128,22 @@ def q4_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """``x[M, K] @ dequant(qt)[K, N] → f32[M, N]``.
 
     CPU tensors take :func:`q4_matmul_plain`. CUDA tensors with
-    M ≤ FUSED_MAX_M launch the kernel (or raise); larger M takes the
-    router's other branch, dequantize-then-matmul, as the JAX package
-    sends it to XLA's dot."""
+    M ≤ :func:`fused_max_m` rows launch the kernel (or raise); larger M
+    takes the router's other branch, dequantize-then-matmul, as the JAX
+    package sends it to XLA's dot."""
     if x.device.type == "cpu":
         return q4_matmul_plain(x, qt)
     if x.device.type != "cuda":
         raise ValueError(f"q4_matmul: unsupported device {x.device}")
     _check_operands(x, qt)
-    if x.shape[0] > FUSED_MAX_M:
+    if x.shape[0] > fused_max_m(x.dtype):
         return q4_matmul_plain(x, qt)
     return _launch(x, qt)
+
+
+def fused_max_m(dtype: torch.dtype) -> int:
+    """The router's threshold for x of ``dtype``."""
+    return FUSED_MAX_M if dtype == torch.bfloat16 else FUSED_MAX_M_F32
 
 
 q4_matmul.launches = 0  # kernel launches, counted where they happen

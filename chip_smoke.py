@@ -9,10 +9,13 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
 1. prints the card's name and power limit, then builds every kernel of the
    port from bert_tpu_torch/csrc/ (one nvcc per source, in parallel);
 2. kernel phase: holds each kernel against its plain PyTorch version on the
-   card, at the paths' shapes and at bert-base and bge-large shapes, in f32
-   and bf16, and times kernel, plain version and (where one PyTorch call
-   computes the same function) that call: device time from CUDA-graph
-   replay between CUDA events, and the kernel's eager time beside it;
+   card, at the paths' shapes, at bert-base and bge-large shapes and at
+   edge shapes (one row, N not a multiple of 16, ragged T with fully
+   masked rows), in f32 and bf16, and times kernel, plain version and
+   (where one PyTorch call computes the same function) that call at every
+   shape of the main path: device time from CUDA-graph replay between CUDA
+   events, and the kernel's eager time beside it; times the q4 kernel
+   against the router's dequantize-then-matmul branch at large M;
 3. main path: writes a MiniLM-L6 Q4_0 ggml file from seed 0, loads it with
    ``BertTorch.from_file(path)`` (the card, bf16) and answers a few
    mixed-length ``encode_batch`` requests — packed short sentences,
@@ -20,8 +23,9 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    kernel's launch count set to 0 just before and read just after; fails
    if a kernel of the path was not launched, or if the per-(batch, head)
    attention kernel was (d_head 32 takes the fused kernel); profiles one
-   more request; checks the result against the same file on the CPU in
-   f32 (card f32: cos > 0.9999 and atol 5e-3; card bf16: cos > 0.999);
+   more request and times its q4_matmul and attention calls bucket by
+   bucket; checks the result against the same file on the CPU in f32
+   (card f32: cos > 0.9999 and atol 5e-3; card bf16: cos > 0.999);
 4. hf_server path: writes a random-weight HF checkpoint directory at
    rubert-tiny2's published widths (D 312, 12 heads of 26, F 600, 3
    layers, vocab 83,828, 2,048 positions, CLS pooling) from seed 0, loads
@@ -192,6 +196,78 @@ def compare(name, out, ref, dtype_name, what) -> float:
     return max_err
 
 
+def q4_weights(rng, k: int, n: int, ftype: int, dev):
+    """A random [k, n] weight (scale 0.02) quantized to Q4_0 (ftype 2) or
+    Q4_1 (3) in the group-local layout, on ``dev``."""
+    import numpy as np
+    import torch
+
+    from bert_tpu_torch.quant import QuantTensor, quantize_tensor_tpu
+
+    qt = quantize_tensor_tpu(
+        (rng.standard_normal((k, n)) * 0.02).astype(np.float32), ftype)
+    return QuantTensor(
+        *(None if a is None else torch.from_numpy(a).to(dev)
+          for a in (qt.packed, qt.scales, qt.mins)))
+
+
+def attention_bias(rng, b: int, t: int, pairwise: bool):
+    """An additive f32 bias with fully masked query rows. Pairwise: two
+    halves of each row attend within themselves, and row 0's first
+    quarter of queries sees no key. Key-side: random padding, the first
+    key always live, and (for b > 1) the last batch row all padding."""
+    import numpy as np
+
+    if pairwise:
+        halves = (np.arange(t) >= t // 2).astype(np.int32)
+        same = halves[:, None] == halves[None, :]
+        bias = np.where(same, 0.0, -1e9)[None].repeat(b, 0)
+        bias[0, : max(1, t // 4)] = -1e9
+    else:
+        mask = (rng.random((b, t)) > 0.2).astype(np.float32)
+        mask[:, 0] = 1.0
+        if b > 1:
+            mask[-1] = 0.0
+        bias = (mask - 1.0) * 1e9
+    return bias.astype(np.float32)
+
+
+def router_phase(dev, rng):
+    """The q4 router's threshold on this card: the kernel against the
+    plain dequantize-then-matmul at large M, at the QKV and FFN-up shapes,
+    in bf16 (the card's compute type) and in f32."""
+    import numpy as np
+    import torch
+
+    from bert_tpu_torch.ops import q4_matmul as Q
+
+    log("q4_matmul router: kernel vs dequantize-then-matmul (graph replay)")
+    rows = []
+    for m in (1024, 2048, 4096, 8192, 16384):
+        for (k, n, what) in ((384, 1152, "QKV"), (384, 1536, "FFN-up")):
+            qd = q4_weights(rng, k, n, 2, dev)
+            x32 = torch.from_numpy(
+                rng.standard_normal((m, k)).astype(np.float32)).to(dev)
+            for dn, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+                x = x32.to(dt)
+                r = dict(M=m, K=k, N=n, what=what, dtype=dn,
+                         kernel_ms=time_ms(lambda: Q._launch(x, qd), 10, 5),
+                         plain_ms=time_ms(lambda: Q.q4_matmul_plain(x, qd),
+                                          10, 5))
+                log(f"  M={m} K={k} N={n} ({what}) {dn}: kernel "
+                    f"{r['kernel_ms']:.5f} ms, plain {r['plain_ms']:.5f}")
+                rows.append(r)
+            del x, x32
+            torch.cuda.synchronize()
+    for dn in ("bf16", "f32"):
+        wins = [m for m in sorted({r["M"] for r in rows})
+                if all(r["kernel_ms"] < r["plain_ms"] for r in rows
+                       if r["M"] == m and r["dtype"] == dn)]
+        log(f"  {dn}: the kernel wins at both shapes for M in {wins} "
+            f"(FUSED_MAX_M = {Q.FUSED_MAX_M}, f32: {Q.FUSED_MAX_M_F32})")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
@@ -204,7 +280,6 @@ def kernel_phase(dev, rng):
     from bert_tpu_torch.ops import fused_attention as A
     from bert_tpu_torch.ops import layer_norm as L
     from bert_tpu_torch.ops import q4_matmul as Q
-    from bert_tpu_torch.quant import QuantTensor, quantize_tensor_tpu
 
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     results = {}
@@ -215,43 +290,61 @@ def kernel_phase(dev, rng):
     # -- kernel 1: Q4 dequant-matmul --------------------------------------
     log("kernel 1: q4_matmul")
     q4_shapes = [(128, 384, 384), (512, 384, 1536), (200, 768, 768),
-                 (2048, 1024, 4096), (1024, 384, 1152)]
+                 (2048, 1024, 4096), (1024, 384, 1152),
+                 # edges: one row; N % 16 != 0 (4-byte band loads); N odd
+                 # (byte-wide band, scalar stores); FFN-down's K = 1536
+                 (1, 384, 200), (200, 1536, 200), (1, 1536, 384),
+                 (37, 128, 201)]
+    errs = {"f32": 0.0, "bf16": 0.0}
     for (m, k, n) in q4_shapes:
         for ftype in (2, 3):
-            w = (rng.standard_normal((k, n)) * 0.02).astype(np.float32)
-            qt = quantize_tensor_tpu(w, ftype)
-            qd = QuantTensor(t(qt.packed, torch.uint8), t(qt.scales),
-                             None if qt.mins is None else t(qt.mins))
+            qd = q4_weights(rng, k, n, ftype, dev)
             x32 = rng.standard_normal((m, k)).astype(np.float32)
             for dn, dt in dtypes.items():
-                x = t(x32, dt)
-                err = compare("q4_matmul", Q.q4_matmul(x, qd),
+                x = t(x32, dt)  # the kernel itself, whatever the router says
+                err = compare("q4_matmul", Q._launch(x, qd),
                               Q.q4_matmul_plain(x, qd), dn,
                               f"M,K,N={m},{k},{n} q4_{ftype - 2} {dn}")
-                if (m, k, n) == (1024, 384, 1152) and ftype == 2 \
-                        and dn == "bf16":
-                    w_dense = Q.q4_dequantize(qd, dt)
-                    ms = time_ms(lambda: Q.q4_matmul(x, qd))
-                    launch_ms = eager_ms(lambda: Q.q4_matmul(x, qd))
-                    plain_ms = time_ms(lambda: Q.q4_matmul_plain(x, qd))
-                    dense_ms = time_ms(lambda: torch.matmul(x, w_dense))
-                    nbytes = (m * k * x.element_size() + k // 2 * n
-                              + k // 32 * n * 4 + m * n * 4)
-                    b_ms, b_by = bound(nbytes, 2.0 * m * n * k, dn)
-                    results["q4_matmul"] = dict(
-                        shape=f"M={m} K={k} N={n} q4_0 bf16 (MiniLM QKV)",
-                        max_abs_err=err, tolerance=TOL["q4_matmul"][dn],
-                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None, eager_ms=launch_ms,
-                        dense_bf16_matmul_ms=dense_ms)
+                errs[dn] = max(errs[dn], err)
             torch.cuda.synchronize()
+
+    # every shape of a MiniLM layer at the main path's M (1x512 bucket;
+    # 16x64 packed rows and 8x128 bucket): QKV, attention-out, FFN-up,
+    # FFN-down; cuBLAS bf16 on the pre-dequantized W as the yardstick
+    timed = []
+    for m in (512, 1024):
+        for (k, n, what) in ((384, 1152, "QKV"), (384, 384, "attention-out"),
+                             (384, 1536, "FFN-up"), (1536, 384, "FFN-down")):
+            qd = q4_weights(rng, k, n, 2, dev)
+            x = t(rng.standard_normal((m, k)).astype(np.float32),
+                  torch.bfloat16)
+            w_dense = Q.q4_dequantize(qd, torch.bfloat16)
+            nbytes = (m * k * 2 + k // 2 * n + k // 32 * n * 4 + m * n * 4)
+            b_ms, b_by = bound(nbytes, 2.0 * m * n * k, "bf16")
+            r = dict(shape=f"M={m} K={k} N={n} q4_0 bf16 ({what})",
+                     ms=time_ms(lambda: Q.q4_matmul(x, qd)),
+                     eager_ms=eager_ms(lambda: Q.q4_matmul(x, qd)),
+                     plain_ms=time_ms(lambda: Q.q4_matmul_plain(x, qd)),
+                     dense_bf16_matmul_ms=time_ms(
+                         lambda: torch.matmul(x, w_dense)),
+                     bound_ms=b_ms, bound_by=b_by)
+            log(f"  {r['shape']}: kernel {r['ms']:.5f} ms (eager "
+                f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f}, cuBLAS "
+                f"dense bf16 {r['dense_bf16_matmul_ms']:.5f}, bound "
+                f"{b_ms:.5f} ({b_by})")
+            timed.append(r)
+    row = next(r for r in timed if r["shape"].startswith("M=1024 K=384 "
+                                                          "N=1152"))
+    results["q4_matmul"] = dict(
+        row, shape=row["shape"].replace("(QKV)", "(MiniLM QKV)"),
+        max_abs_err=errs["bf16"], max_abs_err_f32=errs["f32"],
+        tolerance=TOL["q4_matmul"]["bf16"], library_ms=None,
+        timed_shapes=timed, router=router_phase(dev, rng))
 
     # the router's other branch: M > FUSED_MAX_M rows take the plain
     # dequantize-then-matmul on the card, and launch no kernel
     m, k, n = Q.FUSED_MAX_M + 8, 384, 1536
-    qt = quantize_tensor_tpu(
-        (rng.standard_normal((k, n)) * 0.02).astype(np.float32), 2)
-    qd = QuantTensor(t(qt.packed, torch.uint8), t(qt.scales), None)
+    qd = q4_weights(rng, k, n, 2, dev)
     x = t(rng.standard_normal((m, k)).astype(np.float32), torch.bfloat16)
     before = Q.q4_matmul.launches
     routed = Q.q4_matmul(x, qd)
@@ -263,61 +356,69 @@ def kernel_phase(dev, rng):
             f"q4_matmul router: M={m} did not take the plain branch")
     log(f"  ok  q4_matmul router     M={m} > {Q.FUSED_MAX_M} took "
         "dequantize-then-matmul (no launch)")
+    del routed, x
 
     # -- kernel 3: fused QKV attention -------------------------------------
     log("kernel 3: fused_qkv_attention")
-    attn_shapes = [  # tests/test_kernels_tpu.py:50-60, then the main path's
-        (16, 128, 12, 32, False), (8, 64, 12, 64, True),
+    attn_shapes = [  # tests/test_kernels_tpu.py:50-60, the main path's,
+        (16, 128, 12, 32, False), (8, 64, 12, 64, True),  # then ragged T
         (4, 512, 12, 32, False), (4, 512, 16, 64, False),
         (4, 512, 12, 64, False), (8, 64, 16, 64, True),
-        (4, 512, 16, 32, False), (16, 64, 12, 32, True)]
+        (4, 512, 16, 32, False), (16, 64, 12, 32, True),
+        (8, 128, 12, 32, False), (1, 512, 12, 32, False),
+        (3, 37, 12, 32, True), (3, 37, 12, 32, False),
+        (2, 100, 12, 64, True), (2, 100, 12, 64, False)]
+    errs = {"f32": 0.0, "bf16": 0.0}
     for (b, s, h, dh, pairwise) in attn_shapes:
-        d = h * dh
-        qkv32 = rng.standard_normal((b, s, 3 * d)).astype(np.float32)
-        if pairwise:
-            halves = (np.arange(s) >= s // 2).astype(np.int32)
-            same = halves[:, None] == halves[None, :]
-            bias = np.where(same, 0.0, -1e9).astype(np.float32)[None]
-            bias = bias.repeat(b, 0)
-            bias[0, : s // 4] = -1e9  # fully masked query rows: uniform
-        else:
-            mask = (rng.random((b, s)) > 0.2).astype(np.float32)
-            mask[:, 0] = 1.0
-            bias = (mask - 1.0) * 1e9
-        bias_t = t(bias)
-        scale = 1.0 / dh ** 0.5
+        qkv32 = rng.standard_normal((b, s, 3 * h * dh)).astype(np.float32)
+        bias_t = t(attention_bias(rng, b, s, pairwise))
+        kw = dict(n_head=h, d_head=dh, scale=1.0 / dh ** 0.5)
         for dn, dt in dtypes.items():
             qkv = t(qkv32, dt)
-            kw = dict(n_head=h, d_head=dh, scale=scale)
             err = compare(
                 "fused_qkv_attention",
                 A.fused_qkv_attention(qkv, bias_t, **kw),
                 A.attention_plain(qkv, bias_t, **kw), dn,
                 f"B,T,H,dh={b},{s},{h},{dh} "
                 f"{'pairwise' if pairwise else 'key-side'} {dn}")
-            if (b, s, h, dh, pairwise) == (16, 64, 12, 32, True) \
-                    and dn == "bf16":
-                q5 = qkv.view(b, s, h, 3, dh).permute(0, 2, 3, 1, 4)
-                qh, kh, vh = q5[:, :, 0], q5[:, :, 1], q5[:, :, 2]
-                mask4 = bias_t[:, None].to(dt)
-                ms = time_ms(lambda: A.fused_qkv_attention(qkv, bias_t, **kw))
-                launch_ms = eager_ms(lambda: A.fused_qkv_attention(
-                    qkv, bias_t, **kw))
-                plain_ms = time_ms(lambda: A.attention_plain(qkv, bias_t,
-                                                             **kw))
-                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=mask4, scale=scale))
-                nbytes = (b * s * 4 * d * qkv.element_size()
-                          + b * s * s * 4)
-                b_ms, b_by = bound(nbytes, 4.0 * b * h * s * s * dh, dn)
-                results["fused_qkv_attention"] = dict(
-                    shape=f"B={b} T={s} H={h} dh={dh} pairwise bf16 "
-                          "(MiniLM packed rows)",
-                    max_abs_err=err,
-                    tolerance=TOL["fused_qkv_attention"][dn], ms=ms,
-                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=lib_ms, eager_ms=launch_ms)
+            errs[dn] = max(errs[dn], err)
         torch.cuda.synchronize()
+
+    # the main path's three attention shapes, SDPA beside each
+    timed = []
+    for (b, s, h, dh, pairwise, what) in (
+            (16, 64, 12, 32, True, "MiniLM packed rows"),
+            (8, 128, 12, 32, False, "MiniLM 8x128 bucket"),
+            (1, 512, 12, 32, False, "MiniLM 1x512 bucket")):
+        d = h * dh
+        qkv = t(rng.standard_normal((b, s, 3 * d)).astype(np.float32),
+                torch.bfloat16)
+        bias_t = t(attention_bias(rng, b, s, pairwise))
+        scale = 1.0 / dh ** 0.5
+        kw = dict(n_head=h, d_head=dh, scale=scale)
+        q5 = qkv.view(b, s, h, 3, dh).permute(0, 2, 3, 1, 4)
+        qh, kh, vh = q5[:, :, 0], q5[:, :, 1], q5[:, :, 2]
+        mask4 = (bias_t[:, None] if pairwise
+                 else bias_t[:, None, None, :]).to(torch.bfloat16)
+        nbytes = b * s * 4 * d * 2 + bias_t.numel() * 4
+        b_ms, b_by = bound(nbytes, 4.0 * b * h * s * s * dh, "bf16")
+        form = "pairwise" if pairwise else "key-side"
+        r = dict(shape=f"B={b} T={s} H={h} dh={dh} {form} bf16 ({what})",
+                 ms=time_ms(lambda: A.fused_qkv_attention(qkv, bias_t, **kw)),
+                 eager_ms=eager_ms(lambda: A.fused_qkv_attention(
+                     qkv, bias_t, **kw)),
+                 plain_ms=time_ms(lambda: A.attention_plain(qkv, bias_t,
+                                                            **kw)),
+                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                     qh, kh, vh, attn_mask=mask4, scale=scale)),
+                 bound_ms=b_ms, bound_by=b_by)
+        log(f"  {r['shape']}: kernel {r['ms']:.5f} ms (eager "
+            f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f}, sdpa "
+            f"{r['library_ms']:.5f}, bound {b_ms:.5f} ({b_by})")
+        timed.append(r)
+    results["fused_qkv_attention"] = dict(
+        timed[0], max_abs_err=errs["bf16"], max_abs_err_f32=errs["f32"],
+        tolerance=TOL["fused_qkv_attention"]["bf16"], timed_shapes=timed)
 
     # -- kernel 2: fused LayerNorm -----------------------------------------
     log("kernel 2: fused_layer_norm")
@@ -577,7 +678,11 @@ def main_path(dev, rng, counters):
     log(f"main path kernel launches: {launches}")
     for name, n in launches.items():
         require(n > 0, f"kernel {name} was never launched on the main path")
+    before = dict(model.timers.bucket_counts)
     profile_request(model, requests[0])
+    one = {k: n - before.get(k, 0) for k, n in
+           model.timers.bucket_counts.items() if n > before.get(k, 0)}
+    split = main_split(one, model, rng)
 
     for req, emb in zip(requests + [requests[0]], outs + [first]):
         require(emb.shape == (len(req), cfg.n_embd), f"bad shape {emb.shape}")
@@ -605,7 +710,66 @@ def main_path(dev, rng, counters):
     log(f"card bf16 (f16 wire) vs CPU f32: min cos {cos16.min():.6f}, "
         f"max|Δ| {float(np.abs(first - ref).max()):.3e}")
     require(bool(np.all(cos16 > 0.999)), "card bf16 cos <= 0.999")
-    return launches, n_sent / dt
+    return launches, n_sent / dt, split
+
+
+def main_split(buckets, model, rng):
+    """q4_matmul's and the fused attention's device time in one main-path
+    request, bucket by bucket: each (rows, T) batch the request ran, timed
+    alone by CUDA-graph replay on random bf16 activations — the four
+    matmuls of a layer on layer 0's own Q4 weights, and the attention with
+    packed rows' block-diagonal bias (four 16-token segments) or a
+    key-side bias — times its batches and the layer count."""
+    import numpy as np
+    import torch
+
+    from bert_tpu_torch.ops.fused_attention import fused_qkv_attention
+    from bert_tpu_torch.ops.q4_matmul import q4_matmul
+
+    cfg = model.config
+    layer = model.model.layers[0]
+    weights = [layer.w(k) for k in ("qkv_w", "o_w", "ff_i_w", "ff_o_w")]
+    h, dh = cfg.n_head, cfg.d_head
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda().to(torch.bfloat16)
+
+    split = []
+    for (rows, t, kind), n in sorted(buckets.items()):
+        q4_ms = 0.0
+        for w in weights:
+            x = rand(rows * t, w.packed.shape[0] * 2)
+            q4_ms += time_ms(lambda: q4_matmul(x, w))
+        qkv = rand(rows, t, 3 * h * dh)
+        if kind == "packed":
+            seg = np.arange(t) // 16
+            bias = np.where(seg[:, None] == seg[None, :], 0.0, -1e9)
+            bias = np.ascontiguousarray(np.broadcast_to(bias, (rows, t, t)))
+        else:
+            bias = np.zeros((rows, t))
+        bias = torch.from_numpy(bias.astype(np.float32)).cuda()
+        attn_ms = time_ms(lambda: fused_qkv_attention(
+            qkv, bias, n_head=h, d_head=dh, scale=dh ** -0.5))
+        per = n * cfg.n_layer
+        split.append({"bucket": f"{rows}x{t}" + (" packed" if kind else ""),
+                      "batches": n, "q4_matmul_ms_per_layer": q4_ms,
+                      "fused_attention_ms_per_call": attn_ms,
+                      "q4_matmul_ms_per_request": q4_ms * per,
+                      "fused_attention_ms_per_request": attn_ms * per})
+    q4_total = sum(r["q4_matmul_ms_per_request"] for r in split)
+    attn_total = sum(r["fused_attention_ms_per_request"] for r in split)
+    log(f"main path: one request by bucket (graph replay, {gpu_line()}): "
+        f"q4_matmul {q4_total:.4f} ms, fused attention {attn_total:.4f} ms")
+    for r in split:
+        log(f"  {r['bucket']:>14s}: {r['batches']} batch x {cfg.n_layer} "
+            f"layers: q4_matmul 4 x {r['q4_matmul_ms_per_layer'] / 4:.5f} "
+            f"= {r['q4_matmul_ms_per_request']:.4f} ms "
+            f"({100 * r['q4_matmul_ms_per_request'] / q4_total:.1f}%), "
+            f"attention {r['fused_attention_ms_per_call']:.5f} = "
+            f"{r['fused_attention_ms_per_request']:.4f} ms "
+            f"({100 * r['fused_attention_ms_per_request'] / attn_total:.1f}%)")
+    return split
 
 
 # ---------------------------------------------------------------------------
@@ -899,16 +1063,20 @@ def main() -> int:
         f"(nvcc, in parallel, into {_kernels.BUILD_DIR})")
     for name, info in _kernels.build_info.items():
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 log(f"  {name}: {line.strip()}")
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(17)
-    results = kernel_phase(dev, rng)
+    # one generator per phase, so that checks added to one phase leave the
+    # requests of the others as they were
+    results = kernel_phase(dev, np.random.default_rng(17))
     counters = [q4_matmul, fused_layer_norm, fused_qkv_attention,
                 multi_head_attention]
-    launches, rate = main_path(dev, rng, counters)
-    hf_launches, hf_rate, hf_split = hf_server_path(rng, counters)
+    launches, rate, main_split_rows = main_path(
+        dev, np.random.default_rng(18), counters)
+    hf_launches, hf_rate, hf_split = hf_server_path(
+        np.random.default_rng(19), counters)
     # each kernel's launches on its path: MiniLM-L6 for the first three,
     # hf_server for the per-(batch, head) attention
     launches["multi_head_attention"] = hf_launches["multi_head_attention"]
@@ -928,10 +1096,14 @@ def main() -> int:
             **{k: v for k, v in r.items()
                if k.endswith("_ms") and k not in
                ("ms", "plain_ms", "bound_ms", "library_ms")},
+            **{k: r[k] for k in ("max_abs_err_f32", "timed_shapes", "router")
+               if k in r},
             **({"shapes": r["shapes"], "path": "hf_server",
                 "hf_server_launches": hf_launches,
                 "hf_request_split": hf_split} if "shapes" in r
                else {"path": "main"}),
+            **({"main_request_split": main_split_rows}
+               if name in ("q4_matmul", "fused_qkv_attention") else {}),
         })
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.5f}")
