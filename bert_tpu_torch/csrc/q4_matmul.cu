@@ -36,8 +36,8 @@
 // of a model, whose N is a multiple of 64), one thread issues each group's
 // copies as TMA tile loads (cp.async.bulk.tensor) that complete on an
 // mbarrier per ring slot; the hardware zero-fills the ragged M and N
-// edges. Else every thread issues cp.async copies (16, 4 or 1 byte wide,
-// as N allows; the wrapper checks each pointer's alignment for it).
+// edges. Else every thread issues cp.async copies (the band's 4 or 1 byte
+// wide, as N allows; the wrapper checks each pointer's alignment for it).
 // In diagnostic builds on the H100 the per-thread cp.async copies had
 // cost more time per group than the products; TMA takes most of it away
 // (chip_smoke.py's times before and after are in PERF.md).
@@ -277,14 +277,7 @@ __device__ __forceinline__ void load_group(
     if (g >= groups) continue;
     const int st = g % STAGES;
     const uint8_t* band = packed + (size_t)g * QK * N;
-    if ((N & 15) == 0) {
-      for (int i = tid; i < QK * (BN / 16); i += THREADS) {
-        const int r = i / (BN / 16), c = (i % (BN / 16)) * 16;
-        const bool ok = n0 + c < N;
-        hopper::cp_async16(&s.band[st][r][c],
-                           band + (size_t)r * N + (ok ? n0 + c : 0), ok);
-      }
-    } else if ((N & 3) == 0) {
+    if ((N & 3) == 0) {  // N % 16 == 0 takes the TMA instance
       for (int i = tid; i < QK * (BN / 4); i += THREADS) {
         const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
         const bool ok = n0 + c < N;

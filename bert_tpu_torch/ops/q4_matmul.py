@@ -27,11 +27,12 @@ from ..quant import GROUP, QK, QuantTensor
 # rows at the QKV and FFN-up shapes (PERF.md). On an NVIDIA H100 80GB HBM3
 # at 700 W the bf16 kernel (tensor cores) beat the plain branch at every M
 # measured, by more than 4x at 16,384 rows, so FUSED_MAX_M is the largest
-# M measured. The f32 instance (CUDA cores) lost to the plain branch's f32
-# cuBLAS GEMM at every M measured; its threshold, 1,024 rows, the largest
-# M of the paths, keeps the f32 agreement runs on their kernel.
+# M measured. FUSED_MAX_M_F32 is a policy, not a crossover measured on the
+# card: the f32 instance (CUDA cores) lost to the plain branch's f32 cuBLAS
+# GEMM at every M measured, and f32 keeps the 2,048 rows the router had
+# before, so that f32 calls up to that size still run the kernel.
 FUSED_MAX_M = 16384
-FUSED_MAX_M_F32 = 1024
+FUSED_MAX_M_F32 = 2048
 
 
 def q4_dequantize(qt: QuantTensor, dtype: torch.dtype = torch.float32
@@ -86,8 +87,9 @@ def _check_operands(x: torch.Tensor, qt: QuantTensor) -> None:
 
 def bf16_alignment(n: int) -> dict:
     """Byte alignment the bf16 kernel's loads need of each operand at N = n:
-    x rows by 16 bytes; the packed band by 16, 4 or 1 bytes and the scale
-    and min rows by 16 or 4, the widest that N's row stride allows."""
+    x rows by 16 bytes; the packed band by 16 where N % 16 == 0 (the TMA
+    instance), else by the cp.async instance's 4 or 1 bytes; the scale and
+    min rows by 16 or 4, the widest that N's row stride allows."""
     band = 16 if n % 16 == 0 else 4 if n % 4 == 0 else 1
     rows = 16 if n % 4 == 0 else 4
     return {"x": 16, "packed": band, "scales": rows, "mins": rows}

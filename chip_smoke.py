@@ -296,28 +296,40 @@ def kernel_phase(dev, rng):
                  (1, 384, 200), (200, 1536, 200), (1, 1536, 384),
                  (37, 128, 201)]
     errs = {"f32": 0.0, "bf16": 0.0}
+
+    def check_q4(x, qd, what):
+        """The wrapper against the plain version; every shape here is at
+        or under the router's threshold, so the wrapper must launch."""
+        dn = "bf16" if x.dtype == torch.bfloat16 else "f32"
+        before = Q.q4_matmul.launches
+        out = Q.q4_matmul(x, qd)
+        require(Q.q4_matmul.launches == before + 1,
+                f"q4_matmul {what}: the wrapper did not launch the kernel")
+        errs[dn] = max(errs[dn], compare("q4_matmul", out,
+                                         Q.q4_matmul_plain(x, qd), dn, what))
+
     for (m, k, n) in q4_shapes:
         for ftype in (2, 3):
             qd = q4_weights(rng, k, n, ftype, dev)
             x32 = rng.standard_normal((m, k)).astype(np.float32)
             for dn, dt in dtypes.items():
-                x = t(x32, dt)  # the kernel itself, whatever the router says
-                err = compare("q4_matmul", Q._launch(x, qd),
-                              Q.q4_matmul_plain(x, qd), dn,
-                              f"M,K,N={m},{k},{n} q4_{ftype - 2} {dn}")
-                errs[dn] = max(errs[dn], err)
+                check_q4(t(x32, dt), qd,
+                         f"M,K,N={m},{k},{n} q4_{ftype - 2} {dn}")
             torch.cuda.synchronize()
 
     # every shape of a MiniLM layer at the main path's M (1x512 bucket;
     # 16x64 packed rows and 8x128 bucket): QKV, attention-out, FFN-up,
-    # FFN-down; cuBLAS bf16 on the pre-dequantized W as the yardstick
+    # FFN-down, each held against the plain version in both dtypes, then
+    # timed in bf16 beside cuBLAS bf16 on the pre-dequantized W
     timed = []
     for m in (512, 1024):
         for (k, n, what) in ((384, 1152, "QKV"), (384, 384, "attention-out"),
                              (384, 1536, "FFN-up"), (1536, 384, "FFN-down")):
             qd = q4_weights(rng, k, n, 2, dev)
-            x = t(rng.standard_normal((m, k)).astype(np.float32),
-                  torch.bfloat16)
+            x32 = rng.standard_normal((m, k)).astype(np.float32)
+            check_q4(t(x32), qd, f"M,K,N={m},{k},{n} q4_0 f32 ({what})")
+            x = t(x32, torch.bfloat16)
+            check_q4(x, qd, f"M,K,N={m},{k},{n} q4_0 bf16 ({what})")
             w_dense = Q.q4_dequantize(qd, torch.bfloat16)
             nbytes = (m * k * 2 + k // 2 * n + k // 32 * n * 4 + m * n * 4)
             b_ms, b_by = bound(nbytes, 2.0 * m * n * k, "bf16")
@@ -341,22 +353,24 @@ def kernel_phase(dev, rng):
         tolerance=TOL["q4_matmul"]["bf16"], library_ms=None,
         timed_shapes=timed, router=router_phase(dev, rng))
 
-    # the router's other branch: M > FUSED_MAX_M rows take the plain
-    # dequantize-then-matmul on the card, and launch no kernel
-    m, k, n = Q.FUSED_MAX_M + 8, 384, 1536
+    # the router's other branch: M > fused_max_m(dtype) rows take the
+    # plain dequantize-then-matmul on the card, and launch no kernel
+    k, n = 384, 1536
     qd = q4_weights(rng, k, n, 2, dev)
-    x = t(rng.standard_normal((m, k)).astype(np.float32), torch.bfloat16)
-    before = Q.q4_matmul.launches
-    routed = Q.q4_matmul(x, qd)
-    torch.cuda.synchronize()
-    # same computation twice; 1e-5 only allows cuBLAS another reduction
-    require(Q.q4_matmul.launches == before
-            and torch.allclose(routed, Q.q4_matmul_plain(x, qd),
-                               atol=1e-5, rtol=1e-5),
-            f"q4_matmul router: M={m} did not take the plain branch")
-    log(f"  ok  q4_matmul router     M={m} > {Q.FUSED_MAX_M} took "
-        "dequantize-then-matmul (no launch)")
-    del routed, x
+    for dt in (torch.bfloat16, torch.float32):
+        m = Q.fused_max_m(dt) + 8
+        x = t(rng.standard_normal((m, k)).astype(np.float32), dt)
+        before = Q.q4_matmul.launches
+        routed = Q.q4_matmul(x, qd)
+        torch.cuda.synchronize()
+        # same computation twice; 1e-5 only allows cuBLAS another reduction
+        require(Q.q4_matmul.launches == before
+                and torch.allclose(routed, Q.q4_matmul_plain(x, qd),
+                                   atol=1e-5, rtol=1e-5),
+                f"q4_matmul router: M={m} {dt} did not take the plain branch")
+        log(f"  ok  q4_matmul router     M={m} > {Q.fused_max_m(dt)} "
+            f"{dt} took dequantize-then-matmul (no launch)")
+        del routed, x
 
     # -- kernel 3: fused QKV attention -------------------------------------
     log("kernel 3: fused_qkv_attention")

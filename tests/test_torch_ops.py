@@ -36,6 +36,7 @@ from bert_tpu_torch.ops.layer_norm import fused_layer_norm, layer_norm_plain
 from bert_tpu_torch.ops.q4_matmul import (
     _check_alignment as _check_q4_alignment,
     bf16_alignment,
+    fused_max_m,
     q4_matmul,
     q4_matmul_plain,
 )
@@ -119,6 +120,14 @@ def test_q4_matmul_plain_matches_jax_at_kernel_edges(shape, ftype, dname):
         xj, jnp.asarray(qt.packed), jnp.asarray(qt.scales),
         None if qt.mins is None else jnp.asarray(qt.mins), interpret=True)
     _close(got, pallas, TOL_Q4_EDGE_INTERPRET[dname])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q4_router_keeps_every_path_shape_on_the_kernel(dtype):
+    # the main path's largest M is 1,024 rows (16x64 packed, 8x128); the
+    # kernel checks go up to 2,048 (M=2048 K=1024 N=4096) in both dtypes
+    assert fused_max_m(dtype) >= 2048
+    assert fused_max_m(torch.bfloat16) >= fused_max_m(torch.float32)
 
 
 @pytest.mark.parametrize("n, want", [
