@@ -3,12 +3,22 @@
 Counterpart of ``bert_tpu/ops/attention.py`` with its public API,
 ``multi_head_attention(q, k, v, mask_bias, *, scale)``. On the H100 the
 kernel is ``bert_tpu_torch/csrc/attention.cu`` (it replaces the Pallas
-``_mha_kernel``; the source says what bounds it and how the simple design
-copes). It takes contiguous f32 or bf16 operands with head dims 1..64 and
-an f32 bias, key-side ``[B, T]`` or pairwise ``[B, T, T]`` — the Pallas
-kernel had only the key-side form, and bert_tpu sends pairwise bias to
-``_mha_jnp``; on the card the port has no plain path, so the kernel takes
-both.
+``_mha_kernel``). It takes contiguous f32 or bf16 operands with head dims
+1..128 and an f32 bias, key-side ``[B, T]`` or pairwise ``[B, T, T]`` — the
+Pallas kernel had only the key-side form, and bert_tpu sends pairwise bias
+to ``_mha_jnp``; on the card the port has no plain path, so the kernel
+takes both.
+
+What bounds the kernel is operations: the scores grow with T², and
+normalising p before it is rounded walks the keys twice. The bf16 instance
+runs both products (q·kᵀ twice, p·v once) on the tensor cores
+(``mma.sync``) over 64-key tiles copied by ``cp.async``, so what is left is
+instruction issue on the CUDA cores, the softmax around each score and
+the tiles' copies; the source's note gives the numbers. Its tiles are copied by 16 bytes where dh % 8 == 0, by 4 where dh
+is even (rubert-tiny2's 26), element by element for odd dh; a bf16 operand
+not aligned for its path raises (:func:`_check_alignment`). The f32
+instance stays on the CUDA cores (TF32 is off), four threads a row at head
+dims above 64.
 
 :func:`_mha_plain` is ``_mha_jnp`` in torch, and the kernel rounds as both
 do: f32 scores multiplied by ``scale``, then the bias added; an f32
@@ -23,7 +33,7 @@ import torch
 
 from .. import _kernels
 
-MAX_D_HEAD = 64  # the kernel's widest instance (csrc/attention.cu)
+MAX_D_HEAD = 128  # the kernel's widest instance (csrc/attention.cu)
 
 
 def _bias4(mask_bias: torch.Tensor) -> torch.Tensor:
@@ -42,6 +52,21 @@ def _mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = s * scale + _bias4(mask_bias)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def _check_alignment(q, k, v, mask_bias) -> None:
+    """The bf16 kernel copies rows of dh elements by 16 bytes (dh % 8 == 0)
+    or by 4 (dh even), and reads the bias by 8 bytes where T is even: raise
+    where an operand is not aligned for the path its shape takes; never
+    fall back."""
+    dh, t = q.shape[-1], q.shape[-2]
+    need = 16 if dh % 8 == 0 else 4 if dh % 2 == 0 else 2
+    for name, x, n in (("q", q, need), ("k", k, need), ("v", v, need),
+                       ("mask_bias", mask_bias, 8 if t % 2 == 0 else 4)):
+        if x.data_ptr() % n:
+            raise ValueError(f"multi_head_attention: {name} at "
+                             f"0x{x.data_ptr():x} is not {n}-byte aligned "
+                             f"(head dim {dh}, T {t})")
 
 
 def _launch(q, k, v, mask_bias, scale):
@@ -66,6 +91,8 @@ def _launch(q, k, v, mask_bias, scale):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        _check_alignment(q, k, v, mask_bias)
     fn = "mha_f32" if q.dtype == torch.float32 else "mha_bf16"
     lib = _kernels.library("attention")
     with torch.cuda.device(q.device):
@@ -85,7 +112,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     — [B, T] key-side (0 for real tokens, NEG_INF for padding) or [B, T, T]
     pairwise (packed block-diagonal rows). CPU tensors take
     :func:`_mha_plain`; CUDA tensors launch the kernel or raise. Head dims
-    above 64 raise on every device (ROADMAP.md)."""
+    above 128 raise on every device (ROADMAP.md)."""
     if q.dim() != 4:
         raise ValueError(f"multi_head_attention: q {tuple(q.shape)} is not "
                          "[B, H, T, dh]")

@@ -15,7 +15,11 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    (where one PyTorch call computes the same function) that call at every
    shape of the main path: device time from CUDA-graph replay between CUDA
    events, and the kernel's eager time beside it; times the q4 kernel
-   against the router's dequantize-then-matmul branch at large M;
+   against the router's dequantize-then-matmul branch at large M; holds
+   the per-(batch, head) attention at ragged T (1-2,047), at head dims
+   1-128 and at the warmup grid's largest shape (64x2048), and times it
+   beside SDPA on the same and on zero-padded operands. A kernel whose
+   ptxas report shows a spill fails the build step;
 3. main path: writes a MiniLM-L6 Q4_0 ggml file from seed 0, loads it with
    ``BertTorch.from_file(path)`` (the card, bf16) and answers a few
    mixed-length ``encode_batch`` requests — packed short sentences,
@@ -49,6 +53,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import socket
 import statistics
 import struct
@@ -71,6 +76,10 @@ RUBERT_TINY2 = {"vocab_size": 83828, "max_position_embeddings": 2048,
                 "hidden_act": "gelu", "layer_norm_eps": 1e-12,
                 "type_vocab_size": 2, "model_type": "bert",
                 "architectures": ["BertModel"]}
+
+# the warmup grid's largest attention: max_batch 64 rows of rubert-tiny2's
+# 2,048 bucket (B, H, T, d_head)
+WARMUP_LARGEST = (64, 12, 2048, 26)
 
 # atol = rtol per dtype, as tests/test_kernels_tpu.py states them. q4 in
 # bf16 has no TPU-test tolerance; it gets 5e-2: the plain version rounds
@@ -489,18 +498,53 @@ def kernel_phase(dev, rng):
 
 
 def mha_kernel_phase(dev, rng):
-    """Kernel 4, the per-(batch, head) attention: the shapes of
-    tests/test_kernels_tpu.py:101-117, then the hf_server path's (d_head
-    26: bucketed rows at 512, the 2,048 bucket, packed rows with their
-    pairwise bias). Each shape is timed in bf16; the path's 2,048 bucket
-    is the kernel's row in the JSON line."""
+    """Kernel 4, the per-(batch, head) attention, each shape held against
+    the plain version through the public wrapper in f32 and bf16, with a
+    launch-count check: the shapes of tests/test_kernels_tpu.py:101-117 and
+    the hf_server path's (d_head 26: bucketed rows at 512, the 2,048
+    bucket, packed rows with their pairwise bias), timed in bf16; ragged T
+    (1, 37, 100, 2,047) against the 64-key tiles and head dims 1-128 (every
+    copy path and instance), each in both bias forms with fully masked
+    rows; and the warmup grid's largest shape, 64x12x2048 at d_head 26,
+    timed. Beside each timed bf16 shape: SDPA on the same operands
+    (library_ms) and, where d_head % 8 != 0, SDPA on q, k, v zero-padded to
+    the next multiple of 8 beforehand (library_padded_ms), which reaches
+    SDPA's fused kernels. The path's 2,048 bucket is the kernel's row in the
+    JSON line."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from bert_tpu_torch.ops import attention as M
 
     log("kernel 4: multi_head_attention")
+    dtypes = (("f32", torch.float32), ("bf16", torch.bfloat16))
+    errs = {"f32": 0.0, "bf16": 0.0}
+
+    def operands(b, h, t, dh, dt):
+        return [torch.from_numpy(rng.standard_normal((b, h, t, dh)).astype(
+            np.float32)).to(dev).to(dt) for _ in range(3)]
+
+    def check(q, k, v, bias_t, scale, what, chunk=None):
+        """The wrapper against the plain version (in batch chunks where the
+        plain version's [T, T] scores would not fit at once)."""
+        dn = "bf16" if q.dtype == torch.bfloat16 else "f32"
+        before = M.multi_head_attention.launches
+        out = M.multi_head_attention(q, k, v, bias_t, scale=scale)
+        require(M.multi_head_attention.launches == before + 1,
+                f"multi_head_attention {what}: the wrapper did not launch "
+                "the kernel")
+        step, err = chunk or q.shape[0], 0.0
+        for i in range(0, q.shape[0], step):
+            sl = slice(i, i + step)
+            tag = what if chunk is None else f"{what} rows {i}..{i + step}"
+            err = max(err, compare(
+                "multi_head_attention", out[sl],
+                M._mha_plain(q[sl], k[sl], v[sl], bias_t[sl], scale), dn,
+                tag))
+        errs[dn] = max(errs[dn], err)
+        return err
+
+    # the test_kernels_tpu.py and hf_server shapes, timed in bf16
     shapes = [(4, 12, 512, 32, False), (2, 16, 512, 64, False),
               (8, 12, 512, 26, False), (1, 12, 2048, 26, False),
               (16, 12, 64, 26, True)]
@@ -520,45 +564,114 @@ def mha_kernel_phase(dev, rng):
         bias_t = torch.from_numpy(bias.astype(np.float32)).to(dev)
         scale = 1.0 / dh ** 0.5
         form = "pairwise" if pairwise else "key-side"
-        for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for dn, dt in dtypes:
             q, k, v = (torch.from_numpy(a).to(dev).to(dt)
                        for a in (q32, k32, v32))
-            err = compare("multi_head_attention",
-                          M.multi_head_attention(q, k, v, bias_t,
-                                                 scale=scale),
-                          M._mha_plain(q, k, v, bias_t, scale), dn,
-                          f"B,H,T,dh={b},{h},{t},{dh} {form} {dn}")
+            err = check(q, k, v, bias_t, scale,
+                        f"B,H,T,dh={b},{h},{t},{dh} {form} {dn}")
             if dn != "bf16":
                 continue
-            bias4 = (bias_t[:, None] if pairwise
-                     else bias_t[:, None, None, :]).to(dt)
-            nbytes = (4 * b * h * t * dh * q.element_size()
-                      + bias_t.numel() * 4)
-            b_ms, b_by = bound(nbytes, 4.0 * b * h * t * t * dh, dn)
-            r = dict(
-                shape=f"B={b} H={h} T={t} dh={dh} {form} bf16",
-                max_abs_err=err,
-                tolerance=TOL["multi_head_attention"][dn],
-                ms=time_ms(lambda: M.multi_head_attention(
-                    q, k, v, bias_t, scale=scale)),
-                eager_ms=eager_ms(lambda: M.multi_head_attention(
-                    q, k, v, bias_t, scale=scale)),
-                plain_ms=time_ms(lambda: M._mha_plain(q, k, v, bias_t,
-                                                      scale)),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=bias4, scale=scale)),
-                bound_ms=b_ms, bound_by=b_by)
-            log(f"  {r['shape']}: kernel {r['ms']:.5f} ms (eager "
-                f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f}, sdpa "
-                f"{r['library_ms']:.5f}, bound {b_ms:.5f} ({b_by})")
+            r = mha_timing(q, k, v, bias_t, scale, pairwise)
+            r["max_abs_err"] = err
             timed.append(r)
             if (b, h, t, dh, pairwise) == (1, 12, 2048, 26, False):
                 row = dict(r)
         torch.cuda.synchronize()
+
+    # ragged T against the 64-key tiles, then head dims 1..128: every copy
+    # path (16-byte, 4-byte, element) and every instance (DH 32, 64, 128);
+    # attention_bias leaves fully masked query rows in both forms
+    edge = ([(3, 4, t, 26) for t in (1, 37, 100)] + [(2, 4, 2047, 26)]
+            + [(2, 3, 100, dh) for dh in (1, 13, 26, 48, 80, 128)])
+    for (b, h, t, dh) in edge:
+        for pairwise in (False, True):
+            bias_t = torch.from_numpy(attention_bias(rng, b, t,
+                                                     pairwise)).to(dev)
+            form = "pairwise" if pairwise else "key-side"
+            for dn, dt in dtypes:
+                q, k, v = operands(b, h, t, dh, dt)
+                check(q, k, v, bias_t, 1.0 / dh ** 0.5,
+                      f"B,H,T,dh={b},{h},{t},{dh} {form} {dn} (edge)")
+        torch.cuda.synchronize()
+
+    # the warmup grid's largest shape: 64 rows of the 2,048 bucket
+    b, h, t, dh = WARMUP_LARGEST
+    mask = (rng.random((b, t)) > 0.2).astype(np.float32)
+    mask[:, 0] = 1.0
+    bias_t = torch.from_numpy(((mask - 1.0) * 1e9).astype(np.float32)).to(dev)
+    for dn, dt in dtypes:
+        q, k, v = operands(b, h, t, dh, dt)
+        err = check(q, k, v, bias_t, dh ** -0.5,
+                    f"B,H,T,dh={b},{h},{t},{dh} key-side {dn}", chunk=16)
+        if dn == "bf16":
+            r = mha_timing(q, k, v, bias_t, dh ** -0.5, False, large=True)
+            r["max_abs_err"] = err
+            timed.append(r)
+        del q, k, v
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
     row["shape"] += " (rubert-tiny2's 2048 bucket)"
-    row["max_abs_err"] = max(r["max_abs_err"] for r in timed)
+    row["max_abs_err"] = errs["bf16"]
+    row["max_abs_err_f32"] = errs["f32"]
     row["shapes"] = timed
     return row
+
+
+def mha_timing(q, k, v, bias_t, scale, pairwise, large=False):
+    """One bf16 shape of kernel 4 timed: the kernel (graph replay, and its
+    eager time), the plain version, SDPA on the same operands and, where
+    d_head % 8 != 0, SDPA on operands zero-padded to the next multiple of 8
+    beforehand. ``large``: the yardsticks (whose [T, T] intermediates take
+    tens of GB) are timed eagerly over 2 calls, which their milliseconds
+    make exact enough, and a yardstick that runs out of memory is recorded
+    as not measured (None)."""
+    import torch
+    import torch.nn.functional as F
+
+    from bert_tpu_torch.ops import attention as M
+
+    b, h, t, dh = q.shape
+    bias4 = (bias_t[:, None] if pairwise
+             else bias_t[:, None, None, :]).to(q.dtype)
+    nbytes = 4 * q.numel() * q.element_size() + bias_t.numel() * 4
+    b_ms, b_by = bound(nbytes, 4.0 * b * h * t * t * dh, "bf16")
+    dp = -(-dh // 8) * 8
+    padded = ([F.pad(x, (0, dp - dh)) for x in (q, k, v)] if dp != dh
+              else None)
+
+    def yardstick(fn):
+        if not large:
+            return time_ms(fn)
+        try:
+            return eager_ms(fn, reps=2, rounds=3)
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            return None
+
+    form = "pairwise" if pairwise else "key-side"
+    r = dict(
+        shape=f"B={b} H={h} T={t} dh={dh} {form} bf16",
+        tolerance=TOL["multi_head_attention"]["bf16"],
+        ms=time_ms(lambda: M.multi_head_attention(q, k, v, bias_t,
+                                                  scale=scale)),
+        eager_ms=eager_ms(lambda: M.multi_head_attention(
+            q, k, v, bias_t, scale=scale)),
+        plain_ms=yardstick(lambda: M._mha_plain(q, k, v, bias_t, scale)),
+        library_ms=yardstick(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias4, scale=scale)),
+        library_padded_ms=None if padded is None else yardstick(
+            lambda: F.scaled_dot_product_attention(
+                *padded, attn_mask=bias4, scale=scale)),
+        bound_ms=b_ms, bound_by=b_by)
+
+    def fmt(x):
+        return "not measured" if x is None else f"{x:.5f}"
+    log(f"  {r['shape']}: kernel {r['ms']:.5f} ms (eager "
+        f"{r['eager_ms']:.5f}), plain {fmt(r['plain_ms'])}, sdpa "
+        f"{fmt(r['library_ms'])}, sdpa padded to dh {dp} "
+        f"{fmt(r['library_padded_ms'])}, bound {b_ms:.5f} ({b_by})")
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -1080,6 +1193,9 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "entry function" in line):
                 log(f"  {name}: {line.strip()}")
+            require("spill" not in line or re.search(
+                r"(?<!\d)0 bytes spill stores, 0 bytes spill loads", line),
+                f"{name}: an instance spills: {line.strip()}")
 
     dev = torch.device("cuda")
     # one generator per phase, so that checks added to one phase leave the

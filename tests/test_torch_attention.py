@@ -4,7 +4,7 @@
 held against both JAX versions on the same numpy inputs: ``_mha_jnp``, what
 the JAX model runs on a CPU, and the Pallas ``_mha_kernel`` run in
 interpret mode, as tests/test_kernels.py runs it. Shapes include d_head 26
-(rubert-tiny2), which only this route takes. The CUDA kernel itself is held
+(rubert-tiny2) and 80, which only this route takes. The CUDA kernel itself is held
 against the plain version on the card by chip_smoke.py; CUDA has no
 interpret mode.
 
@@ -15,6 +15,8 @@ tests/test_kernels.py:74 holds the Pallas kernel to ``_mha_jnp``; bf16
 O(1) value, and the frameworks round the f32 softmax differently before
 that).
 """
+
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -34,6 +36,8 @@ DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
 TOL_JNP = {"f32": (1e-6, 1e-6), "bf16": (2e-2, 2e-2)}
 TOL_INTERPRET = {"f32": (1e-5, 1e-4), "bf16": (2e-2, 2e-2)}
+# d_head 32, 26 (rubert-tiny2) and 80 (the kernel's DH = 128 instance)
+SHAPES = [(2, 4, 64, 32), (2, 3, 96, 26), (2, 2, 40, 80)]
 
 
 def _inputs(rng, b, h, t, dh, pairwise=False):
@@ -67,8 +71,7 @@ def _f32(x) -> np.ndarray:
 
 
 @pytest.mark.parametrize("dname", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 4, 64, 32), (2, 3, 96, 26)],
-                         ids=["dh32", "dh26"])
+@pytest.mark.parametrize("shape", SHAPES, ids=["dh32", "dh26", "dh80"])
 def test_mha_matches_jnp_and_interpret_mode(shape, dname):
     rng = np.random.default_rng(sum(shape))
     (qt, kt, vt, bt), (qj, kj, vj, bj) = _both(_inputs(rng, *shape), dname)
@@ -131,20 +134,55 @@ def test_fully_masked_row_is_uniform():
     np.testing.assert_allclose(out[1], want, atol=1e-6)
 
 
+def _rn32(x: Fraction) -> np.float32:
+    """x rounded to the nearest float32, ties to even."""
+    f = np.float32(float(x))
+    near = (np.nextafter(f, np.float32(-np.inf)), f,
+            np.nextafter(f, np.float32(np.inf)))
+    return min(near, key=lambda c: (abs(Fraction(float(c)) - x),
+                                    int(c.view(np.uint32)) & 1))
+
+
+def test_reciprocal_division_is_ieee():
+    """Both kernels form p = e / l as q = e·r corrected by one FMA
+    residual, q + (e - q·l)·r, with r = 1/l rounded once (``div_rn`` in
+    csrc/attention.cu; ``__fdiv_rn`` branches to a slow path on every zero
+    numerator). Over the softmax's range, e = exp(s - m) in [exp(-80), 1]
+    or 0 and l in [1, 4001], that is the IEEE quotient wherever it lies
+    above 2^-100; numpy's float32 division is the reference. The FMAs run
+    in float64, where a product of two float32 values is exact; where the
+    last one could round twice, exact rational arithmetic decides."""
+    rng = np.random.default_rng(53)
+    e = np.exp(-rng.random(1_000_000) * 80).astype(np.float32)
+    e[::7] = 0.0
+    l = (1 + rng.random(e.size) * 4000).astype(np.float32)
+    r = np.float32(1) / l
+    q = (e.astype(np.float64) * r).astype(np.float32)
+    res = (e.astype(np.float64) - q.astype(np.float64) * l).astype(np.float32)
+    got = (q.astype(np.float64) + res.astype(np.float64) * r).astype(np.float32)
+    want = e / l
+    checked = want >= np.float32(2.0 ** -100)
+    assert checked.sum() > 600_000
+    for i in np.nonzero((got != want) & checked)[0]:
+        exact = _rn32(Fraction(float(q[i]))
+                      + Fraction(float(res[i])) * Fraction(float(r[i])))
+        assert exact == want[i], (e[i], l[i])
+
+
 def test_other_devices_and_wide_heads_raise():
     meta = torch.zeros(1, 2, 8, 26, device="meta")
     with pytest.raises(ValueError, match="device"):
         multi_head_attention(meta, meta, meta,
                              torch.zeros(1, 8, device="meta"), scale=0.2)
-    wide = torch.zeros(1, 2, 8, 80)
-    with pytest.raises(ValueError, match="head dim 80"):
+    wide = torch.zeros(1, 2, 8, 136)
+    with pytest.raises(ValueError, match="head dim 136"):
         multi_head_attention(wide, wide, wide, torch.zeros(1, 8), scale=0.1)
 
 
 if __name__ == "__main__":
     # The deltas behind the tolerances above, as ROADMAP.md section C
     # records them:  python tests/test_torch_attention.py
-    for shape in ((2, 4, 64, 32), (2, 3, 96, 26)):
+    for shape in SHAPES:
         for dname in DTYPES:
             rng = np.random.default_rng(sum(shape))
             (qt, kt, vt, bt), (qj, kj, vj, bj) = _both(_inputs(rng, *shape),

@@ -6,8 +6,9 @@ through bert_tpu.model (use_pallas=False, the jnp path the JAX model runs
 on a CPU) and through bert_tpu_torch.model, bucketed and packed, mean and
 CLS pooled. At the full MiniLM-L6 width the port reproduces the committed
 golden embeddings within the tolerances of tests/test_goldens.py. A
-d_head = 26 config (rubert-tiny2's head dim) takes the other attention
-route, the per-(batch, head) kernel's, in both packages.
+d_head = 26 config (rubert-tiny2's head dim) and a d_head = 80 config take
+the other attention route, the per-(batch, head) kernel's, in both
+packages.
 
 Tolerances: f32 2e-5 (the goldens' f32 bound: same arithmetic, other
 summation order); bf16 5e-3 (the goldens' bf16 bound: the frameworks round
@@ -179,28 +180,42 @@ def test_golden_token_ids_from_port_tokenizer(golden_port):
         assert not row[len(t):].any()
 
 
-# d_head = 52 / 2 = 26: no fused-kernel instance, so both packages take the
-# per-(batch, head) route (bert_tpu: multi_head_attention on the CPU)
+# d_head = 52 / 2 = 26 and 160 / 2 = 80: no fused-kernel instance, so both
+# packages take the per-(batch, head) route (bert_tpu: multi_head_attention
+# on the CPU); 80 is what the kernel's DH = 128 instance takes on the card
 DH26 = dict(n_vocab=512, n_max_tokens=256, n_embd=52, n_intermediate=96,
             n_head=2, n_layer=2)
+DH80 = dict(n_vocab=512, n_max_tokens=256, n_embd=160, n_intermediate=192,
+            n_head=2, n_layer=2)
+MHA_CONFIGS = {"dh26": DH26, "dh80": DH80}
 
 
 @pytest.fixture(scope="module")
-def dh26_models():
-    named = j_random_named(JConfig(**DH26), seed=12)
-    jtree = j_params_from_named(named, JConfig(**DH26))
-    host = jax.tree_util.tree_map(np.asarray, jtree)
-    state = params_from_jax(host, TConfig(**DH26), device="cpu")
-    return jtree, tmodel.BertModel(state, TConfig(**DH26))
+def mha_models():
+    """config name → (JAX params tree, port BertModel on the same
+    weights), each built on first use."""
+    built = {}
+
+    def get(name):
+        if name not in built:
+            cfg = MHA_CONFIGS[name]
+            named = j_random_named(JConfig(**cfg), seed=12)
+            jtree = j_params_from_named(named, JConfig(**cfg))
+            host = jax.tree_util.tree_map(np.asarray, jtree)
+            state = params_from_jax(host, TConfig(**cfg), device="cpu")
+            built[name] = (jtree, tmodel.BertModel(state, TConfig(**cfg)))
+        return built[name]
+    return get
 
 
+@pytest.mark.parametrize("cfg", list(MHA_CONFIGS))
 @pytest.mark.parametrize("pooling", ["mean", "cls"])
-def test_dh26_bert_forward_matches_bert_tpu(dh26_models, pooling):
-    jtree, tm = dh26_models
+def test_dh26_bert_forward_matches_bert_tpu(mha_models, pooling, cfg):
+    jtree, tm = mha_models(cfg)
     rng = np.random.default_rng(3)
     ids, mask = _batch(rng, b=4, t=80)
     want = jmodel.bert_forward(jtree, jnp.asarray(ids), jnp.asarray(mask),
-                               JConfig(**DH26), use_pallas=False,
+                               JConfig(**MHA_CONFIGS[cfg]), use_pallas=False,
                                pooling=pooling)
     with torch.inference_mode():
         got = tmodel.bert_forward(tm, torch.from_numpy(ids).long(),
@@ -208,16 +223,17 @@ def test_dh26_bert_forward_matches_bert_tpu(dh26_models, pooling):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
-def test_dh26_bert_forward_packed_matches_bert_tpu(dh26_models):
-    jtree, tm = dh26_models
+@pytest.mark.parametrize("cfg", list(MHA_CONFIGS))
+def test_dh26_bert_forward_packed_matches_bert_tpu(mha_models, cfg):
+    jtree, tm = mha_models(cfg)
     rng = np.random.default_rng(4)
-    lists = [list(rng.integers(1, DH26["n_vocab"], size=int(n)))
+    lists = [list(rng.integers(1, MHA_CONFIGS[cfg]["n_vocab"], size=int(n)))
              for n in rng.integers(3, 30, size=7)]
     plan = plan_packing([len(t) for t in lists], 64, 4)
     ids, seg, pos, _ = pack_batch(lists, plan, n_rows=plan.n_rows + 1)
     want = jmodel.bert_forward_packed(
         jtree, jnp.asarray(ids), jnp.asarray(seg), jnp.asarray(pos),
-        JConfig(**DH26), n_segments=4, use_pallas=False)
+        JConfig(**MHA_CONFIGS[cfg]), n_segments=4, use_pallas=False)
     with torch.inference_mode():
         got = tmodel.bert_forward_packed(
             tm, torch.from_numpy(ids).long(), torch.from_numpy(seg),
@@ -233,10 +249,11 @@ def test_fused_route(d_head, fused):
                            pairwise=pairwise) is fused
 
 
-@pytest.mark.parametrize("cfg,route", [(DH26, "mha"), (SMALL, "fused")],
-                         ids=["dh26", "dh32"])
+@pytest.mark.parametrize("cfg,route", [(DH26, "mha"), (SMALL, "fused"),
+                                       (DH80, "mha")],
+                         ids=["dh26", "dh32", "dh80"])
 def test_encoder_layer_takes_its_route(monkeypatch, cfg, route):
-    """A spy on both attention entry points: d_head 26 goes to
+    """A spy on both attention entry points: d_head 26 and 80 go to
     multi_head_attention on [B, H, T, dh] operands, d_head 32 to the fused
     QKV kernel on the [B, T, 3D] projection."""
     calls = []
