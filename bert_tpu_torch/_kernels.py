@@ -43,9 +43,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "layer_norm": {
         # x, residual (nullable), pre_bias (nullable), scale, bias, out,
-        # M, D, eps, stream
+        # M, D, eps, stream; f32_bf16: x f32, residual and out bf16
         f"layer_norm_{t}": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]
-        for t in ("f32", "bf16")
+        for t in ("f32", "bf16", "f32_bf16")
     },
     "fused_attention": {
         # qkv, bias, out, B, T, H, d_head, pairwise, scale, stream

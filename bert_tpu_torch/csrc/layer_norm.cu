@@ -1,109 +1,386 @@
 // Fused (pre-bias + residual +) LayerNorm for Hopper (sm_90a):
 // out[M,D] = LN(x [+ pre_bias] [+ residual]) over the last axis, f32 mean
 // and biased variance, then (v - mean) * rsqrt(var + eps) * scale + bias,
-// cast to x's type. x, residual and out are T [M,D]; pre_bias, scale and
-// bias are f32 [D]. residual and pre_bias are nullable.
+// cast once to the output type. x is Tin [M,D], residual and out are Tout
+// [M,D]; pre_bias, scale and bias are f32 [D]. residual and pre_bias are
+// nullable. Three type pairs: f32 -> f32, bf16 -> bf16, and f32 -> bf16,
+// where each x element is first rounded to bf16 and widened back, so that
+// the f32 product of a matmul goes in as it is and the result is bit for
+// bit x.to(bf16) followed by the bf16 kernel (one launch and one round
+// trip of the product through device memory fewer).
 //
 // Replaces: bert_tpu/ops/layer_norm.py::_ln_kernel, _ln_res_kernel and
 // _ln_res_pb_kernel (launched by _ln_pallas, entry fused_layer_norm). One
 // kernel with nullable operands covers all three bodies. As in the Pallas
 // kernels, the operands are widened to f32 BEFORE the adds
-// ((x + pre_bias) + residual, in f32).
+// ((x + pre_bias) + residual, in f32); the variance is the mean of the
+// squared deviations, two passes over the row held in registers (no
+// Welford, no E[v^2] - mean^2). Only the order of the row's sum differs.
 //
-// What bounds it on the H100: bytes. It does ~10 flops per element and
-// must read x (and the residual) and write out once: at M=1024, D=384 in
-// bf16 with a residual that is 2.4 MB, 0.7 us at 3.35 TB/s.
-// The simple design: one warp per row (D <= 1024, so at most 32 values per
-// lane), 8 rows per 256-thread block. A lane reads elements lane, lane+32,
-// ... so every warp-wide load is one coalesced run; the row stays in
-// registers across the two reductions (the mean, then the variance of the
-// deviations), so each input byte is read once and each output byte written
-// once. Short rows leave warps lightly loaded; vector loads and several rows
-// per warp come in later work.
+// What bounds it on the H100: bytes, and at the paths' sizes the latency
+// of moving them. It must read x (and the residual) and write out once:
+// 1024x384 bf16 with a residual is 2.36 MB, 0.71 us at 3.35 TB/s. That is
+// about one DRAM round trip, so what sets the time is how soon every load
+// of a row is in flight and how few dependent steps follow (two
+// reductions, a store). The first design (a warp per row, one 2-byte load a
+// lane per element, the f32 parameters re-read per element, 32-way
+// predicated loops, 8 rows a block) had few bytes in flight and many
+// instructions between them. This design:
+//   - moves 16 bytes a lane-access (8 bf16 or 4 f32; f32 x beside bf16
+//     out: 8 elements in two 16-byte loads) where D % 8 == 0 (bf16 out) or
+//     D % 4 == 0 (f32 out), 4 bytes (2 bf16) where D is even, one element
+//     otherwise: a template parameter N, the elements of a vector, chosen
+//     by D; the wrapper checks that every operand is aligned for its path
+//     and raises, and this source checks again and refuses the launch;
+//   - gives each row a group of G = 8, 16 or 32 lanes, each holding V
+//     vectors (a template parameter), picked at launch for the fewest
+//     masked slots (D = 384 bf16: 48 vectors = 16 lanes x 3; D = 312: 39 =
+//     8 x 5, one slot masked); lane l's slot i is vector i*G + l, so each
+//     slot is one coalesced run, and only the last slot can lie past the
+//     row. The sums are butterflies of __shfl_xor_sync within the group,
+//     which leave every lane the same value;
+//   - loads scale, bias and pre_bias for the lane's columns once per thread,
+//     before the row, and keeps them in registers for every row the thread
+//     walks; issues every load of a row before the first reduction;
+//   - sizes blocks (1 to 8 warps) so that small M still gives at least two
+//     blocks an SM where the rows allow it.
+// A row in registers is at most 32 floats a lane (G = 32, V * N <= 32:
+// D <= 1024 on the 16-byte paths, 512 on the 4-byte path, 256 on the
+// scalar path); ptxas (-v) reports no spill for any instance (27-191
+// registers). Wider rows go to a simple instance with one 256-thread
+// block per row that forms v = x (+ pre_bias) (+ residual) anew on each of
+// its three passes (sum, squared deviations, write), re-reading x and the
+// residual, which L2 serves; it has no upper limit on D.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <climits>
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;           // rows per block
-constexpr int MAX_PER_LANE = 32;   // D <= 32 * 32 = 1024
+using bf16 = __nv_bfloat16;
+
+constexpr int ROW_BLOCK = 256;  // threads of the block-per-row instance
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16(v);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// x widened to f32; where the output type is narrower, rounded to it first
+// (the f32-input form: bit for bit a cast of x before the kernel)
+template <typename Tin, typename Tout>
+__device__ __forceinline__ float widen(Tin v) {
+  if constexpr (std::is_same<Tin, Tout>::value)
+    return to_f32(v);
+  else
+    return to_f32(from_f32<Tout>(to_f32(v)));
+}
+
+// N elements of T moved as one access of min(16, N * sizeof(T)) bytes (an
+// f32 vector of 8 moves as two 16-byte accesses)
+template <typename T, int N>
+struct alignas(N * sizeof(T) < 16 ? N * sizeof(T) : 16) Vec {
+  T v[N];
+};
+
+template <typename T, int N>
+__device__ __forceinline__ Vec<T, N> ld(const T* p) {
+  return *reinterpret_cast<const Vec<T, N>*>(p);
+}
+
+template <int N>
+__device__ __forceinline__ void ld_f32(float (&f)[N], const float* p) {
+  const Vec<float, N> v = ld<float, N>(p);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int e = 0; e < N; ++e) f[e] = v.v[e];
+}
+
+// the sum over a group of G lanes (a power of two dividing 32) by a
+// butterfly: every lane of the group ends with the same value
+__device__ __forceinline__ float group_sum(float v, int G) {
+  for (int o = G >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
-    layer_norm_kernel(const T* __restrict__ x, const T* __restrict__ residual,
-                      const float* __restrict__ pre_bias,
-                      const float* __restrict__ scale,
-                      const float* __restrict__ bias, T* __restrict__ out,
-                      int M, int D, float eps) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * WARPS + threadIdx.x / 32;
-  if (row >= M) return;  // whole warp leaves together
-  const size_t base = (size_t)row * D;
+// vectors a lane may hold: at most 32 floats of the row (and at most 8)
+constexpr int vmax(int N) { return N >= 8 ? 32 / N : 8; }
 
-  float v[MAX_PER_LANE];
-  float sum = 0.f;
+// ---------------------------------------------------------------------------
+// the row in registers: a group of G lanes per row, V vectors of N a lane
+// ---------------------------------------------------------------------------
+
+// One block an SM is enough: without that bound, ptxas spilled in two
+// instances to fit a lower register count
+template <typename Tin, typename Tout, int N, int V>
+__global__ void __launch_bounds__(256, 1)
+    ln_rows_kernel(const Tin* __restrict__ x,
+                   const Tout* __restrict__ residual,
+                   const float* __restrict__ pre_bias,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ bias, Tout* __restrict__ out,
+                   int M, int D, int G, float eps) {
+  const int nv = D / N;  // vectors a row
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (G - 1);  // lane within the row's group
+  const int lg = __ffs(G) - 1;    // G = 2^lg
+  const int rows_per_warp = 32 >> lg;
+  const int warps = blockDim.x >> 5;
+  // slot i holds vector i*G + gl; only the last slot can lie past the row
+  const bool tail = (V - 1) * G + gl < nv;
+  auto has = [&](int i) { return i < V - 1 || tail; };
+
+  float sc[V][N], bi[V][N], pb[V][N];
 #pragma unroll
-  for (int i = 0; i < MAX_PER_LANE; ++i) {
-    const int c = i * 32 + lane;
-    float t = 0.f;
-    if (c < D) {
-      t = to_f32(x[base + c]);
-      if (pre_bias != nullptr) t += pre_bias[c];
-      if (residual != nullptr) t += to_f32(residual[base + c]);
+  for (int i = 0; i < V; ++i) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) sc[i][e] = bi[i][e] = pb[i][e] = 0.f;
+    if (has(i)) {
+      const int c = (i * G + gl) * N;
+      ld_f32<N>(sc[i], scale + c);
+      ld_f32<N>(bi[i], bias + c);
+      if (pre_bias != nullptr) ld_f32<N>(pb[i], pre_bias + c);
     }
-    v[i] = t;
-    sum += t;
   }
-  const float mean = warp_sum(sum) / (float)D;
 
-  float sq = 0.f;
+  // warp-uniform trip count: every lane takes part in every shuffle
+  const int step = gridDim.x * warps * rows_per_warp;
+  for (int r0 = (blockIdx.x * warps + (threadIdx.x >> 5)) * rows_per_warp;
+       r0 < M; r0 += step) {
+    const int row = r0 + (lane >> lg);
+    const bool live = row < M;
+    const size_t base = (size_t)row * D;
+
+    Vec<Tin, N> xr[V];
+    Vec<Tout, N> rr[V];
 #pragma unroll
-  for (int i = 0; i < MAX_PER_LANE; ++i) {
-    const int c = i * 32 + lane;
-    if (c < D) {
-      const float d = v[i] - mean;
-      sq += d * d;
+    for (int i = 0; i < V; ++i) {
+      xr[i] = Vec<Tin, N>{};
+      rr[i] = Vec<Tout, N>{};
+      if (live && has(i)) {
+        const size_t c = base + (size_t)(i * G + gl) * N;
+        xr[i] = ld<Tin, N>(x + c);
+        if (residual != nullptr) rr[i] = ld<Tout, N>(residual + c);
+      }
     }
-  }
-  const float rstd = rsqrtf(warp_sum(sq) / (float)D + eps);
+
+    float v[V][N];
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        float t = widen<Tin, Tout>(xr[i].v[e]) + pb[i][e];
+        if (residual != nullptr) t += to_f32(rr[i].v[e]);
+        v[i][e] = has(i) ? t : 0.f;
+        sum += v[i][e];
+      }
+    const float mean = group_sum(sum, G) / (float)D;
+
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const float d = v[i][e] - mean;
+        if (has(i)) sq += d * d;
+      }
+    const float rstd = rsqrtf(group_sum(sq, G) / (float)D + eps);
 
 #pragma unroll
-  for (int i = 0; i < MAX_PER_LANE; ++i) {
-    const int c = i * 32 + lane;
-    if (c < D) out[base + c] = from_f32<T>((v[i] - mean) * rstd * scale[c] + bias[c]);
+    for (int i = 0; i < V; ++i) {
+      if (!live || !has(i)) continue;
+      Vec<Tout, N> o;
+#pragma unroll
+      for (int e = 0; e < N; ++e)
+        o.v[e] = from_f32<Tout>((v[i][e] - mean) * rstd * sc[i][e] + bi[i][e]);
+      *reinterpret_cast<Vec<Tout, N>*>(out + base + (size_t)(i * G + gl) * N) =
+          o;
+    }
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* residual, const void* pre_bias,
-           const void* scale, const void* bias, void* out, int M, int D,
-           float eps, void* stream) {
-  if (M <= 0 || D <= 0 || D > 32 * MAX_PER_LANE) return (int)cudaErrorInvalidValue;
-  const int blocks = (M + WARPS - 1) / WARPS;
-  layer_norm_kernel<T><<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)residual, (const float*)pre_bias,
-      (const float*)scale, (const float*)bias, (T*)out, M, D, eps);
+// ---------------------------------------------------------------------------
+// wide rows: one block per row, v formed anew on each of three passes
+// ---------------------------------------------------------------------------
+
+// the sum over the block; every warp adds the warps' partials in one order
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = group_sum(v, 32);
+  __syncthreads();  // the previous call's readers are done with red
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  return group_sum(lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f, 32);
+}
+
+template <typename Tin, typename Tout, int N>
+__global__ void __launch_bounds__(ROW_BLOCK)
+    ln_block_kernel(const Tin* __restrict__ x,
+                    const Tout* __restrict__ residual,
+                    const float* __restrict__ pre_bias,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ bias, Tout* __restrict__ out,
+                    int M, int D, float eps) {
+  __shared__ float red[32];
+  const int nv = D / N;
+  for (int row = blockIdx.x; row < M; row += gridDim.x) {
+    const size_t base = (size_t)row * D;
+    // v = x (+ pre_bias) (+ residual) of vector c, in f32
+    auto value = [&](int c, float (&v)[N]) {
+      const Vec<Tin, N> xv = ld<Tin, N>(x + base + (size_t)c * N);
+      float p[N];
+#pragma unroll
+      for (int e = 0; e < N; ++e) p[e] = 0.f;
+      if (pre_bias != nullptr) ld_f32<N>(p, pre_bias + c * N);
+      Vec<Tout, N> rv{};
+      if (residual != nullptr)
+        rv = ld<Tout, N>(residual + base + (size_t)c * N);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        v[e] = widen<Tin, Tout>(xv.v[e]) + p[e];
+        if (residual != nullptr) v[e] += to_f32(rv.v[e]);
+      }
+    };
+    float v[N];
+    float s = 0.f;
+    for (int c = threadIdx.x; c < nv; c += blockDim.x) {
+      value(c, v);
+#pragma unroll
+      for (int e = 0; e < N; ++e) s += v[e];
+    }
+    const float mean = block_sum(s, red) / (float)D;
+    float sq = 0.f;
+    for (int c = threadIdx.x; c < nv; c += blockDim.x) {
+      value(c, v);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const float d = v[e] - mean;
+        sq += d * d;
+      }
+    }
+    const float rstd = rsqrtf(block_sum(sq, red) / (float)D + eps);
+    for (int c = threadIdx.x; c < nv; c += blockDim.x) {
+      value(c, v);
+      float sc[N], bi[N];
+      ld_f32<N>(sc, scale + c * N);
+      ld_f32<N>(bi, bias + c * N);
+      Vec<Tout, N> o;
+#pragma unroll
+      for (int e = 0; e < N; ++e)
+        o.v[e] = from_f32<Tout>((v[e] - mean) * rstd * sc[e] + bi[e]);
+      *reinterpret_cast<Vec<Tout, N>*>(out + base + (size_t)c * N) = o;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *x, *residual, *pre_bias, *scale, *bias;
+  void* out;
+  int M, D;
+  float eps;
+  cudaStream_t st;
+};
+
+template <typename Tin, typename Tout, int N, int V>
+int launch_rows(const Args& a, int G) {
+  const int sms = hopper::sm_count();
+  const long long warps_needed = ((long long)a.M + 32 / G - 1) / (32 / G);
+  // the fewest warps a block (down to one) that still gives every SM two
+  // blocks, so that small M spreads over the card
+  int tb = 256;
+  while (tb > 32 && (warps_needed * 32 + tb - 1) / tb < 2LL * sms) tb >>= 1;
+  const long long blocks = (warps_needed * 32 + tb - 1) / tb;
+  // more blocks than the card holds at once walk the rows instead
+  const int grid = (int)(blocks < (long long)sms * (2048 / tb)
+                             ? blocks
+                             : (long long)sms * (2048 / tb));
+  ln_rows_kernel<Tin, Tout, N, V><<<grid, tb, 0, a.st>>>(
+      (const Tin*)a.x, (const Tout*)a.residual, (const float*)a.pre_bias,
+      (const float*)a.scale, (const float*)a.bias, (Tout*)a.out, a.M, a.D, G,
+      a.eps);
   return (int)cudaGetLastError();
+}
+
+template <typename Tin, typename Tout, int N, int V = 1>
+int dispatch_v(const Args& a, int G, int v) {
+  if constexpr (V > vmax(N)) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (v == V) return launch_rows<Tin, Tout, N, V>(a, G);
+    return dispatch_v<Tin, Tout, N, V + 1>(a, G, v);
+  }
+}
+
+template <typename Tin, typename Tout, int N>
+int launch_n(const Args& a) {
+  const int nv = a.D / N;
+  if (nv > 32 * vmax(N)) {  // wider than a row in registers
+    const int sms = hopper::sm_count();
+    const int grid = a.M < sms * 8 ? a.M : sms * 8;
+    ln_block_kernel<Tin, Tout, N><<<grid, ROW_BLOCK, 0, a.st>>>(
+        (const Tin*)a.x, (const Tout*)a.residual, (const float*)a.pre_bias,
+        (const float*)a.scale, (const float*)a.bias, (Tout*)a.out, a.M, a.D,
+        a.eps);
+    return (int)cudaGetLastError();
+  }
+  // G lanes a row, V vectors a lane: the fewest masked slots, then the
+  // most lanes
+  int best_g = 0, best_v = 0, waste = INT_MAX;
+  for (int g = 32; g >= 8; g >>= 1)
+    for (int v = 1; v <= vmax(N); ++v)
+      if (g * v >= nv && g * v - nv < waste) {
+        waste = g * v - nv;
+        best_g = g;
+        best_v = v;
+      }
+  return dispatch_v<Tin, Tout, N>(a, best_g, best_v);
+}
+
+bool aligned(const void* p, uintptr_t n) {
+  return reinterpret_cast<uintptr_t>(p) % n == 0;
+}
+
+template <typename Tin, typename Tout>
+int launch(const Args& a) {
+  if (a.M <= 0 || a.D <= 0) return (int)cudaErrorInvalidValue;
+  // the vector by the row's byte stride in the output type (the wrapper
+  // picks the same and checks the same alignments first)
+  int n;
+  if constexpr (std::is_same<Tout, bf16>::value)
+    n = a.D % 8 == 0 ? 8 : a.D % 2 == 0 ? 2 : 1;
+  else
+    n = a.D % 4 == 0 ? 4 : 1;
+  auto need = [n](size_t elem) {
+    return (uintptr_t)(n * elem < 16 ? n * elem : 16);
+  };
+  if (!aligned(a.x, need(sizeof(Tin))) ||
+      !aligned(a.residual, need(sizeof(Tout))) ||
+      !aligned(a.out, need(sizeof(Tout))) || !aligned(a.scale, need(4)) ||
+      !aligned(a.bias, need(4)) || !aligned(a.pre_bias, need(4)))
+    return (int)cudaErrorMisalignedAddress;
+  if constexpr (std::is_same<Tout, bf16>::value) {
+    if (n == 8) return launch_n<Tin, Tout, 8>(a);
+    if (n == 2) return launch_n<Tin, Tout, 2>(a);
+    return launch_n<Tin, Tout, 1>(a);
+  } else {
+    if (n == 4) return launch_n<Tin, Tout, 4>(a);
+    return launch_n<Tin, Tout, 1>(a);
+  }
 }
 
 }  // namespace
@@ -112,14 +389,23 @@ extern "C" int layer_norm_f32(const void* x, const void* residual,
                               const void* pre_bias, const void* scale,
                               const void* bias, void* out, int M, int D,
                               float eps, void* stream) {
-  return launch<float>(x, residual, pre_bias, scale, bias, out, M, D, eps,
-                       stream);
+  return launch<float, float>({x, residual, pre_bias, scale, bias, out, M, D,
+                               eps, (cudaStream_t)stream});
 }
 
 extern "C" int layer_norm_bf16(const void* x, const void* residual,
                                const void* pre_bias, const void* scale,
                                const void* bias, void* out, int M, int D,
                                float eps, void* stream) {
-  return launch<__nv_bfloat16>(x, residual, pre_bias, scale, bias, out, M, D,
-                               eps, stream);
+  return launch<bf16, bf16>({x, residual, pre_bias, scale, bias, out, M, D,
+                             eps, (cudaStream_t)stream});
+}
+
+// x f32 (a matmul's product), residual and out bf16
+extern "C" int layer_norm_f32_bf16(const void* x, const void* residual,
+                                   const void* pre_bias, const void* scale,
+                                   const void* bias, void* out, int M, int D,
+                                   float eps, void* stream) {
+  return launch<float, bf16>({x, residual, pre_bias, scale, bias, out, M, D,
+                              eps, (cudaStream_t)stream});
 }

@@ -3,8 +3,8 @@
 Counterpart of ``bert_tpu/ops/attention.py`` with its public API,
 ``multi_head_attention(q, k, v, mask_bias, *, scale)``. On the H100 the
 kernel is ``bert_tpu_torch/csrc/attention.cu`` (it replaces the Pallas
-``_mha_kernel``). It takes contiguous f32 or bf16 operands with head dims
-1..128 and an f32 bias, key-side ``[B, T]`` or pairwise ``[B, T, T]`` — the
+``_mha_kernel``). It takes contiguous f32 or bf16 operands of any head dim
+and an f32 bias, key-side ``[B, T]`` or pairwise ``[B, T, T]`` — the
 Pallas kernel had only the key-side form, and bert_tpu sends pairwise bias
 to ``_mha_jnp``; on the card the port has no plain path, so the kernel
 takes both.
@@ -18,7 +18,11 @@ the tiles' copies; the source's note gives the numbers. Its tiles are copied by 
 is even (rubert-tiny2's 26), element by element for odd dh; a bf16 operand
 not aligned for its path raises (:func:`_check_alignment`). The f32
 instance stays on the CUDA cores (TF32 is off), four threads a row at head
-dims above 64.
+dims above 64. Head dims above 128 (no configuration of the repo has them)
+take one more instance in both types, on the CUDA cores, a thread per
+query row, with q·kᵀ summed over the head dim chunk by chunk and the
+context split into 32-column chunks: right, not fast, and it reads
+element by element, so it needs no alignment beyond the type's.
 
 :func:`_mha_plain` is ``_mha_jnp`` in torch, and the kernel rounds as both
 do: f32 scores multiplied by ``scale``, then the bias added; an f32
@@ -33,7 +37,7 @@ import torch
 
 from .. import _kernels
 
-MAX_D_HEAD = 128  # the kernel's widest instance (csrc/attention.cu)
+TC_MAX_D_HEAD = 128  # the widest tensor-core instance (csrc/attention.cu)
 
 
 def _bias4(mask_bias: torch.Tensor) -> torch.Tensor:
@@ -91,7 +95,7 @@ def _launch(q, k, v, mask_bias, scale):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and dh <= TC_MAX_D_HEAD:
         _check_alignment(q, k, v, mask_bias)
     fn = "mha_f32" if q.dtype == torch.float32 else "mha_bf16"
     lib = _kernels.library("attention")
@@ -111,15 +115,10 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Masked MHA over [B, H, T, d_head] tensors; ``mask_bias`` is additive
     — [B, T] key-side (0 for real tokens, NEG_INF for padding) or [B, T, T]
     pairwise (packed block-diagonal rows). CPU tensors take
-    :func:`_mha_plain`; CUDA tensors launch the kernel or raise. Head dims
-    above 128 raise on every device (ROADMAP.md)."""
+    :func:`_mha_plain`; CUDA tensors launch the kernel or raise."""
     if q.dim() != 4:
         raise ValueError(f"multi_head_attention: q {tuple(q.shape)} is not "
                          "[B, H, T, dh]")
-    if not 1 <= q.shape[-1] <= MAX_D_HEAD:
-        raise ValueError(f"multi_head_attention: head dim {q.shape[-1]} "
-                         f"outside 1..{MAX_D_HEAD}, the kernel's range "
-                         "(wider heads: ROADMAP.md)")
     if q.device.type == "cpu":
         return _mha_plain(q, k, v, mask_bias, scale)
     if q.device.type != "cuda":

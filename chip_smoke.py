@@ -16,10 +16,13 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    shape of the main path: device time from CUDA-graph replay between CUDA
    events, and the kernel's eager time beside it; times the q4 kernel
    against the router's dequantize-then-matmul branch at large M; holds
-   the per-(batch, head) attention at ragged T (1-2,047), at head dims
-   1-128 and at the warmup grid's largest shape (64x2048), and times it
-   beside SDPA on the same and on zero-padded operands. A kernel whose
-   ptxas report shows a spill fails the build step;
+   the LayerNorm at the paths' shapes, at M = 1, at D = 129, 130, 1,280
+   and 4,096 and in its f32-input form (timed beside F.layer_norm and
+   beside cast + kernel); holds the per-(batch, head) attention at ragged
+   T (1-2,047), at head dims 1-256 and at the warmup grid's largest shape
+   (64x2048), and times it beside SDPA on the same and on zero-padded
+   operands. A kernel whose ptxas report shows a spill fails the build
+   step;
 3. main path: writes a MiniLM-L6 Q4_0 ggml file from seed 0, loads it with
    ``BertTorch.from_file(path)`` (the card, bf16) and answers a few
    mixed-length ``encode_batch`` requests — packed short sentences,
@@ -27,9 +30,11 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    kernel's launch count set to 0 just before and read just after; fails
    if a kernel of the path was not launched, or if the per-(batch, head)
    attention kernel was (d_head 32 takes the fused kernel); profiles one
-   more request and times its q4_matmul and attention calls bucket by
-   bucket; checks the result against the same file on the CPU in f32
-   (card f32: cos > 0.9999 and atol 5e-3; card bf16: cos > 0.999);
+   more request (device busy, the LayerNorm's time, the f32 -> bf16
+   casts) and times its q4_matmul and attention calls bucket by bucket;
+   fails unless the LayerNorm launched 2L + 1 times a batch; checks the
+   result against the same file on the CPU in f32 (card f32: cos > 0.9999
+   and atol 5e-3; card bf16: cos > 0.999);
 4. hf_server path: writes a random-weight HF checkpoint directory at
    rubert-tiny2's published widths (D 312, 12 heads of 26, F 600, 3
    layers, vocab 83,828, 2,048 positions, CLS pooling) from seed 0, loads
@@ -443,58 +448,149 @@ def kernel_phase(dev, rng):
         timed[0], max_abs_err=errs["bf16"], max_abs_err_f32=errs["f32"],
         tolerance=TOL["fused_qkv_attention"]["bf16"], timed_shapes=timed)
 
-    # -- kernel 2: fused LayerNorm -----------------------------------------
-    log("kernel 2: fused_layer_norm")
-    ln_shapes = [  # tests/test_kernels_tpu.py:122-130, then the main path's
-        (2048, 384, False, False), (2048, 384, True, False),
-        (1024, 768, True, True), (12288, 1024, True, True),
-        (1024, 384, True, True)]
-    for (m, d, residual, pre_bias) in ln_shapes:
-        x32 = rng.standard_normal((m, d)).astype(np.float32)
-        r32 = rng.standard_normal((m, d)).astype(np.float32)
-        pb = t(rng.standard_normal(d).astype(np.float32))
-        sc = t(rng.standard_normal(d).astype(np.float32))
-        bi = t(rng.standard_normal(d).astype(np.float32))
-        for dn, dt in dtypes.items():
-            x = t(x32, dt)
-            r = t(r32, dt) if residual else None
-            p = pb if pre_bias else None
-            form = ("+res+pre_bias" if pre_bias else
-                    "+res" if residual else "plain")
-            err = compare(
-                "fused_layer_norm",
-                L.fused_layer_norm(x, sc, bi, eps=1e-12, residual=r,
-                                   pre_bias=p),
-                L.layer_norm_plain(x, sc, bi, 1e-12, r, p), dn,
-                f"M,D={m},{d} {form} {dn}")
-            if (m, d, residual, pre_bias) == (1024, 384, True, True) \
-                    and dn == "bf16":
-                ms = time_ms(lambda: L.fused_layer_norm(
-                    x, sc, bi, eps=1e-12, residual=r, pre_bias=p))
-                launch_ms = eager_ms(lambda: L.fused_layer_norm(
-                    x, sc, bi, eps=1e-12, residual=r, pre_bias=p))
-                plain_ms = time_ms(lambda: L.layer_norm_plain(
-                    x, sc, bi, 1e-12, r, p))
-                # the embedding form (no residual, no pre-bias) has a
-                # one-call library counterpart: F.layer_norm
-                sc_dt, bi_dt = sc.to(dt), bi.to(dt)
-                ln_only_ms = time_ms(lambda: L.fused_layer_norm(
-                    x, sc, bi, eps=1e-12))
-                ln_only_lib_ms = time_ms(lambda: F.layer_norm(
-                    x, (d,), sc_dt, bi_dt, 1e-12))
-                nbytes = 3 * m * d * x.element_size() + 3 * d * 4
-                b_ms, b_by = bound(nbytes, 12.0 * m * d, "f32")
-                results["fused_layer_norm"] = dict(
-                    shape=f"M={m} D={d} +res+pre_bias bf16 "
-                          "(MiniLM post-attention LN)",
-                    max_abs_err=err, tolerance=TOL["fused_layer_norm"][dn],
-                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=None, eager_ms=launch_ms,
-                    plain_form_ms=ln_only_ms,
-                    plain_form_library_ms=ln_only_lib_ms)
-        torch.cuda.synchronize()
+    results["fused_layer_norm"] = ln_kernel_phase(dev, rng)
     results["multi_head_attention"] = mha_kernel_phase(dev, rng)
     return results
+
+
+def ln_kernel_phase(dev, rng):
+    """Kernel 2, the LayerNorm, each shape held against the plain version
+    through the public wrapper in f32 and bf16, with a launch-count check:
+    the shapes of tests/test_kernels_tpu.py:122-130; the paths' own (main:
+    1,024 and 512 rows of D 384; hf_server: 2,048 and 512 rows of D 312),
+    with the residual and pre-bias and in the plain (embedding) form; the
+    edges (M = 1; D = 130, the 4-byte path; D = 129, the scalar path; D =
+    1,280 and 4,096, past a row in registers, on the block-per-row
+    instance); and the f32-input form (f32 x, bf16 residual and output) at
+    1024x384 and 2048x312, held against ``layer_norm_plain(x.to(bf16))``.
+    Every path shape is timed in bf16 (graph replay, eager beside it) with
+    its bound and the plain version, the plain form beside
+    ``F.layer_norm`` and the f32-input form beside cast + kernel. The
+    1024x384 +res+pre_bias shape is the kernel's row in the JSON line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from bert_tpu_torch.ops import layer_norm as L
+
+    log("kernel 2: fused_layer_norm")
+    bf16 = torch.bfloat16
+    errs = {"f32": 0.0, "bf16": 0.0}
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev).to(dtype)
+
+    def operands(m, d, form, x_dtype, out_dtype):
+        x = t(rng.standard_normal((m, d)).astype(np.float32), x_dtype)
+        r = (t(rng.standard_normal((m, d)).astype(np.float32), out_dtype)
+             if form != "plain" else None)
+        p = (t(rng.standard_normal(d).astype(np.float32))
+             if form == "+res+pre_bias" else None)
+        sc, bi = (t(rng.standard_normal(d).astype(np.float32))
+                  for _ in range(2))
+        return dict(x=x, scale=sc, bias=bi, residual=r, pre_bias=p)
+
+    def kernel(o, out_dtype=None):
+        return L.fused_layer_norm(o["x"], o["scale"], o["bias"], eps=1e-12,
+                                  residual=o["residual"],
+                                  pre_bias=o["pre_bias"],
+                                  out_dtype=out_dtype)
+
+    def plain(o, out_dtype=None):
+        return L.layer_norm_plain(o["x"].to(out_dtype or o["x"].dtype),
+                                  o["scale"], o["bias"], 1e-12,
+                                  o["residual"], o["pre_bias"])
+
+    def check(o, what, out_dtype=None):
+        dn = "f32" if (out_dtype or o["x"].dtype) == torch.float32 else "bf16"
+        before = L.fused_layer_norm.launches
+        out = kernel(o, out_dtype)
+        require(L.fused_layer_norm.launches == before + 1,
+                f"fused_layer_norm {what}: the wrapper did not launch the "
+                "kernel")
+        err = compare("fused_layer_norm", out, plain(o, out_dtype), dn, what)
+        errs[dn] = max(errs[dn], err)
+        return err
+
+    def timing(o, m, d, form, what, out_dtype=None):
+        x = o["x"]
+        out_size = (out_dtype or x.dtype).itemsize
+        rows = m * d * (x.element_size() + out_size
+                        + (out_size if o["residual"] is not None else 0))
+        params = d * 4 * (3 if o["pre_bias"] is not None else 2)
+        b_ms, b_by = bound(rows + params, 12.0 * m * d, "f32")
+        fdt = "f32->bf16" if out_dtype is not None else "bf16"
+        r = dict(shape=f"M={m} D={d} {form} {fdt} ({what})",
+                 ms=time_ms(lambda: kernel(o, out_dtype)),
+                 eager_ms=eager_ms(lambda: kernel(o, out_dtype)),
+                 plain_ms=time_ms(lambda: plain(o, out_dtype)),
+                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        if form == "plain":  # one PyTorch call computes the plain form
+            sc, bi = o["scale"].to(x.dtype), o["bias"].to(x.dtype)
+            r["library_ms"] = time_ms(lambda: F.layer_norm(
+                x, (d,), sc, bi, 1e-12))
+        if out_dtype is not None:  # what the model launched before: 2 calls
+            r["cast_plus_kernel_ms"] = time_ms(lambda: L.fused_layer_norm(
+                x.to(out_dtype), o["scale"], o["bias"], eps=1e-12,
+                residual=o["residual"], pre_bias=o["pre_bias"]))
+
+        def fmt(k):
+            return "none" if r.get(k) is None else f"{r[k]:.5f}"
+        log(f"  {r['shape']}: kernel {r['ms']:.5f} ms (eager "
+            f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f}, F.layer_norm "
+            f"{fmt('library_ms')}, cast + kernel "
+            f"{fmt('cast_plus_kernel_ms')}, bound {b_ms:.5f} ({b_by})")
+        return r
+
+    # (M, D, form, what it is; "" = checked, not timed)
+    shapes = [  # tests/test_kernels_tpu.py:122-130
+        (2048, 384, "plain", ""), (2048, 384, "+res", ""),
+        (1024, 768, "+res+pre_bias", ""),
+        (12288, 1024, "+res+pre_bias", ""),
+        # the main path: 16x64 packed and 8x128 (1,024 rows), 1x512
+        (1024, 384, "+res+pre_bias", "MiniLM post-projection LN"),
+        (1024, 384, "plain", "MiniLM embedding LN"),
+        (512, 384, "+res+pre_bias", "MiniLM 1x512 bucket"),
+        (512, 384, "plain", "MiniLM 1x512 embedding LN"),
+        # hf_server: 1x2048, 4x512, 32x64 packed (2,048 rows); 2x256, 4x128
+        (2048, 312, "+res+pre_bias", "rubert-tiny2 2,048 rows"),
+        (2048, 312, "plain", "rubert-tiny2 embedding LN"),
+        (512, 312, "+res+pre_bias", "rubert-tiny2 512 rows"),
+        (512, 312, "plain", "rubert-tiny2 512-row embedding LN"),
+        # edges: one row, the 4-byte and scalar paths, block-per-row
+        (1, 384, "+res+pre_bias", ""), (1, 384, "plain", ""),
+        (37, 130, "+res+pre_bias", ""), (37, 129, "+res+pre_bias", ""),
+        (256, 1280, "+res+pre_bias", "block per row"),
+        (64, 4096, "+res+pre_bias", "block per row")]
+    timed, row = [], None
+    for (m, d, form, what) in shapes:
+        for dn, dt in (("f32", torch.float32), ("bf16", bf16)):
+            o = operands(m, d, form, dt, dt)
+            err = check(o, f"M,D={m},{d} {form} {dn}")
+            if dn == "bf16" and what:
+                r = timing(o, m, d, form, what)
+                r["max_abs_err"] = err
+                timed.append(r)
+                if (m, d, form) == (1024, 384, "+res+pre_bias"):
+                    row = r
+        torch.cuda.synchronize()
+    # the f32-input form: a matmul's f32 product, rounded to bf16 first
+    for (m, d, what) in ((1024, 384, "MiniLM post-projection LN"),
+                         (2048, 312, "rubert-tiny2 2,048 rows")):
+        o = operands(m, d, "+res+pre_bias", torch.float32, bf16)
+        err = check(o, f"M,D={m},{d} +res+pre_bias f32 x -> bf16", bf16)
+        r = timing(o, m, d, "+res+pre_bias", what, bf16)
+        r["max_abs_err"] = err
+        timed.append(r)
+        torch.cuda.synchronize()
+
+    plain_form = next(r for r in timed
+                      if r["shape"].startswith("M=1024 D=384 plain"))
+    return dict(row, max_abs_err=errs["bf16"], max_abs_err_f32=errs["f32"],
+                tolerance=TOL["fused_layer_norm"]["bf16"],
+                plain_form_ms=plain_form["ms"],
+                plain_form_library_ms=plain_form["library_ms"],
+                timed_shapes=timed)
 
 
 def mha_kernel_phase(dev, rng):
@@ -505,12 +601,13 @@ def mha_kernel_phase(dev, rng):
     bucket, packed rows with their pairwise bias), timed in bf16; ragged T
     (1, 37, 100, 2,047) against the 64-key tiles and head dims 1-128 (every
     copy path and instance), each in both bias forms with fully masked
-    rows; and the warmup grid's largest shape, 64x12x2048 at d_head 26,
-    timed. Beside each timed bf16 shape: SDPA on the same operands
-    (library_ms) and, where d_head % 8 != 0, SDPA on q, k, v zero-padded to
-    the next multiple of 8 beforehand (library_padded_ms), which reaches
-    SDPA's fused kernels. The path's 2,048 bucket is the kernel's row in the
-    JSON line."""
+    rows; head dims 136, 192 and 256 (the instance above 128), the same
+    way, one of them timed; and the warmup grid's largest shape,
+    64x12x2048 at d_head 26, timed. Beside each timed bf16 shape: SDPA on
+    the same operands (library_ms) and, where d_head % 8 != 0, SDPA on q,
+    k, v zero-padded to the next multiple of 8 beforehand
+    (library_padded_ms), which reaches SDPA's fused kernels. The path's
+    2,048 bucket is the kernel's row in the JSON line."""
     import numpy as np
     import torch
 
@@ -592,6 +689,24 @@ def mha_kernel_phase(dev, rng):
                 q, k, v = operands(b, h, t, dh, dt)
                 check(q, k, v, bias_t, 1.0 / dh ** 0.5,
                       f"B,H,T,dh={b},{h},{t},{dh} {form} {dn} (edge)")
+        torch.cuda.synchronize()
+
+    # head dims above 128: the CUDA-core instance, both bias forms (each
+    # with fully masked rows), one shape timed
+    for dh in (136, 192, 256):
+        for pairwise in (False, True):
+            bias_t = torch.from_numpy(attention_bias(rng, 2, 100,
+                                                     pairwise)).to(dev)
+            form = "pairwise" if pairwise else "key-side"
+            for dn, dt in dtypes:
+                q, k, v = operands(2, 2, 100, dh, dt)
+                err = check(q, k, v, bias_t, 1.0 / dh ** 0.5,
+                            f"B,H,T,dh=2,2,100,{dh} {form} {dn} (wide head)")
+                if (dh, pairwise, dn) == (256, False, "bf16"):
+                    r = mha_timing(q, k, v, bias_t, 1.0 / dh ** 0.5, False)
+                    r["max_abs_err"] = err
+                    r["shape"] += " (wide-head instance)"
+                    timed.append(r)
         torch.cuda.synchronize()
 
     # the warmup grid's largest shape: 64 rows of the 2,048 bucket
@@ -715,10 +830,13 @@ def request_corpus(rng):
     return short + long + [sentence(700)]
 
 
-def profile_request(model, request) -> None:
+def profile_request(model, request, path: str):
     """Where one request's time goes: device time by kernel (torch.profiler,
-    CUDA activity) against the request's wall time. Run after the counted
-    requests, so its launches are not part of their counts."""
+    CUDA activity) against the request's wall time, with the LayerNorm's
+    kernels and the f32 -> bf16 casts (PyTorch's bfloat16_copy_kernel) summed
+    apart. Run after the counted requests, so its launches are not part of
+    their counts. Returns the sums (None where the profiler saw no device
+    time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -732,15 +850,29 @@ def profile_request(model, request) -> None:
                if str(e.device_type).endswith("CUDA")]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
-        log("profile: device time not measured (the profiler saw no CUDA "
-            "kernel time)")
-        return
-    log(f"profile of one request: wall {wall_us:.1f} us (profiled), device "
-        f"busy {busy_us:.1f} us = {100 * busy_us / wall_us:.1f}% "
-        f"(idle {100 - 100 * busy_us / wall_us:.1f}%)")
+        log(f"{path} profile: device time not measured (the profiler saw no "
+            "CUDA kernel time)")
+        return None
+
+    def family(*names):
+        hit = [e for e in kernels if any(n in e.key for n in names)]
+        return (sum(e.self_device_time_total for e in hit),
+                sum(e.count for e in hit))
+    ln_us, ln_n = family("ln_rows_kernel", "ln_block_kernel")
+    cast_us, cast_n = family("bfloat16_copy_kernel")
+    n_kernels = sum(e.count for e in kernels)
+    log(f"{path} profile of one request: wall {wall_us:.1f} us (profiled), "
+        f"device busy {busy_us:.1f} us = {100 * busy_us / wall_us:.1f}% "
+        f"(idle {100 - 100 * busy_us / wall_us:.1f}%) in {n_kernels} "
+        f"kernels; LayerNorm {ln_us:.1f} us / {ln_n} launches; bf16 casts "
+        f"{cast_us:.1f} us / {cast_n}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total:10.1f} us {e.count:5d}x  "
             f"{e.key[:100]}")
+    return {"wall_us": wall_us, "device_busy_us": busy_us,
+            "kernels": n_kernels, "layer_norm_us": ln_us,
+            "layer_norm_launches": ln_n, "bf16_cast_us": cast_us,
+            "bf16_casts": cast_n}
 
 
 def main_path(dev, rng, counters):
@@ -784,6 +916,7 @@ def main_path(dev, rng, counters):
     first = model.encode_batch(requests[0])  # first call: loads the kernels
     torch.cuda.synchronize()
 
+    batches0 = dict(model.timers.bucket_counts)
     for c in counters:
         c.launches = 0
     outs, lat = [], []
@@ -805,8 +938,14 @@ def main_path(dev, rng, counters):
     log(f"main path kernel launches: {launches}")
     for name, n in launches.items():
         require(n > 0, f"kernel {name} was never launched on the main path")
+    # 2L + 1 LayerNorms a batch: the embedding's and two a layer
+    batches = sum(n - batches0.get(k, 0)
+                  for k, n in model.timers.bucket_counts.items())
+    require(launches["fused_layer_norm"] == (2 * cfg.n_layer + 1) * batches,
+            f"fused_layer_norm launched {launches['fused_layer_norm']} times "
+            f"in {batches} batches, not {2 * cfg.n_layer + 1} a batch")
     before = dict(model.timers.bucket_counts)
-    profile_request(model, requests[0])
+    prof = profile_request(model, requests[0], "main path")
     one = {k: n - before.get(k, 0) for k, n in
            model.timers.bucket_counts.items() if n > before.get(k, 0)}
     split = main_split(one, model, rng)
@@ -837,7 +976,7 @@ def main_path(dev, rng, counters):
     log(f"card bf16 (f16 wire) vs CPU f32: min cos {cos16.min():.6f}, "
         f"max|Δ| {float(np.abs(first - ref).max()):.3e}")
     require(bool(np.all(cos16 > 0.999)), "card bf16 cos <= 0.999")
-    return launches, n_sent / dt, split
+    return launches, n_sent / dt, split, prof
 
 
 def main_split(buckets, model, rng):
@@ -1094,7 +1233,7 @@ def hf_server_path(rng, counters):
             "hf_server: a d_head 26 dense model launched the fused "
             "attention or Q4 kernel")
     before = dict(model.timers.bucket_counts)
-    profile_request(model, texts)
+    prof = profile_request(model, texts, "hf_server")
     one = {k: n - before.get(k, 0) for k, n in
            model.timers.bucket_counts.items() if n > before.get(k, 0)}
     split = attention_split(one, model.config, rng)
@@ -1123,7 +1262,7 @@ def hf_server_path(rng, counters):
         f"max|Δ| {err32:.3e}")
     require(bool(np.all(cos32 > 0.9999)), "hf_server: card f32 cos <= 0.9999")
     require(err32 <= 5e-3, "hf_server: card f32 max|Δ| > 5e-3")
-    return launches, rate, split
+    return launches, rate, split, prof
 
 
 def attention_split(buckets, cfg, rng):
@@ -1203,9 +1342,9 @@ def main() -> int:
     results = kernel_phase(dev, np.random.default_rng(17))
     counters = [q4_matmul, fused_layer_norm, fused_qkv_attention,
                 multi_head_attention]
-    launches, rate, main_split_rows = main_path(
+    launches, rate, main_split_rows, main_prof = main_path(
         dev, np.random.default_rng(18), counters)
-    hf_launches, hf_rate, hf_split = hf_server_path(
+    hf_launches, hf_rate, hf_split, hf_prof = hf_server_path(
         np.random.default_rng(19), counters)
     # each kernel's launches on its path: MiniLM-L6 for the first three,
     # hf_server for the per-(batch, head) attention
@@ -1234,6 +1373,9 @@ def main() -> int:
                else {"path": "main"}),
             **({"main_request_split": main_split_rows}
                if name in ("q4_matmul", "fused_qkv_attention") else {}),
+            **({"main_request_profile": main_prof,
+                "hf_server_request_profile": hf_prof}
+               if name == "fused_layer_norm" else {}),
         })
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.5f}")

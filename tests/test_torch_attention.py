@@ -4,7 +4,7 @@
 held against both JAX versions on the same numpy inputs: ``_mha_jnp``, what
 the JAX model runs on a CPU, and the Pallas ``_mha_kernel`` run in
 interpret mode, as tests/test_kernels.py runs it. Shapes include d_head 26
-(rubert-tiny2) and 80, which only this route takes. The CUDA kernel itself is held
+(rubert-tiny2), 80 and 160, which only this route takes. The CUDA kernel itself is held
 against the plain version on the card by chip_smoke.py; CUDA has no
 interpret mode.
 
@@ -36,8 +36,9 @@ DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
 TOL_JNP = {"f32": (1e-6, 1e-6), "bf16": (2e-2, 2e-2)}
 TOL_INTERPRET = {"f32": (1e-5, 1e-4), "bf16": (2e-2, 2e-2)}
-# d_head 32, 26 (rubert-tiny2) and 80 (the kernel's DH = 128 instance)
-SHAPES = [(2, 4, 64, 32), (2, 3, 96, 26), (2, 2, 40, 80)]
+# d_head 32, 26 (rubert-tiny2), 80 (the kernel's DH = 128 instance) and 160
+# (its instance for head dims above 128)
+SHAPES = [(2, 4, 64, 32), (2, 3, 96, 26), (2, 2, 40, 80), (2, 2, 40, 160)]
 
 
 def _inputs(rng, b, h, t, dh, pairwise=False):
@@ -71,7 +72,8 @@ def _f32(x) -> np.ndarray:
 
 
 @pytest.mark.parametrize("dname", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", SHAPES, ids=["dh32", "dh26", "dh80"])
+@pytest.mark.parametrize("shape", SHAPES,
+                         ids=["dh32", "dh26", "dh80", "dh160"])
 def test_mha_matches_jnp_and_interpret_mode(shape, dname):
     rng = np.random.default_rng(sum(shape))
     (qt, kt, vt, bt), (qj, kj, vj, bj) = _both(_inputs(rng, *shape), dname)
@@ -169,14 +171,21 @@ def test_reciprocal_division_is_ieee():
         assert exact == want[i], (e[i], l[i])
 
 
-def test_other_devices_and_wide_heads_raise():
+def test_other_devices_raise_and_wide_heads_compute():
     meta = torch.zeros(1, 2, 8, 26, device="meta")
     with pytest.raises(ValueError, match="device"):
         multi_head_attention(meta, meta, meta,
                              torch.zeros(1, 8, device="meta"), scale=0.2)
-    wide = torch.zeros(1, 2, 8, 136)
-    with pytest.raises(ValueError, match="head dim 136"):
-        multi_head_attention(wide, wide, wide, torch.zeros(1, 8), scale=0.1)
+    # head dims above 128 compute on the CPU, as bert_tpu's do
+    rng = np.random.default_rng(54)
+    q, k, v, bias = _inputs(rng, 1, 2, 8, 136)
+    got = multi_head_attention(*(torch.from_numpy(a) for a in
+                                 (q, k, v, bias)), scale=0.1)
+    atol, rtol = TOL_JNP["f32"]
+    np.testing.assert_allclose(
+        got.numpy(), _f32(_mha_jnp(*(jnp.asarray(a) for a in
+                                     (q, k, v, bias)), 0.1)),
+        atol=atol, rtol=rtol)
 
 
 if __name__ == "__main__":

@@ -6,9 +6,9 @@ through bert_tpu.model (use_pallas=False, the jnp path the JAX model runs
 on a CPU) and through bert_tpu_torch.model, bucketed and packed, mean and
 CLS pooled. At the full MiniLM-L6 width the port reproduces the committed
 golden embeddings within the tolerances of tests/test_goldens.py. A
-d_head = 26 config (rubert-tiny2's head dim) and a d_head = 80 config take
-the other attention route, the per-(batch, head) kernel's, in both
-packages.
+d_head = 26 config (rubert-tiny2's head dim), a d_head = 80 config and a
+d_head = 160 one (D = 1280) take the other attention route, the
+per-(batch, head) kernel's, in both packages.
 
 Tolerances: f32 2e-5 (the goldens' f32 bound: same arithmetic, other
 summation order); bf16 5e-3 (the goldens' bf16 bound: the frameworks round
@@ -180,14 +180,18 @@ def test_golden_token_ids_from_port_tokenizer(golden_port):
         assert not row[len(t):].any()
 
 
-# d_head = 52 / 2 = 26 and 160 / 2 = 80: no fused-kernel instance, so both
-# packages take the per-(batch, head) route (bert_tpu: multi_head_attention
-# on the CPU); 80 is what the kernel's DH = 128 instance takes on the card
+# d_head = 52 / 2 = 26, 160 / 2 = 80 and 1280 / 8 = 160: no fused-kernel
+# instance, so both packages take the per-(batch, head) route (bert_tpu:
+# multi_head_attention on the CPU); 80 is what the kernel's DH = 128
+# instance takes on the card, 160 its instance for head dims above 128, and
+# D = 1280 the LayerNorm's block-per-row instance
 DH26 = dict(n_vocab=512, n_max_tokens=256, n_embd=52, n_intermediate=96,
             n_head=2, n_layer=2)
 DH80 = dict(n_vocab=512, n_max_tokens=256, n_embd=160, n_intermediate=192,
             n_head=2, n_layer=2)
-MHA_CONFIGS = {"dh26": DH26, "dh80": DH80}
+DH160 = dict(n_vocab=512, n_max_tokens=256, n_embd=1280, n_intermediate=256,
+             n_head=8, n_layer=2)
+MHA_CONFIGS = {"dh26": DH26, "dh80": DH80, "dh160": DH160}
 
 
 @pytest.fixture(scope="module")
@@ -242,7 +246,8 @@ def test_dh26_bert_forward_packed_matches_bert_tpu(mha_models, cfg):
 
 
 @pytest.mark.parametrize("d_head,fused", [(26, False), (32, True),
-                                          (64, True), (128, False)])
+                                          (64, True), (128, False),
+                                          (160, False)])
 def test_fused_route(d_head, fused):
     for t, pairwise in ((64, True), (512, False), (2048, False)):
         assert fused_route(t, 12, d_head, torch.bfloat16,
@@ -250,10 +255,10 @@ def test_fused_route(d_head, fused):
 
 
 @pytest.mark.parametrize("cfg,route", [(DH26, "mha"), (SMALL, "fused"),
-                                       (DH80, "mha")],
-                         ids=["dh26", "dh32", "dh80"])
+                                       (DH80, "mha"), (DH160, "mha")],
+                         ids=["dh26", "dh32", "dh80", "dh160"])
 def test_encoder_layer_takes_its_route(monkeypatch, cfg, route):
-    """A spy on both attention entry points: d_head 26 and 80 go to
+    """A spy on both attention entry points: d_head 26, 80 and 160 go to
     multi_head_attention on [B, H, T, dh] operands, d_head 32 to the fused
     QKV kernel on the [B, T, 3D] projection."""
     calls = []
@@ -277,3 +282,46 @@ def test_encoder_layer_takes_its_route(monkeypatch, cfg, route):
     want = ((2, c.n_head, 16, c.d_head) if route == "mha"
             else (2, 16, 3 * c.n_embd))
     assert calls == [(route, want)] * c.n_layer
+
+
+@pytest.mark.parametrize("ftype", [None, 2], ids=["f32w", "q4_0"])
+def test_encoder_layer_hands_the_layer_norm_the_f32_product(monkeypatch,
+                                                            ftype):
+    """On a bf16 model both post-projection LayerNorms get the f32 product
+    of o_w and ff_o_w with a bf16 out_dtype (the kernel's f32-input form,
+    one launch fewer each), and the layer's output is exactly that of
+    casting the product to bf16 first and normalising the bf16 tensor."""
+    c = TConfig(**SMALL)
+    model = tmodel.BertModel(params_to_torch(params_from_named_tensors(
+        random_named_tensors(c, 2), c, quantize_ftype=ftype),
+        device="cpu"), c)
+    layer = model.layers[0]
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 16, c.n_embd)).astype(
+        np.float32)).to(torch.bfloat16)
+    mask_bias = torch.zeros(2, 16)
+    calls = []
+    real_ln, real_dense = tmodel.fused_layer_norm, tmodel.dense
+
+    def spy(x, *args, **kw):
+        calls.append((x.dtype, kw.get("out_dtype"), kw["residual"].dtype
+                      if kw.get("residual") is not None else None))
+        return real_ln(x, *args, **kw)
+
+    monkeypatch.setattr(tmodel, "fused_layer_norm", spy)
+    with torch.inference_mode():
+        got = layer(x, mask_bias)
+    bf16 = torch.bfloat16
+    assert calls == [(torch.float32, bf16, bf16)] * 2
+    assert got.dtype == bf16
+
+    # the parent's layer: every product cast to x's dtype, LN on bf16
+    def cast_then_ln(x, *args, out_dtype=None, **kw):
+        return real_ln(x.to(out_dtype or x.dtype), *args, **kw)
+
+    monkeypatch.setattr(tmodel, "fused_layer_norm", cast_then_ln)
+    monkeypatch.setattr(tmodel, "dense", lambda x, w, b=None, f32_out=False:
+                        real_dense(x, w, b))
+    with torch.inference_mode():
+        want = layer(x, mask_bias)
+    assert torch.equal(got, want)

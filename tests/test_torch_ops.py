@@ -32,7 +32,12 @@ from bert_tpu_torch.ops.fused_attention import (
     attention_plain,
     fused_qkv_attention,
 )
-from bert_tpu_torch.ops.layer_norm import fused_layer_norm, layer_norm_plain
+from bert_tpu_torch.ops.layer_norm import (
+    _check_alignment,
+    fused_layer_norm,
+    layer_norm_plain,
+    vector_width,
+)
 from bert_tpu_torch.ops.q4_matmul import (
     _check_alignment as _check_q4_alignment,
     bf16_alignment,
@@ -171,11 +176,18 @@ def test_fused_attention_bf16_alignment_is_checked():
         _check_attention_alignment(ok_qkv, bias[1:1 + b * t].view(b, t))
 
 
+# 37x128 as before; D = 312 (rubert-tiny2), 1280 (past a row in registers:
+# the kernel's block-per-row instance) and 129 (odd: its scalar path)
+LN_SHAPES = [(37, 128), (37, 312), (9, 1280), (5, 129)]
+LN_IDS = ["37x128", "37x312", "9x1280", "5x129"]
+
+
 @pytest.mark.parametrize("dname", ["f32", "bf16"])
 @pytest.mark.parametrize("form", ["plain", "residual", "residual_pre_bias"])
-def test_fused_layer_norm_plain_matches_jax(form, dname):
+@pytest.mark.parametrize("shape", LN_SHAPES, ids=LN_IDS)
+def test_fused_layer_norm_plain_matches_jax(shape, form, dname):
     rng = np.random.default_rng(20)
-    m, d = 37, 128
+    m, d = shape
     xt, xj = _pair(rng.standard_normal((m, d)).astype(np.float32), dname)
     scale = rng.standard_normal(d).astype(np.float32)
     bias = rng.standard_normal(d).astype(np.float32)
@@ -193,6 +205,67 @@ def test_fused_layer_norm_plain_matches_jax(form, dname):
     _close(got, layer_norm_jnp(xj, sj, bj, 1e-12, rj, pbj), TOL_JNP[dname])
     pallas = _ln_pallas(xj, sj, bj, 1e-12, rj, pbj, interpret=True)
     _close(got, pallas, TOL_INTERPRET[dname])
+
+
+@pytest.mark.parametrize("form", ["plain", "residual", "residual_pre_bias"])
+@pytest.mark.parametrize("shape", LN_SHAPES[:2], ids=LN_IDS[:2])
+def test_fused_layer_norm_f32_input_rounds_first(shape, form):
+    """The f32-input form (x an f32 matmul product, residual and output
+    bf16) is x.to(bf16) followed by the bf16 LayerNorm, exactly; against
+    bert_tpu it is the bf16 LayerNorm of x.astype(bf16)."""
+    rng = np.random.default_rng(21)
+    m, d = shape
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    xt, xj = torch.from_numpy(x), jnp.asarray(x).astype(jnp.bfloat16)
+    rt = rj = pbt = pbj = None
+    if form != "plain":
+        rt, rj = _pair(rng.standard_normal((m, d)).astype(np.float32), "bf16")
+    if form == "residual_pre_bias":
+        pb = rng.standard_normal(d).astype(np.float32)
+        pbt, pbj = torch.from_numpy(pb), jnp.asarray(pb)
+    scale = rng.standard_normal(d).astype(np.float32)
+    bias = rng.standard_normal(d).astype(np.float32)
+    st, bt = torch.from_numpy(scale), torch.from_numpy(bias)
+    sj, bj = jnp.asarray(scale), jnp.asarray(bias)
+    got = fused_layer_norm(xt, st, bt, eps=1e-12, residual=rt, pre_bias=pbt,
+                           out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, fused_layer_norm(xt.to(torch.bfloat16), st, bt,
+                                             eps=1e-12, residual=rt,
+                                             pre_bias=pbt))
+    _close(got, layer_norm_jnp(xj, sj, bj, 1e-12, rj, pbj), TOL_JNP["bf16"])
+    pallas = _ln_pallas(xj, sj, bj, 1e-12, rj, pbj, interpret=True)
+    _close(got, pallas, TOL_INTERPRET["bf16"])
+
+
+@pytest.mark.parametrize("d, out_dtype, width", [
+    (384, torch.bfloat16, 8), (130, torch.bfloat16, 2),
+    (129, torch.bfloat16, 1), (384, torch.float32, 4),
+    (130, torch.float32, 1)])
+def test_fused_layer_norm_alignment_is_checked(d, out_dtype, width):
+    """The kernel moves rows of D in vectors of 16 bytes, 4 bytes or one
+    element by D and the output type; each operand must be aligned for
+    its row's vector, min(16, width * element size) bytes, or the wrapper
+    raises (f32 x beside a bf16 output needs twice the bf16 alignment)."""
+    assert vector_width(d, out_dtype) == width
+    m = 2
+    xbuf = torch.zeros(m * d + 8, dtype=torch.float32)
+    rbuf = torch.zeros(m * d + 8, dtype=out_dtype)
+    pbuf = torch.zeros(d + 8)
+    x, r = xbuf[:m * d].view(m, d), rbuf[:m * d].view(m, d)
+    p = pbuf[:d]
+    _check_alignment(x, r, p, p, p, out_dtype)  # fresh buffers: aligned
+    _check_alignment(x, None, None, p, p, out_dtype)
+    if width == 1:
+        return  # one element a vector: every pointer is aligned by its type
+    for name, args in (
+            ("x", (xbuf[1:1 + m * d].view(m, d), r, p, p, p)),
+            ("residual", (x, rbuf[1:1 + m * d].view(m, d), p, p, p)),
+            ("pre_bias", (x, r, pbuf[1:1 + d], p, p)),
+            ("scale", (x, r, p, pbuf[1:1 + d], p)),
+            ("bias", (x, r, p, p, pbuf[1:1 + d]))):
+        with pytest.raises(ValueError, match=f"{name} at"):
+            _check_alignment(*args, out_dtype)
 
 
 def _attention_inputs(rng, b, t, h, dh, pairwise):
