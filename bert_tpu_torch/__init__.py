@@ -4,9 +4,11 @@ A second package beside the JAX reference (``bert_tpu``), with its
 structure and names: ggml-bin, HF-directory and ``.npz`` loading,
 WordPiece tokenizing, packed and bucketed batching, streaming, warmup, the
 BERT encoder with hand-written CUDA kernels (csrc/) for the Q4
-dequant-matmul, the fused QKV attention, the per-(batch, head) attention
-and the fused LayerNorm, and the reference-wire embedding server
-(``python -m bert_tpu_torch.server``). It imports torch and numpy, never
+dequant-matmul, the W8A8 int8 matmul and its activation quantization, the
+fused QKV attention, the per-(batch, head) attention and the fused
+LayerNorm, the reference-wire embedding server (``python -m
+bert_tpu_torch.server``) and the conversion entry points (``python -m
+bert_tpu_torch.convert``). It imports torch and numpy, never
 JAX or ``bert_tpu``.
 
 Entry points run on the card unless the caller asks for the CPU
@@ -24,7 +26,7 @@ _torch.backends.cudnn.allow_tf32 = False
 from .engine import BertTorch  # noqa: E402,F401
 from .params import BertConfig  # noqa: E402,F401
 from .quant import QuantTensor  # noqa: E402,F401
-from .tokenizer import WordPieceTokenizer  # noqa: E402,F401
+from .tokenizer import WordPieceTokenizer, load_tokenizer  # noqa: E402,F401
 from .vocab import Vocab  # noqa: E402,F401
 
 __version__ = "0.1.0"

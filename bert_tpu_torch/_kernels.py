@@ -57,6 +57,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         f"mha_{t}": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
         for t in ("f32", "bf16")
     },
+    "int8_matmul": {
+        # x, codes, sx, M, K, stream
+        **{f"quantize_rows_i8_{t}": [_P, _P, _P, _I, _I, _P]
+           for t in ("f32", "bf16")},
+        # codes, w_nk, sx, scale, out, M, Kp, N, stream
+        "int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
 }
 
 _lock = threading.Lock()

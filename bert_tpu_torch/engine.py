@@ -28,8 +28,10 @@ each (rows, T) shape once before the first request, or only the shapes a
 previous run recorded in its manifest; on the card that builds the kernels
 and warms cuBLAS and the caching allocator. There is no compile to cache:
 the kernel ``.so`` cache of ``_kernels.py`` stands in for bert_tpu's XLA
-compilation cache. The W8A8 int8 regime and multi-device execution are
-not ported yet (ROADMAP.md).
+compilation cache. ``int8_eval=True`` adds bert_tpu's opt-in W8A8 regime:
+batches of at least ``int8_threshold`` padded tokens run on a per-column
+int8 weight tree (ops/int8_matmul.py). Multi-device execution is not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -52,8 +54,9 @@ from .batching import (
 )
 from .loader import LoadedModel, load_model
 from .model import BertModel, bert_forward, bert_forward_packed
+from .ops.int8_matmul import Int8Tensor
 from .packing import PackPlan, Placement, pack_batch, plan_packing
-from .params import BertConfig, params_to_torch
+from .params import BertConfig, params_to_int8, params_to_torch
 from .profiling import PhaseTimers
 from .tokenizer import WordPieceTokenizer
 
@@ -89,6 +92,8 @@ class BertTorch:
         pack_seq: int = 64,
         pack_segments: int = 16,
         pooling: Optional[str] = None,
+        int8_eval: bool = False,
+        int8_threshold: int = 8192,
     ):
         self.device = resolve_device(device)
         self.config: BertConfig = loaded.config
@@ -137,6 +142,26 @@ class BertTorch:
         state = params_to_torch(loaded.params, device=self.device,
                                 dtype=compute_dtype)
         self.model = BertModel(state, self.config).eval()
+        # W8A8 regime (ops/int8_matmul.py), opt-in as in bert_tpu: batches
+        # of at least int8_threshold padded tokens run on a tree whose
+        # matmul weights are per-column int8. With a nonzero threshold the
+        # same sentence embeds slightly differently by batch size (cos >
+        # 0.999); int8_threshold=0 sends every batch to int8. The int8
+        # model shares the embedding tables, biases and LayerNorm
+        # parameters with self.model: only its matmul weights are new.
+        self._int8_threshold = int8_threshold
+        self.model_int8 = None
+        if int8_eval:
+            host_i8 = params_to_int8(loaded.params)["layers"]
+            int8_layers = params_to_torch(
+                {"embeddings": {}, "layers": {
+                    k: v for k, v in host_i8.items()
+                    if isinstance(v, Int8Tensor)}},
+                device=self.device)["layers"]
+            self.model_int8 = BertModel(
+                {"embeddings": state["embeddings"],
+                 "layers": {**state["layers"], **int8_layers}},
+                self.config).eval()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.load_phases["to_device"] = round(time.perf_counter() - t0, 3)
@@ -274,7 +299,8 @@ class BertTorch:
                         batch_size=batch_b
                     )
                     emb = bert_forward(
-                        self.model, self._to_device(ids.astype(np.int64)),
+                        self._model_for(batch_b * seq_b),
+                        self._to_device(ids.astype(np.int64)),
                         self._to_device(mask),
                         compute_dtype=self.compute_dtype,
                         pooling=self.pooling)[: len(idxs)]
@@ -301,7 +327,8 @@ class BertTorch:
             n_rows = min(_size_bucket(sub.n_rows, self._min_rows), row_cap)
             ids, seg, pos, flat = pack_batch(tl, sub, n_rows=n_rows)
             emb3 = bert_forward_packed(
-                self.model, self._to_device(ids.astype(np.int64)),
+                self._model_for(n_rows * self._pack_seq),
+                self._to_device(ids.astype(np.int64)),
                 self._to_device(seg), self._to_device(pos.astype(np.int64)),
                 n_segments=self._pack_segments,
                 compute_dtype=self.compute_dtype, pooling=self.pooling)
@@ -313,6 +340,13 @@ class BertTorch:
             orig = np.asarray([idxs[p.index] for p in pls])
             pending.append((orig, host, done))
         return pending
+
+    def _model_for(self, n_tokens: int) -> BertModel:
+        """The model for a batch of ``n_tokens`` padded tokens (rows × T):
+        the int8 one at or above the threshold, when there is one."""
+        if self.model_int8 is not None and n_tokens >= self._int8_threshold:
+            return self.model_int8
+        return self.model
 
     def _gather_pending(self, pending: list, out: np.ndarray) -> None:
         """Wait for each batch's host copy and place its rows in ``out``."""
@@ -400,11 +434,12 @@ class BertTorch:
         if kind == "packed":
             seg = self._to_device(np.zeros((rows, seq), dtype=np.int32))
             emb = bert_forward_packed(
-                self.model, ids, seg, ids, n_segments=self._pack_segments,
+                self._model_for(rows * seq), ids, seg, ids,
+                n_segments=self._pack_segments,
                 compute_dtype=self.compute_dtype, pooling=self.pooling)
         else:
             mask = self._to_device(np.ones((rows, seq), dtype=np.float32))
-            emb = bert_forward(self.model, ids, mask,
+            emb = bert_forward(self._model_for(rows * seq), ids, mask,
                                compute_dtype=self.compute_dtype,
                                pooling=self.pooling)
         _, done = self._copy_to_host(self._wire(emb))

@@ -4,7 +4,8 @@ Counterpart of ``bert_tpu/model.py``. The layer-stacked parameter tree
 (bert_tpu_torch/params.py) becomes a :class:`BertModel`: an embeddings
 module and an ``nn.ModuleList`` of :class:`EncoderLayer` in place of
 ``lax.scan``. Each layer runs four matmuls — Q4 dequant-matmuls
-(ops/q4_matmul.py) for quantized weights, plain products for dense ones,
+(ops/q4_matmul.py) for quantized weights, W8A8 int8 products
+(ops/int8_matmul.py) for the int8 tree, plain products for dense ones,
 as bert_tpu leaves those to XLA — one attention and two fused
 bias+residual LayerNorms (ops/layer_norm.py); the embedding LayerNorm is
 one more. Attention takes one of bert_tpu's two routes: the fused QKV
@@ -31,6 +32,7 @@ from torch import nn
 from .ops.common import NEG_INF
 from .ops.attention import multi_head_attention
 from .ops.fused_attention import fused_qkv_attention, fused_route
+from .ops.int8_matmul import Int8Weight, int8_matmul
 from .ops.layer_norm import fused_layer_norm
 from .ops.q4_matmul import q4_matmul
 from .params import BertConfig
@@ -39,9 +41,10 @@ from .quant import QuantTensor
 
 def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
           f32_out: bool = False) -> torch.Tensor:
-    """``x @ W (+ b)`` where W is a dense [K, N] tensor or a QuantTensor.
-    The f32 product is cast to x's dtype first and the bias added after,
-    in x's dtype, as ``bert_tpu.model.dense`` does. ``f32_out`` (no bias)
+    """``x @ W (+ b)`` where W is a dense [K, N] tensor, a QuantTensor or
+    an Int8Weight (the W8A8 path). The f32 product is cast to x's dtype
+    first and the bias added after, in x's dtype, as
+    ``bert_tpu.model.dense`` does. ``f32_out`` (no bias)
     hands back the f32 product unrounded, for a consumer that rounds it
     itself: the LayerNorm's f32-input form saves the cast's launch."""
     if f32_out and b is not None:
@@ -50,6 +53,9 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
     x2 = x.reshape(-1, shape[-1])
     if isinstance(w, QuantTensor):
         y = q4_matmul(x2, w)
+        n = w.n
+    elif isinstance(w, Int8Weight):
+        y = int8_matmul(x2, w)
         n = w.n
     else:
         y = torch.matmul(x2.float(), w.to(x.dtype).float())
@@ -63,17 +69,22 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
 
 
 class _Weights(nn.Module):
-    """Registers a dict of tensors / QuantTensors as buffers and hands them
-    back by name (``self.w("qkv_w")``)."""
+    """Registers a dict of tensors / QuantTensors / Int8Weights as buffers
+    and hands them back by name (``self.w("qkv_w")``)."""
 
     def _register(self, tensors: Dict[str, object]) -> None:
         self._quant = {}
+        self._int8 = {}  # key → logical K
         for key, v in tensors.items():
             if isinstance(v, QuantTensor):
                 self._quant[key] = v.mins is not None
                 self.register_buffer(f"{key}__packed", v.packed)
                 self.register_buffer(f"{key}__scales", v.scales)
                 self.register_buffer(f"{key}__mins", v.mins)
+            elif isinstance(v, Int8Weight):
+                self._int8[key] = v.k
+                self.register_buffer(f"{key}__w_nk", v.w_nk)
+                self.register_buffer(f"{key}__scale", v.scale)
             else:
                 self.register_buffer(key, v)
 
@@ -82,6 +93,10 @@ class _Weights(nn.Module):
             return QuantTensor(packed=getattr(self, f"{key}__packed"),
                                scales=getattr(self, f"{key}__scales"),
                                mins=getattr(self, f"{key}__mins"))
+        if key in self._int8:
+            return Int8Weight(w_nk=getattr(self, f"{key}__w_nk"),
+                              scale=getattr(self, f"{key}__scale"),
+                              k=self._int8[key])
         return getattr(self, key)
 
 
@@ -161,7 +176,10 @@ class EncoderLayer(_Weights):
 class BertModel(nn.Module):
     """The encoder, built from a layer-stacked device params tree
     (:func:`bert_tpu_torch.params.params_to_torch`). Layer l's weights are
-    views ``[l]`` of the stacked tensors, so building it copies nothing."""
+    views ``[l]`` of the stacked tensors, so building it copies nothing:
+    two models built from trees that share tensors (the engine's Q4 and
+    int8 trees share everything but the matmul weights) share their
+    device memory."""
 
     def __init__(self, params: Dict[str, Dict[str, object]],
                  config: BertConfig):
@@ -174,6 +192,8 @@ class BertModel(nn.Module):
             if isinstance(v, QuantTensor):
                 return QuantTensor(packed=v.packed[i], scales=v.scales[i],
                                    mins=None if v.mins is None else v.mins[i])
+            if isinstance(v, Int8Weight):
+                return Int8Weight(w_nk=v.w_nk[i], scale=v.scale[i], k=v.k)
             return v[i]
 
         self.layers = nn.ModuleList(

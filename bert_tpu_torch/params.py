@@ -19,7 +19,8 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from .quant import QuantTensor
+from .ops.int8_matmul import Int8Tensor, quantize_w8, to_device
+from .quant import QuantTensor, dequantize_tpu
 
 ArrayLike = Any
 WeightLike = Union[ArrayLike, QuantTensor]
@@ -239,6 +240,31 @@ def quantize_params(params: Dict[str, Dict[str, WeightLike]],
     return {"embeddings": emb, "layers": layers}
 
 
+def params_to_int8(params: Dict[str, Dict[str, WeightLike]]
+                   ) -> Dict[str, Dict[str, WeightLike]]:
+    """Derive the W8A8 parameter tree (``bert_tpu.params.params_to_int8``):
+    every matmul weight becomes a per-column
+    :class:`~bert_tpu_torch.ops.int8_matmul.Int8Tensor`. Q4 sources are
+    dequantized first; biases, LayerNorms and embedding tables are shared
+    with the source tree."""
+    layers = dict(params["layers"])
+    for key in _MATMUL_KEYS:
+        w = layers[key]
+        if isinstance(w, QuantTensor):
+            n_layer = np.asarray(w.packed).shape[0]
+            dense_stack = np.stack([
+                dequantize_tpu(QuantTensor(
+                    packed=np.asarray(w.packed)[l],
+                    scales=np.asarray(w.scales)[l],
+                    mins=None if w.mins is None else np.asarray(w.mins)[l],
+                )) for l in range(n_layer)
+            ])
+        else:
+            dense_stack = np.asarray(w, np.float32)
+        layers[key] = quantize_w8(dense_stack)
+    return {"embeddings": params["embeddings"], "layers": layers}
+
+
 def random_named_tensors(
     config: BertConfig, seed: int = 0, scale: float = 0.02
 ) -> Dict[str, np.ndarray]:
@@ -321,8 +347,10 @@ def params_to_torch(params: Dict[str, Dict[str, WeightLike]], *,
     matmul weights. The model casts both to its compute dtype where it uses
     them (as the JAX model does), so storing them in the compute dtype
     gives the same numbers in less memory. QuantTensor leaves keep their
-    uint8 codes and f32 scales/mins; biases and LayerNorm parameters stay
-    f32."""
+    uint8 codes and f32 scales/mins; Int8Tensor leaves become
+    :class:`~bert_tpu_torch.ops.int8_matmul.Int8Weight`s (codes transposed
+    to the kernel's [N, Kp] layout, f32 scales); biases and LayerNorm
+    parameters stay f32."""
     emb = {}
     for k, v in params["embeddings"].items():
         emb[k] = _to_tensor(v, device,
@@ -335,6 +363,8 @@ def params_to_torch(params: Dict[str, Dict[str, WeightLike]], *,
                 scales=_to_tensor(v.scales, device, torch.float32),
                 mins=(None if v.mins is None
                       else _to_tensor(v.mins, device, torch.float32)))
+        elif isinstance(v, Int8Tensor):
+            layers[k] = to_device(v, device)
         else:
             layers[k] = _to_tensor(
                 v, device, dtype if k in _MATMUL_KEYS else torch.float32)
@@ -349,11 +379,16 @@ def params_from_jax(tree: Dict[str, Dict[str, Any]], config: BertConfig, *,
     ``tree`` is the JAX package's tree as numpy, after
     ``jax.tree_util.tree_map(np.asarray, params)``. Its quantized leaves
     are duck-typed — anything with ``.packed``, ``.scales`` and ``.mins``
-    (or None) — so this module needs nothing of the JAX package. Both
-    packages use the same group-local layout, so the carry is an identity
-    on the arrays. Returns the port's device state (:func:`params_to_torch`).
+    (or None) is Q4, anything with ``.w_i8`` and ``.scale`` is int8 (the
+    tree of ``bert_tpu.params.params_to_int8``) — so this module needs
+    nothing of the JAX package. Both packages use the same host layouts,
+    so the carry is an identity on the arrays. Returns the port's device
+    state (:func:`params_to_torch`).
     """
     def leaf(v):
+        if hasattr(v, "w_i8") and hasattr(v, "scale"):
+            return Int8Tensor(w_i8=np.asarray(v.w_i8),
+                              scale=np.asarray(v.scale))
         if hasattr(v, "packed") and hasattr(v, "scales"):
             mins = getattr(v, "mins", None)
             return QuantTensor(packed=np.asarray(v.packed),

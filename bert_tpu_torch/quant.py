@@ -258,6 +258,12 @@ def q4_from_ggml_bytes(
     return codes, scales, mins
 
 
+def nibble_histogram(codes: np.ndarray) -> np.ndarray:
+    """16-bin code histogram, as printed by the reference quantizer
+    (models/quantize.cpp:123,229-261)."""
+    return np.bincount(codes.reshape(-1).astype(np.int64), minlength=16)[:16]
+
+
 def ggml_nbytes(shape: Tuple[int, ...], ftype: int) -> int:
     n = int(np.prod(shape, dtype=np.int64))
     if ftype == GGML_FTYPE_F32:

@@ -198,3 +198,7 @@ class WordPieceTokenizer:
             mask[r, : len(t)] = 1.0
         return ids, mask
 
+
+def load_tokenizer(vocab_path: str) -> WordPieceTokenizer:
+    """A tokenizer over an HF ``vocab.txt`` (one token per line)."""
+    return WordPieceTokenizer(Vocab.from_vocab_txt(vocab_path))

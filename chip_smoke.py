@@ -47,7 +47,23 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    the fused attention and Q4 kernels did not; holds every reply against
    a CPU f32 model on the same directory (cos > 0.999) and a card f32
    model against it (cos > 0.9999, max|Δ| ≤ 5e-3);
-5. prints one JSON line with each kernel's numbers, then as the last line
+5. int8_path: holds the W8A8 kernels (the activation quantization and the
+   int8 matmul) to their plain versions bit for bit, in f32 and bf16, at
+   bert-base's and MiniLM's four matmul shapes at M = 8,192 and at edge
+   shapes (M = 1 and 37, N = 8 and 200, K = 1, 33, 312 and 600, a zero
+   row, rows of ±amax ties); times bert-base's four shapes beside
+   ``torch._int_mm`` with the same epilogue, cuBLAS bf16 on the
+   dequantized W and the bf16 q4_matmul; writes a bert-base Q4_0 ggml file
+   from seed 0 and loads it with ``BertTorch.from_file(path,
+   int8_eval=True)``; each request holds 64 sentences of 65-128 tokens (one
+   64x128 batch: 8,192 padded tokens, the int8 regime) and 8 short ones
+   (one packed batch, Q4); fails unless int8_matmul and the quantize kernel
+   launched 4L times per int8 batch and q4_matmul on the packed one; logs
+   the rate beside the same requests with ``int8_eval=False``, profiles one
+   request, and holds int8 against Q4 on the card (cos > 0.999) and the
+   card's f32 int8 against the CPU's f32 int8 (cos > 0.9999, max|Δ| ≤
+   5e-3);
+6. prints one JSON line with each kernel's numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -69,10 +85,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12,      # dense tensor-core rate
+              "int8": 1979e12,     # dense int8 tensor-core rate (TOPS)
               "f32": 67e12}        # f32 outside the tensor cores (no TF32)
 
 MINILM_L6 = dict(n_vocab=30522, n_max_tokens=512, n_embd=384,
                  n_intermediate=1536, n_head=12, n_layer=6)
+# bert-base-uncased widths: the width bert_tpu names for the int8 regime
+BERT_BASE = dict(n_vocab=30522, n_max_tokens=512, n_embd=768,
+                 n_intermediate=3072, n_head=12, n_layer=12)
 # cointegrated/rubert-tiny2, its published config.json: d_head = 312 / 12 =
 # 26, outside the fused kernel's instances; 312 % 64 != 0, so dense weights
 RUBERT_TINY2 = {"vocab_size": 83828, "max_position_embeddings": 2048,
@@ -97,7 +117,12 @@ WARMUP_LARGEST = (64, 12, 2048, 26)
 # l tile by tile and takes the card's expf, so a p near a rounding
 # boundary can land one bf16 ulp away (4e-3 at O(1)); measured 1 ulp of
 # the output at every shape on the card (PERF.md).
+# The int8 kernels are held to 0: their arithmetic is exact by
+# construction (exact int32 sums, IEEE divisions, round half to even, two
+# f32 products), so kernel and plain version agree bit for bit.
 TOL = {"q4_matmul": {"f32": 1e-3, "bf16": 5e-2},
+       "int8_matmul": {"f32": 0.0, "bf16": 0.0},
+       "quantize_activations_i8": {"f32": 0.0, "bf16": 0.0},
        "fused_qkv_attention": {"f32": 2e-4, "bf16": 2e-2},
        "fused_layer_norm": {"f32": 1e-4, "bf16": 3e-2},
        "multi_head_attention": {"f32": 1e-4, "bf16": 2e-2}}
@@ -109,11 +134,18 @@ REPLACES = {
     "fused_qkv_attention": "bert_tpu/ops/fused_attention.py:43 "
                            "(_fused_attn_kernel)",
     "multi_head_attention": "bert_tpu/ops/attention.py:57 (_mha_kernel)",
+    "int8_matmul": "bert_tpu/ops/int8_matmul.py:94 (int8_matmul; XLA in "
+                   "bert_tpu, no Pallas kernel)",
+    "quantize_activations_i8": "bert_tpu/ops/int8_matmul.py:83 "
+                               "(quantize_activations_i8; XLA in bert_tpu, "
+                               "no Pallas kernel)",
 }
 SOURCE = {"q4_matmul": "bert_tpu_torch/csrc/q4_matmul.cu",
           "fused_layer_norm": "bert_tpu_torch/csrc/layer_norm.cu",
           "fused_qkv_attention": "bert_tpu_torch/csrc/fused_attention.cu",
-          "multi_head_attention": "bert_tpu_torch/csrc/attention.cu"}
+          "multi_head_attention": "bert_tpu_torch/csrc/attention.cu",
+          "int8_matmul": "bert_tpu_torch/csrc/int8_matmul.cu",
+          "quantize_activations_i8": "bert_tpu_torch/csrc/int8_matmul.cu"}
 
 
 class SmokeFailure(RuntimeError):
@@ -830,13 +862,13 @@ def request_corpus(rng):
     return short + long + [sentence(700)]
 
 
-def profile_request(model, request, path: str):
+def profile_request(model, request, path: str, extra=()):
     """Where one request's time goes: device time by kernel (torch.profiler,
     CUDA activity) against the request's wall time, with the LayerNorm's
-    kernels and the f32 -> bf16 casts (PyTorch's bfloat16_copy_kernel) summed
-    apart. Run after the counted requests, so its launches are not part of
-    their counts. Returns the sums (None where the profiler saw no device
-    time)."""
+    kernels, the f32 -> bf16 casts (PyTorch's bfloat16_copy_kernel) and each
+    ``extra`` (label, kernel names) family summed apart. Run after the
+    counted requests, so its launches are not part of their counts. Returns
+    the sums (None where the profiler saw no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -866,13 +898,18 @@ def profile_request(model, request, path: str):
         f"(idle {100 - 100 * busy_us / wall_us:.1f}%) in {n_kernels} "
         f"kernels; LayerNorm {ln_us:.1f} us / {ln_n} launches; bf16 casts "
         f"{cast_us:.1f} us / {cast_n}")
+    sums = {}
+    for label, names in extra:
+        us, n = family(*names)
+        sums[f"{label}_us"], sums[f"{label}_launches"] = us, n
+        log(f"  {label}: {us:.1f} us / {n} launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total:10.1f} us {e.count:5d}x  "
             f"{e.key[:100]}")
     return {"wall_us": wall_us, "device_busy_us": busy_us,
             "kernels": n_kernels, "layer_norm_us": ln_us,
             "layer_norm_launches": ln_n, "bf16_cast_us": cast_us,
-            "bf16_casts": cast_n}
+            "bf16_casts": cast_n, **sums}
 
 
 def main_path(dev, rng, counters):
@@ -1303,6 +1340,342 @@ def attention_split(buckets, cfg, rng):
     return split
 
 
+# ---------------------------------------------------------------------------
+# int8 path
+# ---------------------------------------------------------------------------
+
+def int8_activations(rng, m: int, k: int):
+    """x [m, k] f32: rows at spread scales; row 0 all zeros; where m > 2,
+    row 1 holds ±127 (sx = 1, so x·inv = x) and ties k + 0.5 (±0.5, 2.5,
+    -3.5, ±126.5), row 2 ties at sx = 1/8 (x·inv = 0.5, -1.5, 12.5)."""
+    import numpy as np
+
+    x = (rng.standard_normal((m, k))
+         * rng.uniform(0.01, 8.0, (m, 1))).astype(np.float32)
+    x[0] = 0.0
+    if m > 2 and k >= 2:
+        x[1] = rng.choice([0.5, -0.5, 2.5, -3.5, 126.5, -126.5], size=k)
+        x[1, :2] = (127.0, -127.0)
+        x[2] = rng.choice([0.0625, -0.1875, 1.5625], size=k)
+        x[2, 0] = 127.0 / 8
+    return x
+
+
+def int8_kernel_phase(dev, rng):
+    """Kernels 5 and 6, the activation quantization and the int8 matmul,
+    through the public wrappers with a launch check, in f32 and bf16, held
+    to their plain versions bit for bit (codes, scales, products): at
+    bert-base's and MiniLM's four matmul shapes at M = 8,192, and at edge
+    shapes (M = 1 and 37, N = 8 and 200, K = 1, 33, 312 and 600; row 0 of
+    every x is zero, rows 1-2 hold ±amax and x·inv ties). bert-base's four
+    shapes are timed in bf16 by graph replay: the matmul kernel alone on
+    the codes, the quantize kernel, both together, the plain version,
+    ``torch._int_mm`` on the same codes plus the same epilogue in torch ops
+    (library_ms), cuBLAS bf16 on the dequantized W and the bf16 q4_matmul
+    at the same shape. bert-base's QKV is each kernel's row in the JSON
+    line."""
+    import numpy as np
+    import torch
+
+    from bert_tpu_torch.ops import int8_matmul as I
+    from bert_tpu_torch.ops import q4_matmul as Q
+
+    log("kernels 5-6: quantize_activations_i8, int8_matmul")
+    dtypes = (("f32", torch.float32), ("bf16", torch.bfloat16))
+    errs = {"quantize_activations_i8": 0.0, "int8_matmul": 0.0}
+
+    def weight(k, n):
+        it = I.quantize_w8((rng.standard_normal((k, n)) * 0.02).astype(
+            np.float32))
+        return it, I.to_device(it, dev)
+
+    def check(x, w, what):
+        dn = "bf16" if x.dtype == torch.bfloat16 else "f32"
+        q0, m0 = I.quantize_activations_i8.launches, I.int8_matmul.launches
+        codes, sx = I.quantize_activations_i8(x)
+        require(I.quantize_activations_i8.launches == q0 + 1,
+                f"quantize_activations_i8 {what}: no launch")
+        want_codes, want_sx = I.quantize_activations_i8_plain(x)
+        torch.cuda.synchronize()
+        n_codes = int((codes != want_codes).sum())
+        n_sx = int((sx != want_sx).sum())
+        require(n_codes == 0 and n_sx == 0,
+                f"quantize_activations_i8 {what}: {n_codes} codes and "
+                f"{n_sx} scales differ from the plain version")
+        log(f"  ok  quantize_activations_i8 {what:38s} codes and scales "
+            "equal (tol 0)")
+        out = I.int8_matmul(x, w)
+        require(I.int8_matmul.launches == m0 + 1
+                and I.quantize_activations_i8.launches == q0 + 2,
+                f"int8_matmul {what}: the wrapper did not launch both "
+                "kernels")
+        ref = I.int8_matmul_plain(x, w)
+        err = compare("int8_matmul", out, ref, dn, what)
+        require(torch.equal(out, ref), f"int8_matmul {what}: not bit-exact")
+        errs["int8_matmul"] = max(errs["int8_matmul"], err)
+
+    shapes = [(8192, 768, 2304, "bert-base QKV"),
+              (8192, 768, 768, "bert-base attention-out"),
+              (8192, 768, 3072, "bert-base FFN-up"),
+              (8192, 3072, 768, "bert-base FFN-down"),
+              (8192, 384, 1152, "MiniLM QKV"),
+              (8192, 384, 384, "MiniLM attention-out"),
+              (8192, 384, 1536, "MiniLM FFN-up"),
+              (8192, 1536, 384, "MiniLM FFN-down"),
+              # edges: one row, ragged M/N, K = 1 and 33 (element loads),
+              # rubert-tiny2's K = 312 and 600 (padded to 320 and 608)
+              (1, 1, 8, ""), (37, 1, 200, ""), (37, 33, 200, ""),
+              (1, 312, 200, ""), (37, 600, 8, ""), (37, 312, 600, ""),
+              (1, 600, 312, "")]
+    for (m, k, n, what) in shapes:
+        _, w = weight(k, n)
+        x32 = int8_activations(rng, m, k)
+        for dn, dt in dtypes:
+            x = torch.from_numpy(x32).to(dev).to(dt)
+            check(x, w, f"M,K,N={m},{k},{n} {dn}"
+                  + (f" ({what})" if what else ""))
+        torch.cuda.synchronize()
+
+    bf16 = torch.bfloat16
+    timed, quant_timed = [], []
+    for (m, k, n, what) in shapes[:4]:
+        it, w = weight(k, n)
+        x = torch.from_numpy(int8_activations(rng, m, k)).to(dev).to(bf16)
+        codes, sx = I.quantize_activations_i8(x)
+        w_t = w.w_nk.t()  # [Kp, N], K contiguous: _int_mm's column-major B
+        w_deq = torch.from_numpy(I.dequantize_w8(it)).to(dev).to(bf16)
+        qd = q4_weights(rng, k, n, 2, dev)
+        kp = w.kp
+        nbytes = m * kp + n * kp + 4 * m + 4 * n + 4 * m * n
+        b_ms, b_by = bound(nbytes, 2.0 * m * k * n, "int8")
+        lib_out = I._epilogue(torch._int_mm(codes, w_t), sx, w.scale)
+        lib_exact = bool(torch.equal(lib_out, I.int8_matmul_codes(
+            codes, sx, w)))
+        r = dict(shape=f"M={m} K={k} N={n} bf16 x ({what})",
+                 ms=time_ms(lambda: I.int8_matmul_codes(codes, sx, w)),
+                 eager_ms=eager_ms(lambda: I.int8_matmul_codes(codes, sx,
+                                                                w)),
+                 with_quantize_ms=time_ms(lambda: I.int8_matmul(x, w)),
+                 plain_ms=time_ms(lambda: I.int8_matmul_plain(x, w)),
+                 library_ms=time_ms(lambda: I._epilogue(
+                     torch._int_mm(codes, w_t), sx, w.scale)),
+                 int_mm_alone_ms=time_ms(lambda: torch._int_mm(codes, w_t)),
+                 dense_bf16_matmul_ms=time_ms(lambda: torch.matmul(x,
+                                                                   w_deq)),
+                 q4_matmul_bf16_ms=time_ms(lambda: Q.q4_matmul(x, qd)),
+                 bound_ms=b_ms, bound_by=b_by, library_bit_exact=lib_exact,
+                 max_abs_err=errs["int8_matmul"])
+        log(f"  {r['shape']}: int8 kernel {r['ms']:.5f} ms (eager "
+            f"{r['eager_ms']:.5f}; with the quantize "
+            f"{r['with_quantize_ms']:.5f}), plain {r['plain_ms']:.5f}, "
+            f"_int_mm + epilogue {r['library_ms']:.5f} (_int_mm alone "
+            f"{r['int_mm_alone_ms']:.5f}; bit-exact with the kernel: "
+            f"{lib_exact}), cuBLAS bf16 {r['dense_bf16_matmul_ms']:.5f}, "
+            f"q4_matmul bf16 {r['q4_matmul_bf16_ms']:.5f}, bound "
+            f"{b_ms:.5f} ({b_by})")
+        timed.append(r)
+        qbytes = m * k * 2 + m * kp + 4 * m
+        q_ms, q_by = bound(qbytes, 4.0 * m * k, "f32")
+        rq = dict(shape=f"M={m} K={k} bf16 ({what} input)",
+                  ms=time_ms(lambda: I.quantize_activations_i8(x)),
+                  eager_ms=eager_ms(lambda: I.quantize_activations_i8(x)),
+                  plain_ms=time_ms(lambda: I.quantize_activations_i8_plain(
+                      x)),
+                  library_ms=None, bound_ms=q_ms, bound_by=q_by,
+                  max_abs_err=0.0)
+        log(f"  {rq['shape']}: quantize kernel {rq['ms']:.5f} ms (eager "
+            f"{rq['eager_ms']:.5f}), plain {rq['plain_ms']:.5f}, bound "
+            f"{q_ms:.5f} ({q_by})")
+        quant_timed.append(rq)
+        del x, codes, w_deq
+        torch.cuda.synchronize()
+    tol = dict(tolerance=0.0)
+    return {"int8_matmul": dict(timed[0], **tol, timed_shapes=timed),
+            "quantize_activations_i8": dict(quant_timed[0], **tol,
+                                            timed_shapes=quant_timed)}
+
+
+def int8_request(rng):
+    """One request: 64 sentences of 65-128 tokens (one 64x128 bucketed
+    batch, 8,192 padded tokens: the int8 regime) and 8 of at most 64 (one
+    packed batch of 8x64 rows: Q4). A word of the fixture vocab is one
+    token, so n words make n + 3 tokens ([CLS], the period, [SEP])."""
+    words = sorted(_WORDS)
+
+    def sentence(n):
+        return " ".join(rng.choice(words, size=n)) + "."
+
+    return ([sentence(int(n)) for n in rng.integers(62, 126, size=64)]
+            + [sentence(int(n)) for n in rng.integers(4, 62, size=8)])
+
+
+def int8_path(dev, rng, counters):
+    """The int8 regime at bert-base width: kernel checks and timings
+    (:func:`int8_kernel_phase`), then a seed-0 bert-base Q4_0 file loaded
+    with ``int8_eval=True`` at the default threshold, requests that take
+    both regimes, launch gates, the rate beside ``int8_eval=False``, a
+    profile, and agreement."""
+    import numpy as np
+    import torch
+
+    from bert_tpu_torch import BertTorch
+    from bert_tpu_torch.formats import GgmlHParams, write_ggml
+    from bert_tpu_torch.loader import load_model
+    from bert_tpu_torch.ops import int8_matmul as I
+    from bert_tpu_torch.params import BertConfig, random_named_tensors
+
+    t_phase = time.perf_counter()
+    results = int8_kernel_phase(dev, rng)
+    log(f"int8 path: kernel checks and timings in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+    cfg = BertConfig(**BERT_BASE)
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "bert_base_q4_0.bin")
+    t0 = time.perf_counter()
+    hp = GgmlHParams(cfg.n_vocab, cfg.n_max_tokens, cfg.n_embd,
+                     cfg.n_intermediate, cfg.n_head, cfg.n_layer, ftype=2)
+    write_ggml(path, hp, fixture_tokens(cfg.n_vocab),
+               random_named_tensors(cfg, 0))
+    t_write = time.perf_counter() - t0
+    log(f"int8 path: wrote a bert-base q4_0 ggml file from seed 0 in "
+        f"{t_write:.2f} s ({os.path.getsize(path) / 1e6:.1f} MB)")
+
+    t0 = time.perf_counter()
+    model = BertTorch.from_file(path, int8_eval=True)  # threshold 8,192
+    log(f"int8 path: BertTorch.from_file(int8_eval=True) -> {model.device}, "
+        f"{model.compute_dtype}, wire {model.wire_dtype} in "
+        f"{time.perf_counter() - t0:.2f} s; load phases "
+        f"{model.stats()['load_phases']}")
+    require(model.model_int8 is not None and model.device.type == "cuda",
+            "int8 path: from_file(int8_eval=True) built no int8 model")
+    threshold = model._int8_threshold
+    requests = [int8_request(rng) for _ in range(6)]
+    lengths = [len(t) for t in model.tokenizer.tokenize_batch(
+        requests[0], cfg.n_max_tokens)]
+    require(all(65 <= n <= 128 for n in lengths[:64])
+            and all(n <= 64 for n in lengths[64:]),
+            f"int8 path: request lengths {min(lengths)}..{max(lengths)} do "
+            "not take one 64x128 batch and one packed batch")
+    warm, counted = requests[:2], requests[2:]
+    for r in warm:
+        model.encode_batch(r)
+    torch.cuda.synchronize()
+
+    def run(engine):
+        outs, lat = [], []
+        for r in counted:
+            t0 = time.perf_counter()
+            outs.append(engine.encode_batch(r))
+            lat.append(time.perf_counter() - t0)
+        n_sent = sum(len(r) for r in counted)
+        return outs, n_sent / sum(lat), lat
+
+    batches0 = dict(model.timers.bucket_counts)
+    for c in counters:
+        c.launches = 0
+    outs, rate, lat = run(model)
+    launches = {c.__name__: c.launches for c in counters}
+    ran = {k: n - batches0.get(k, 0)
+           for k, n in model.timers.bucket_counts.items()
+           if n > batches0.get(k, 0)}
+    int8_batches = sum(n for (rows, t, _), n in ran.items()
+                       if rows * t >= threshold)
+    q4_batches = sum(ran.values()) - int8_batches
+    log(f"int8 path: {len(counted)} warm requests of {len(counted[0])} "
+        f"sentences = {rate:.1f} sentences/s; request latency median "
+        f"{statistics.median(lat) * 1e3:.3f} ms, max {max(lat) * 1e3:.3f} ms "
+        f"({gpu_line()})")
+    log(f"int8 path buckets: {ran} ({int8_batches} int8 batches at >= "
+        f"{threshold} padded tokens, {q4_batches} Q4)")
+    log(f"int8 path kernel launches: {launches}")
+    per = 4 * cfg.n_layer
+    require(int8_batches == len(counted) and q4_batches == len(counted),
+            "int8 path: each request did not run one int8 and one Q4 batch")
+    require(launches["int8_matmul"] == per * int8_batches
+            and launches["quantize_activations_i8"] == per * int8_batches,
+            f"int8 path: int8_matmul / quantize launched "
+            f"{launches['int8_matmul']} / "
+            f"{launches['quantize_activations_i8']} times, not {per} per "
+            f"int8 batch ({int8_batches})")
+    require(launches["q4_matmul"] == per * q4_batches,
+            "int8 path: q4_matmul did not run the packed batches")
+    require(launches["multi_head_attention"] == 0
+            and launches["fused_qkv_attention"] == 2 * cfg.n_layer
+            * len(counted),
+            "int8 path: bert-base's d_head 64 did not take the fused "
+            "attention")
+    prof = profile_request(
+        model, counted[0], "int8 path",
+        extra=(("int8_matmul", ("int8_matmul_kernel",)),
+               ("quantize_i8", ("quantize_rows_kernel",)),
+               ("q4_matmul", ("q4_matmul_bf16_kernel",))))
+
+    # the same requests with the int8 regime off
+    t0 = time.perf_counter()
+    q4 = BertTorch.from_file(path)
+    log(f"int8 path: BertTorch.from_file(int8_eval=False) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for r in warm:
+        q4.encode_batch(r)
+    torch.cuda.synchronize()
+    q4_outs, q4_rate, q4_lat = run(q4)
+    log(f"int8 path, int8_eval=False: {q4_rate:.1f} sentences/s; request "
+        f"latency median {statistics.median(q4_lat) * 1e3:.3f} ms, max "
+        f"{max(q4_lat) * 1e3:.3f} ms (int8_eval=True: {rate:.1f} "
+        f"sentences/s, {statistics.median(lat) * 1e3:.3f} ms; "
+        f"{gpu_line()})")
+    q4_prof = profile_request(
+        q4, counted[0], "int8 path, int8_eval=False",
+        extra=(("q4_matmul", ("q4_matmul_bf16_kernel",)),))
+
+    for req, emb, ref in zip(counted, outs, q4_outs):
+        require(emb.shape == (len(req), cfg.n_embd)
+                and bool(np.isfinite(emb).all()),
+                f"int8 path: bad embeddings {emb.shape}")
+        norms = np.linalg.norm(emb, axis=-1)
+        require(bool(np.all(np.abs(norms - 1.0) < 1e-2)),
+                f"int8 path: norms off 1: {norms.min():.4f}")
+    cos_q4 = np.concatenate([np.sum(a * b, axis=-1)
+                             for a, b in zip(outs, q4_outs)])
+    log(f"int8 path: int8 (card bf16) vs Q4 (card bf16), every sentence: "
+        f"min cos {cos_q4.min():.6f} (the int8 batch's {cos_q4[:64].min():.6f}"
+        f", the Q4 batch's {cos_q4[64:].min():.6f})")
+    require(bool(np.all(cos_q4 > 0.999)), "int8 path: int8 vs Q4 cos <= 0.999")
+
+    # a small request, int8 everywhere: the card's f32 against the CPU's
+    small = counted[0][:3] + counted[0][64:67]
+    t0 = time.perf_counter()
+    loaded = load_model(path)
+    cpu = BertTorch(loaded, device="cpu", int8_eval=True, int8_threshold=0)
+    ref = cpu.encode_batch(small)
+    log(f"int8 path: CPU f32 int8 reference in {time.perf_counter() - t0:.2f}"
+        " s")
+    g32 = BertTorch(loaded, device="cuda", compute_dtype=torch.float32,
+                    int8_eval=True, int8_threshold=0)
+    i0 = I.int8_matmul.launches
+    e32 = g32.encode_batch(small)
+    require(I.int8_matmul.launches > i0,
+            "int8 path: the card f32 int8 engine launched no int8 kernel")
+    cos32 = np.sum(e32 * ref, axis=-1)
+    err32 = float(np.abs(e32 - ref).max())
+    log(f"int8 path: card f32 int8 vs CPU f32 int8 (threshold 0): min cos "
+        f"{cos32.min():.7f}, max|Δ| {err32:.3e}")
+    require(bool(np.all(cos32 > 0.9999)), "int8 path: card f32 cos <= 0.9999")
+    require(err32 <= 5e-3, "int8 path: card f32 max|Δ| > 5e-3")
+    t_all = time.perf_counter() - t_phase
+    log(f"int8 path: the phase took {t_all:.2f} s, {t_write:.2f} s of it "
+        "writing the bert-base file")
+    path_info = {"launches": launches, "rate": rate, "q4_rate": q4_rate,
+                 "latency_median_ms": statistics.median(lat) * 1e3,
+                 "q4_latency_median_ms": statistics.median(q4_lat) * 1e3,
+                 "profile": prof, "q4_profile": q4_prof,
+                 "phase_s": t_all, "write_s": t_write}
+    return results, path_info
+
+
 def main() -> int:
     import torch
 
@@ -1316,6 +1689,8 @@ def main() -> int:
     from bert_tpu_torch import _kernels
     from bert_tpu_torch.ops.attention import multi_head_attention
     from bert_tpu_torch.ops.fused_attention import fused_qkv_attention
+    from bert_tpu_torch.ops.int8_matmul import (int8_matmul,
+                                                quantize_activations_i8)
     from bert_tpu_torch.ops.layer_norm import fused_layer_norm
     from bert_tpu_torch.ops.q4_matmul import q4_matmul
 
@@ -1346,13 +1721,21 @@ def main() -> int:
         dev, np.random.default_rng(18), counters)
     hf_launches, hf_rate, hf_split, hf_prof = hf_server_path(
         np.random.default_rng(19), counters)
+    int8_results, int8_info = int8_path(
+        dev, np.random.default_rng(20),
+        counters + [int8_matmul, quantize_activations_i8])
+    results.update(int8_results)
     # each kernel's launches on its path: MiniLM-L6 for the first three,
-    # hf_server for the per-(batch, head) attention
+    # hf_server for the per-(batch, head) attention, the bert-base int8
+    # path for the two int8 kernels
     launches["multi_head_attention"] = hf_launches["multi_head_attention"]
+    for name in int8_results:
+        launches[name] = int8_info["launches"][name]
 
     kernels = []
     for name in ("q4_matmul", "fused_layer_norm", "fused_qkv_attention",
-                 "multi_head_attention"):
+                 "multi_head_attention", "int8_matmul",
+                 "quantize_activations_i8"):
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
@@ -1370,7 +1753,8 @@ def main() -> int:
             **({"shapes": r["shapes"], "path": "hf_server",
                 "hf_server_launches": hf_launches,
                 "hf_request_split": hf_split} if "shapes" in r
-               else {"path": "main"}),
+               else {"path": "int8", "int8_path": int8_info}
+               if name in int8_results else {"path": "main"}),
             **({"main_request_split": main_split_rows}
                if name in ("q4_matmul", "fused_qkv_attention") else {}),
             **({"main_request_profile": main_prof,
@@ -1385,6 +1769,8 @@ def main() -> int:
             f"{launches[name]} launches on its path")
     log(f"warm encode_batch: {rate:.1f} sentences/s on {card}")
     log(f"warm hf_server BATCH frames: {hf_rate:.1f} sentences/s on {card}")
+    log(f"warm bert-base int8 path: {int8_info['rate']:.1f} sentences/s "
+        f"(int8_eval=False: {int8_info['q4_rate']:.1f}) on {card}")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -177,6 +177,7 @@ def test_port_imports_neither_jax_nor_bert_tpu():
     assert {"bert_tpu_torch.engine", "bert_tpu_torch.server",
             "bert_tpu_torch.cli", "bert_tpu_torch.checkpoint",
             "bert_tpu_torch.ops.attention",
+            "bert_tpu_torch.ops.int8_matmul", "bert_tpu_torch.convert",
             "bert_tpu_torch.formats.safetensors"} <= set(mods)
     code = (
         "import importlib, sys\n"
