@@ -1,22 +1,33 @@
-"""The native ``.npz`` weight cache.
+"""Checkpointing: the native ``.npz`` weight cache and the train state.
 
-Counterpart of the weight-cache half of ``bert_tpu/checkpoint.py``
-(:func:`save_params`, :func:`load_params`, :func:`load_params_and_vocab`),
-in the same file format, so a cache written by either package loads in the
-other: one ``np.savez`` archive holding the layer-stacked host params tree
-(QuantTensors kept packed as ``<group>/<key>.packed|.scales|.mins``), the
-config as JSON in ``__meta__`` (with ``__format_version__`` and, when
-known, ``__pooling__``) and the vocab in ``__vocab__``. Loading it skips
-parsing, stacking and repacking. Training state waits for the training
-slice (ROADMAP.md).
+Counterpart of ``bert_tpu/checkpoint.py``.
+
+* :func:`save_params`, :func:`load_params`, :func:`load_params_and_vocab`
+  write and read the weight cache in bert_tpu's file format, so a cache
+  written by either package loads in the other: one ``np.savez`` archive
+  holding the layer-stacked host params tree (QuantTensors kept packed as
+  ``<group>/<key>.packed|.scales|.mins``), the config as JSON in
+  ``__meta__`` (with ``__format_version__`` and, when known,
+  ``__pooling__``) and the vocab in ``__vocab__``. Loading it skips
+  parsing, stacking and repacking.
+* :func:`save_train_state` / :func:`load_train_state` save and resume
+  contrastive fine-tuning (bert_tpu_torch/train.py) in the port's own
+  format: one ``torch.save`` archive, ``<dir>/train_state.pt``, of plain
+  tensors and ints (params, the AdamW moments, AdamW's step count and the
+  train step), read back with ``weights_only=True``. bert_tpu saves its
+  train state with orbax, whose directories this module cannot read: the
+  port does not depend on orbax or JAX. To carry a bert_tpu train state
+  across, use :func:`bert_tpu_torch.params.train_state_from_jax`.
 """
 
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Dict, Tuple
 
 import numpy as np
+import torch
 
 from .params import BertConfig
 from .quant import QuantTensor
@@ -89,3 +100,83 @@ def load_params_and_vocab(path: str):
             else:
                 sub[key] = z[name]
     return config, params, vocab_tokens, pooling
+
+
+# --- training state ---------------------------------------------------------
+
+TRAIN_STATE_FILE = "train_state.pt"
+_TRAIN_STATE_VERSION = 1
+
+
+def save_train_state(ckpt_dir: str, state) -> None:
+    """Write ``state`` (a :class:`bert_tpu_torch.train.TrainState`) to
+    ``<ckpt_dir>/train_state.pt``, replacing it whole (written aside, then
+    renamed)."""
+    opt = state.opt_state
+    params, mu, nu, counts = {}, {}, {}, set()
+    for group, sub in state.params.tree().items():
+        for key, p in sub.items():
+            name = f"{group}/{key}"
+            st = opt.state.get(p)
+            params[name] = p.detach().cpu()
+            if st:
+                mu[name] = st["exp_avg"].detach().cpu()
+                nu[name] = st["exp_avg_sq"].detach().cpu()
+                counts.add(int(st["step"]))
+            else:  # no step taken yet
+                mu[name] = nu[name] = torch.zeros_like(params[name])
+                counts.add(0)
+    if len(counts) != 1:
+        raise ValueError(f"AdamW step counts differ across parameters: "
+                         f"{sorted(counts)}")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, TRAIN_STATE_FILE)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    torch.save({"version": _TRAIN_STATE_VERSION, "step": int(state.step),
+                "count": counts.pop(), "params": params, "mu": mu,
+                "nu": nu}, tmp)
+    os.replace(tmp, path)
+
+
+def load_train_state(ckpt_dir: str, target):
+    """Restore into ``target`` (an initialized TrainState over a model of
+    the same config): its parameters take the saved values and its AdamW
+    the saved moments and step count, placed as saved, never reset.
+    Returns the TrainState at the saved step."""
+    from .train import TrainState, place_adam_state
+
+    path = os.path.join(ckpt_dir, TRAIN_STATE_FILE)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"{ckpt_dir}: no {TRAIN_STATE_FILE}. The port reads only its "
+            "own train-state format, not bert_tpu's orbax directories")
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    if saved.get("version") != _TRAIN_STATE_VERSION:
+        raise ValueError(f"unsupported train-state version "
+                         f"{saved.get('version')}")
+    tree = target.params.tree()
+    names = {f"{g}/{k}" for g, sub in tree.items() for k in sub}
+    if set(saved["params"]) != names:
+        raise ValueError(f"{path} holds {sorted(saved['params'])}, the "
+                         f"model {sorted(names)}")
+
+    def unflatten(flat):
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        for name, t in flat.items():
+            group, key = name.split("/", 1)
+            out.setdefault(group, {})[key] = t
+        return out
+
+    with torch.no_grad():
+        for group, sub in unflatten(saved["params"]).items():
+            for key, t in sub.items():
+                p = tree[group][key]
+                if t.shape != p.shape:
+                    raise ValueError(f"{group}/{key}: saved {tuple(t.shape)}"
+                                     f", model {tuple(p.shape)}")
+                p.copy_(t)
+    place_adam_state(target.opt_state, target.params,
+                     unflatten(saved["mu"]), unflatten(saved["nu"]),
+                     saved["count"])
+    return TrainState(params=target.params, opt_state=target.opt_state,
+                      step=saved["step"])

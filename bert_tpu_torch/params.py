@@ -7,7 +7,10 @@ come out bit-identical: a plain nested dict whose matmul weights are
 with every layer's instance of a weight stacked along a leading axis.
 :func:`params_to_torch` moves that tree onto a device as torch tensors — the
 state :class:`bert_tpu_torch.model.BertModel` is built from — and
-:func:`params_from_jax` carries a JAX package tree across unchanged.
+:func:`params_from_jax` carries a JAX package tree across unchanged,
+:func:`train_state_from_jax` a JAX train state (params, AdamW moments,
+count and step), and :func:`params_to_numpy` takes a trainable model's
+parameters back to a host tree.
 """
 
 from __future__ import annotations
@@ -409,3 +412,53 @@ def params_from_jax(tree: Dict[str, Dict[str, Any]], config: BertConfig, *,
         raise ValueError(f"tree has {n_layer} layers, config "
                          f"{config.n_layer}")
     return params_to_torch(host, device=device, dtype=dtype)
+
+
+def _find_adam_state(opt_state):
+    """The optax Adam state inside a (nested tuple) optimizer state: the
+    one object with ``.mu``, ``.nu`` and ``.count``, found by attribute so
+    that nothing of optax is imported."""
+    if all(hasattr(opt_state, a) for a in ("mu", "nu", "count")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _find_adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(params_tree: Dict[str, Dict[str, Any]], opt_state,
+                         step, config: BertConfig, *, optimizer, device):
+    """Carry a ``bert_tpu`` TrainState across to the port.
+
+    ``params_tree``, ``opt_state`` and ``step`` are the fields of
+    ``bert_tpu.train.TrainState`` as numpy (``jax.tree_util.tree_map(
+    np.asarray, ...)`` keeps optax's state objects, whose fields it maps).
+    Returns a :class:`bert_tpu_torch.train.TrainState` on ``device`` with
+    the same dense parameters, a ``torch.optim.AdamW`` built by
+    ``optimizer`` (:func:`bert_tpu_torch.train.make_optimizer`) holding the
+    same ``mu``, ``nu`` and ``count``, and the same step."""
+    from .model import TrainableBertModel
+    from .train import TrainState, init_train_state, place_adam_state
+
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (.mu, .nu, .count) in opt_state")
+    model = TrainableBertModel(params_from_jax(params_tree, config,
+                                               device=device), config)
+    state = init_train_state(model, optimizer)
+    place_adam_state(state.opt_state, model, adam.mu, adam.nu,
+                     int(np.asarray(adam.count)))
+    return TrainState(params=model, opt_state=state.opt_state,
+                      step=int(np.asarray(step)))
+
+
+def params_to_numpy(model) -> Dict[str, Dict[str, np.ndarray]]:
+    """A :class:`~bert_tpu_torch.model.TrainableBertModel`'s parameters as
+    the host params tree (numpy, bert_tpu's layout): what
+    :func:`bert_tpu_torch.checkpoint.save_params` writes, and what tests
+    hold leaf by leaf against bert_tpu's."""
+    return {group: {k: p.detach().cpu().numpy().copy()
+                    for k, p in sub.items()}
+            for group, sub in model.tree().items()}

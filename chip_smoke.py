@@ -63,7 +63,21 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    request, and holds int8 against Q4 on the card (cos > 0.999) and the
    card's f32 int8 against the CPU's f32 int8 (cos > 0.9999, max|Δ| ≤
    5e-3);
-6. prints one JSON line with each kernel's numbers, then as the last line
+6. train path: writes a MiniLM-L6 f32 ggml file from seed 0 whose vocab
+   holds the words of benchmarks/data/sts_en.tsv, and fine-tunes it with
+   ``python -m bert_tpu_torch.finetune``'s ``main`` on the card (20 steps
+   of 32 pairs at seq 64, f32, remat) with every kernel's launch count
+   set to 0 just before and read just after: training runs the plain
+   versions, so any launch fails, as does a loss that does not fall or a
+   step that is not finite; holds 3 steps at batch 8 on the card to the
+   same steps on the CPU (loss, grad_norm, first moments, parameters);
+   logs ms/step, pairs/s, tokens/s, the f32-peak share, peak memory with
+   remat on and off, a bf16 step and a profiled step's device time by
+   family; serves the tuned .npz on the card (bf16: the LayerNorm must
+   launch 2L + 1 times a batch, the fused attention L times) and holds
+   card f32 (cos > 0.9999, max|Δ| ≤ 5e-3) and bf16 (cos > 0.999) to the
+   CPU;
+7. prints one JSON line with each kernel's numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -1676,6 +1690,382 @@ def int8_path(dev, rng, counters):
     return results, path_info
 
 
+# ---------------------------------------------------------------------------
+# train path
+# ---------------------------------------------------------------------------
+
+# The train phase's learning rate: at it, 20 AdamW steps of batch 32 lower
+# the InfoNCE loss of the seed-0 MiniLM-L6 weights (PERF.md). bert_tpu's
+# default, 2e-5, is for pretrained weights.
+TRAIN_LR = 1e-4
+TRAIN_STEPS = 20
+
+
+def sts_pairs_path() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "benchmarks", "data", "sts_en.tsv")
+
+
+def sts_tokens(n_vocab: int):
+    """:func:`fixture_tokens` with each word and punctuation mark of the
+    STS pairs in a free ``[unusedN]`` slot, so that the pairs tokenize to
+    words rather than [UNK]."""
+    tokens = fixture_tokens(n_vocab)
+    free = (i for i, t in enumerate(tokens) if t.startswith("[unused"))
+    with open(sts_pairs_path(), encoding="utf-8") as f:
+        words = set(re.findall(r"[a-z0-9]+|[^\sa-z0-9]", f.read().lower()))
+    for w in sorted(words - set(tokens)):
+        tokens[next(free)] = w
+    return tokens
+
+
+def train_batches(loaded, n_steps: int, batch: int, seq: int):
+    """The batches ``finetune.main`` draws with its defaults: the positive
+    pairs (score >= 3.5) of the STS file, tokenized as it tokenizes them,
+    through its :func:`draw_batches`."""
+    from bert_tpu_torch import finetune
+    from bert_tpu_torch.tokenizer import WordPieceTokenizer
+
+    s1, s2, gold = finetune.read_sts_pairs(sts_pairs_path())
+    keep = [i for i, g in enumerate(gold) if g >= 3.5]
+    tok = WordPieceTokenizer(loaded.vocab)
+    toks_a, toks_b = ([tok.tokenize(s[i], seq) for i in keep]
+                      for s in (s1, s2))
+    return list(finetune.draw_batches(toks_a, toks_b, n_steps, batch, seq))
+
+
+def new_train_state(loaded, dev, lr: float):
+    """A fresh TrainState over the file's dense f32 weights on ``dev``."""
+    from bert_tpu_torch.model import TrainableBertModel
+    from bert_tpu_torch.params import params_to_torch
+    from bert_tpu_torch.train import init_train_state, make_optimizer
+
+    opt = make_optimizer(lr)
+    model = TrainableBertModel(params_to_torch(loaded.params, device=dev),
+                               loaded.config)
+    return opt, init_train_state(model, opt)
+
+
+def card_vs_cpu_steps(loaded, lr: float, n_steps: int = 3, batch: int = 8,
+                      seq: int = 64) -> dict:
+    """``n_steps`` make_train_step steps (f32, remat) on the CPU and then on
+    the card, from the same weights and batches. Each step: loss within
+    1e-4 and grad_norm within 1e-3 of the CPU's (relative: the card sums
+    in other orders, and the embedding backward accumulates with atomics);
+    each leaf's AdamW first moment within 1e-3 of its largest; parameters
+    within the rule of :func:`bert_tpu_torch.testing.noise_rule` (the one
+    the CPU tests hold the port to against bert_tpu), qkv_b's key lanes
+    exempt."""
+    import numpy as np
+    import torch
+
+    from bert_tpu_torch.params import params_to_numpy
+    from bert_tpu_torch.testing import key_bias_lanes, noise_rule
+    from bert_tpu_torch.train import make_train_step
+
+    batches = train_batches(loaded, n_steps, batch, seq)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        opt, state = new_train_state(loaded, torch.device(dev), lr)
+        step = make_train_step(loaded.config, opt)
+        rows = []
+        for b in batches:
+            state, m = step(state, b)
+            tree = state.params.tree()
+            # a copy: on the CPU .numpy() would view the live moment
+            mu = {g: {k: state.opt_state.state[p]["exp_avg"].cpu().numpy()
+                      .copy() for k, p in sub.items()}
+                  for g, sub in tree.items()}
+            rows.append((float(m["loss"]), float(m["grad_norm"]),
+                         params_to_numpy(state.params), mu))
+        runs[dev] = rows
+        del opt, state
+    worst = {"loss_rel": 0.0, "grad_norm_rel": 0.0, "param_max_abs": 0.0,
+             "param_max_abs_outside_noise": 0.0,
+             "param_max_abs_key_bias": 0.0}
+    noisy, keys = None, key_bias_lanes(loaded.config)
+    for s, (cpu, card) in enumerate(zip(runs["cpu"], runs["cuda"]), 1):
+        loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+        gn_rel = abs(card[1] - cpu[1]) / abs(cpu[1])
+        log(f"train: step {s} batch {batch}: loss card {card[0]:.7f} / CPU "
+            f"{cpu[0]:.7f} (rel {loss_rel:.2e}), grad_norm card "
+            f"{card[1]:.6f} / CPU {cpu[1]:.6f} (rel {gn_rel:.2e})")
+        require(np.isfinite([card[0], card[1]]).all(),
+                f"train: step {s} on the card is not finite")
+        require(loss_rel <= 1e-4, f"train: step {s} loss rel {loss_rel:.2e}")
+        require(gn_rel <= 1e-3, f"train: step {s} grad_norm rel {gn_rel:.2e}")
+        worst["loss_rel"] = max(worst["loss_rel"], loss_rel)
+        worst["grad_norm_rel"] = max(worst["grad_norm_rel"], gn_rel)
+        if noisy is None:
+            noisy = {g: {k: np.zeros(v.shape, bool) for k, v in sub.items()}
+                     for g, sub in cpu[3].items()}
+        leaves = {}
+        for g, sub in cpu[2].items():
+            for k, want in sub.items():
+                mu, mu_card = cpu[3][g][k], card[3][g][k]
+                mu_err = float(np.abs(mu_card - mu).max())
+                require(mu_err <= 1e-3 * float(np.abs(mu).max()),
+                        f"train: step {s} {g}/{k}: first moment max|Δ| "
+                        f"{mu_err:.3e}")
+                try:
+                    r = noise_rule(card[2][g][k], want, mu_card, mu,
+                                   noisy[g][k], lr, s, f"{g}/{k}",
+                                   exempt=keys if k == "qkv_b" else None)
+                except AssertionError as e:
+                    raise SmokeFailure(f"train: step {s} {e}") from None
+                leaves[f"{g}/{k}"] = r
+                worst["param_max_abs"] = max(worst["param_max_abs"],
+                                             r["max_abs"])
+                worst["param_max_abs_outside_noise"] = max(
+                    worst["param_max_abs_outside_noise"],
+                    r["max_abs_outside_noise"])
+                worst["param_max_abs_key_bias"] = max(
+                    worst["param_max_abs_key_bias"], r["max_abs_exempt"])
+        worst["leaves"] = leaves
+    log(f"train: card vs CPU over {n_steps} steps (lr {lr}): params max|Δ| "
+        f"{worst['param_max_abs']:.3e}; outside the noise "
+        f"{worst['param_max_abs_outside_noise']:.3e}; qkv_b's key lanes "
+        f"{worst['param_max_abs_key_bias']:.3e}")
+    for name, r in worst["leaves"].items():
+        keys = f", {r['exempt']} key lanes exempt" if r["exempt"] else ""
+        log(f"  {name}: {r['noise']} of {r['size']} elements noise (first "
+            f"moments > 1e-3 apart), {r['beyond']} beyond 1e-6 (max|Δ| "
+            f"{r['max_abs']:.3e}, {r['max_abs_outside_noise']:.3e} outside "
+            f"the noise){keys}")
+    return worst
+
+
+def measure_steps(loaded, dev, lr: float, batches, compute_dtype,
+                  remat: bool) -> dict:
+    """make_train_step on the card over ``batches`` from a fresh state:
+    each step's host-clock time (the step and the read of its loss, which
+    waits for the card) and its peak of allocated device memory above what
+    was resident before the state was built (earlier phases' leftovers),
+    so parameters, moments, gradients and activations."""
+    import gc
+
+    import torch
+
+    from bert_tpu_torch.train import make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    opt, state = new_train_state(loaded, dev, lr)
+    step = make_train_step(loaded.config, opt, compute_dtype=compute_dtype,
+                           remat=remat)
+    ms, peak, losses = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        peak.append(torch.cuda.max_memory_allocated() - base)
+    del opt, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak_bytes": peak, "losses": losses,
+            "resident_before_bytes": base}
+
+
+def profile_train_step(loaded, dev, lr: float, batches) -> dict:
+    """torch.profiler over one warm f32 remat step: device time by family
+    of kernel against the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bert_tpu_torch.train import make_train_step
+
+    opt, state = new_train_state(loaded, dev, lr)
+    step = make_train_step(loaded.config, opt)
+    state, m = step(state, batches[0])
+    float(m["loss"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batches[1])
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # the optimizer's step annotation spans its kernels: not one itself
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us <= 0:
+        log("train profile: device time not measured (the profiler saw no "
+            "CUDA kernel time)")
+        return {}
+    families = (("cuBLAS GEMMs", ("gemm", "xmma", "cutlass", "splitK")),
+                ("embedding backward (sort + scatter)",
+                 ("indexing_backward", "index_put", "adix", "scatter",
+                  "embedding")),
+                ("optimizer (foreach AdamW)", ("multi_tensor_apply",)),
+                ("softmax", ("softmax",)),
+                ("reductions", ("reduce_kernel",)),
+                ("elementwise", ("elementwise_kernel",)))
+    sums = {name: [0.0, 0] for name, _ in families + (("other", ()),)}
+    for e in kernels:
+        fam = next((name for name, keys in families
+                    if any(k in e.key for k in keys)), "other")
+        sums[fam][0] += e.self_device_time_total
+        sums[fam][1] += e.count
+    n = sum(e.count for e in kernels)
+    log(f"train profile of one f32 remat step (batch {len(batches[1]['ids_a'])}"
+        f", seq {batches[1]['ids_a'].shape[1]}): wall {wall_us:.1f} us, "
+        f"device busy {busy_us:.1f} us = {100 * busy_us / wall_us:.1f}% in "
+        f"{n} kernels ({gpu_line()})")
+    for name, (us, c) in sums.items():
+        log(f"  {name}: {us:.1f} us ({100 * us / busy_us:.1f}%) / {c} "
+            "launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.self_device_time_total:10.1f} us {e.count:5d}x  "
+            f"{e.key[:100]}")
+    return {"wall_us": wall_us, "device_busy_us": busy_us, "kernels": n,
+            **{f"{k}_us": v[0] for k, v in sums.items()}}
+
+
+def train_path(counters):
+    """Contrastive fine-tuning at all-MiniLM-L6-v2's full width: a dense
+    f32 seed-0 ggml file over a vocab that holds the STS pairs' words;
+    ``finetune.main`` on the card with every kernel counter at 0 (training
+    runs the plain versions: none may launch); the first steps on the card
+    against the CPU; step time, memory with and without remat, a bf16 step
+    and a profile; then the tuned .npz served on the card through the
+    LayerNorm and fused attention kernels, against the CPU."""
+    import numpy as np
+    import torch
+
+    from bert_tpu_torch import BertTorch, finetune
+    from bert_tpu_torch.formats import GgmlHParams, write_ggml
+    from bert_tpu_torch.loader import load_model
+    from bert_tpu_torch.params import BertConfig, random_named_tensors
+
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    cfg = BertConfig(**MINILM_L6)
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "minilm_l6_f32.bin")
+    out = os.path.join(work, "minilm_l6_tuned.npz")
+    t0 = time.perf_counter()
+    hp = GgmlHParams(cfg.n_vocab, cfg.n_max_tokens, cfg.n_embd,
+                     cfg.n_intermediate, cfg.n_head, cfg.n_layer, ftype=0)
+    write_ggml(path, hp, sts_tokens(cfg.n_vocab), random_named_tensors(cfg, 0))
+    log(f"train: wrote a MiniLM-L6 f32 ggml file from seed 0 in "
+        f"{time.perf_counter() - t0:.2f} s "
+        f"({os.path.getsize(path) / 1e6:.1f} MB)")
+    loaded = load_model(path)
+    batch, seq = 32, 64
+    batches = train_batches(loaded, TRAIN_STEPS, batch, seq)
+    ids = np.concatenate([b[f"ids_{s}"] for b in batches for s in "ab"])
+    n_tok = int((ids > 0).sum())
+    unk = int((ids == 100).sum())
+    log(f"train: {TRAIN_STEPS} batches of {batch} pairs, {n_tok} tokens "
+        f"({100 * n_tok / ids.size:.1f}% of the padded {ids.size}), "
+        f"{unk} [UNK]")
+    require(unk <= 0.01 * n_tok, f"train: {unk} [UNK] of {n_tok} tokens")
+
+    # the entry point on the card: no kernel may launch while it trains
+    for c in counters:
+        c.launches = 0
+    r = finetune.main(["-m", path, "--steps", str(TRAIN_STEPS), "--batch",
+                       str(batch), "--seq", str(seq), "--lr", str(TRAIN_LR),
+                       "--out", out])
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"train: kernel launches during finetune.main: {launches}")
+    require(not any(launches.values()),
+            f"train: kernels launched in the train steps: {launches}")
+    require(bool(np.isfinite(r["losses"]).all()
+                 and np.isfinite(r["grad_norms"]).all()),
+            "train: a non-finite loss or grad_norm")
+    require(r["last_loss"] < r["first_loss"],
+            f"train: the loss did not fall: {r['first_loss']:.4f} -> "
+            f"{r['last_loss']:.4f}")
+    step_ms = statistics.median(r["step_ms"][2:])
+    n_matmul = cfg.n_layer * (4 * cfg.n_embd ** 2
+                              + 2 * cfg.n_embd * cfg.n_intermediate)
+    tokens = 2 * batch * seq  # padded, both sides of each pair
+    flops = 8 * n_matmul * tokens  # 6·N·tokens + 2·N·tokens of recompute
+    share = flops / (step_ms * 1e-3) / PEAK_FLOPS["f32"]
+    log(f"train: finetune.main on the card, f32, remat, lr {TRAIN_LR}: loss "
+        f"{r['first_loss']:.4f} -> {r['last_loss']:.4f} in {TRAIN_STEPS} "
+        f"steps; {step_ms:.3f} ms/step (median of steps 3-{TRAIN_STEPS}), "
+        f"{batch / step_ms * 1e3:.1f} pairs/s, {tokens / step_ms * 1e3:.0f} "
+        f"padded tokens/s; 8·N·tokens = {flops / 1e9:.1f} GFLOP a step (N = "
+        f"{n_matmul} matmul weights) = {100 * share:.2f}% of the f32 peak "
+        f"(67 TFLOP/s) ({card})")
+
+    worst = card_vs_cpu_steps(loaded, TRAIN_LR)
+
+    dev = torch.device("cuda")
+    runs = {}
+    for name, dtype, remat in (("f32 remat", torch.float32, True),
+                               ("f32 no remat", torch.float32, False),
+                               ("bf16 remat", torch.bfloat16, True)):
+        runs[name] = measure_steps(loaded, dev, TRAIN_LR, batches[:4], dtype,
+                                   remat)
+        m = runs[name]
+        log(f"train: {name}: {statistics.median(m['ms'][1:]):.3f} ms/step "
+            f"(median of steps 2-4), peak allocated "
+            f"{m['peak_bytes'][-1] / 2**20:.1f} MiB (step 4, above the "
+            f"{m['resident_before_bytes'] / 2**20:.1f} MiB resident before "
+            "it), losses "
+            f"{' '.join(f'{x:.4f}' for x in m['losses'])} ({card})")
+        require(bool(np.isfinite(m["losses"]).all()),
+                f"train: {name}: a non-finite loss")
+    prof = profile_train_step(loaded, dev, TRAIN_LR, batches)
+
+    # the tuned weights, served through the kernels
+    s1, s2, _ = finetune.read_sts_pairs(sts_pairs_path())
+    texts = s1[:64] + s2[:64]
+    served = BertTorch.from_file(out)  # the card, bf16
+    require(served.device.type == "cuda", "train: from_file did not default "
+            "to cuda")
+    served.encode_batch(texts[:8])
+    batches0 = dict(served.timers.bucket_counts)
+    for c in counters:
+        c.launches = 0
+    e16 = served.encode_batch(texts)
+    serve_launches = {c.__name__: c.launches for c in counters}
+    n_batches = sum(n - batches0.get(k, 0)
+                    for k, n in served.timers.bucket_counts.items())
+    log(f"train: the tuned .npz served on the card, bf16: {len(texts)} "
+        f"sentences in {n_batches} batches, launches {serve_launches}")
+    require(serve_launches["fused_layer_norm"]
+            == (2 * cfg.n_layer + 1) * n_batches,
+            "train: the LayerNorm did not launch 2L+1 times a batch")
+    require(serve_launches["fused_qkv_attention"] == cfg.n_layer * n_batches,
+            "train: the fused attention did not launch L times a batch")
+    require(not any(serve_launches[k] for k in serve_launches
+                    if k not in ("fused_layer_norm", "fused_qkv_attention")),
+            "train: a kernel off the dense d_head-32 path launched")
+    ref = BertTorch.from_file(out, device="cpu").encode_batch(texts)
+    e32 = BertTorch.from_file(out, compute_dtype=torch.float32).encode_batch(
+        texts)
+    cos16, cos32 = (np.sum(e * ref, axis=-1) for e in (e16, e32))
+    err32 = float(np.abs(e32 - ref).max())
+    log(f"train: tuned .npz, card f32 vs CPU f32: min cos {cos32.min():.7f}, "
+        f"max|Δ| {err32:.3e}; card bf16 vs CPU f32: min cos "
+        f"{cos16.min():.6f}")
+    require(bool(np.all(cos32 > 0.9999)), "train: card f32 cos <= 0.9999")
+    require(err32 <= 5e-3, "train: card f32 max|Δ| > 5e-3")
+    require(bool(np.all(cos16 > 0.999)), "train: card bf16 cos <= 0.999")
+    t_all = time.perf_counter() - t_phase
+    log(f"train: the phase took {t_all:.2f} s")
+    return {"loss_first": r["first_loss"], "loss_last": r["last_loss"],
+            "ms_per_step": step_ms, "pairs_per_s": batch / step_ms * 1e3,
+            "f32_peak_share": share, "card_vs_cpu": worst,
+            "steps": {k: {"ms": statistics.median(v["ms"][1:]),
+                          "peak_bytes": v["peak_bytes"][-1]}
+                      for k, v in runs.items()},
+            "profile": prof, "phase_s": t_all}
+
+
 def main() -> int:
     import torch
 
@@ -1725,6 +2115,7 @@ def main() -> int:
         dev, np.random.default_rng(20),
         counters + [int8_matmul, quantize_activations_i8])
     results.update(int8_results)
+    train = train_path(counters + [int8_matmul, quantize_activations_i8])
     # each kernel's launches on its path: MiniLM-L6 for the first three,
     # hf_server for the per-(batch, head) attention, the bert-base int8
     # path for the two int8 kernels
@@ -1771,6 +2162,11 @@ def main() -> int:
     log(f"warm hf_server BATCH frames: {hf_rate:.1f} sentences/s on {card}")
     log(f"warm bert-base int8 path: {int8_info['rate']:.1f} sentences/s "
         f"(int8_eval=False: {int8_info['q4_rate']:.1f}) on {card}")
+    log(f"train path (MiniLM-L6, batch 32, seq 64, f32, remat): "
+        f"{train['ms_per_step']:.3f} ms/step, {train['pairs_per_s']:.1f} "
+        f"pairs/s, {100 * train['f32_peak_share']:.2f}% of the f32 peak, "
+        f"loss {train['loss_first']:.4f} -> {train['loss_last']:.4f} on "
+        f"{card}")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -172,19 +172,24 @@ def _port_modules():
     return mods
 
 
+# what the port never imports: JAX and its optimizer/checkpoint libraries,
+# and the JAX package and its benchmark scripts
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "bert_tpu", "benchmarks")
+
+
 def test_port_imports_neither_jax_nor_bert_tpu():
     mods = _port_modules()
     assert {"bert_tpu_torch.engine", "bert_tpu_torch.server",
             "bert_tpu_torch.cli", "bert_tpu_torch.checkpoint",
             "bert_tpu_torch.ops.attention",
             "bert_tpu_torch.ops.int8_matmul", "bert_tpu_torch.convert",
-            "bert_tpu_torch.formats.safetensors"} <= set(mods)
+            "bert_tpu_torch.formats.safetensors", "bert_tpu_torch.train",
+            "bert_tpu_torch.finetune"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith('jax.') or m == 'bert_tpu' "
-        "or m.startswith('bert_tpu.'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -208,8 +213,7 @@ def test_port_sources_have_no_jax_or_bert_tpu_imports():
                 names = [node.module or ""]
             for n in names:
                 top = n.split(".")[0]
-                assert top not in ("jax", "jaxlib", "bert_tpu"), \
-                    f"{path} imports {n}"
+                assert top not in FORBIDDEN, f"{path} imports {n}"
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

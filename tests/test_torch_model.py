@@ -320,8 +320,9 @@ def test_encoder_layer_hands_the_layer_norm_the_f32_product(monkeypatch,
         return real_ln(x.to(out_dtype or x.dtype), *args, **kw)
 
     monkeypatch.setattr(tmodel, "fused_layer_norm", cast_then_ln)
-    monkeypatch.setattr(tmodel, "dense", lambda x, w, b=None, f32_out=False:
-                        real_dense(x, w, b))
+    monkeypatch.setattr(tmodel, "dense",
+                        lambda x, w, b=None, f32_out=False, use_kernels=None:
+                        real_dense(x, w, b, use_kernels=use_kernels))
     with torch.inference_mode():
         want = layer(x, mask_bias)
     assert torch.equal(got, want)
