@@ -14,7 +14,11 @@ Counterpart of ``bert_tpu/checkpoint.py``.
   contrastive fine-tuning (bert_tpu_torch/train.py) in the port's own
   format: one ``torch.save`` archive, ``<dir>/train_state.pt``, of plain
   tensors and ints (params, the AdamW moments, AdamW's step count and the
-  train step), read back with ``weights_only=True``. bert_tpu saves its
+  train step), read back with ``weights_only=True``. A tensor-parallel
+  train state (train.make_sharded_train_step) is gathered whole and rank 0
+  writes it; :func:`load_train_state` reads it into a whole state, which
+  ``make_sharded_train_step`` cuts for any mesh, so a state saved at one
+  (dp, tp) resumes at any other, or on one device. bert_tpu saves its
   train state with orbax, whose directories this module cannot read: the
   port does not depend on orbax or JAX. To carry a bert_tpu train state
   across, use :func:`bert_tpu_torch.params.train_state_from_jax`.
@@ -111,31 +115,32 @@ _TRAIN_STATE_VERSION = 1
 def save_train_state(ckpt_dir: str, state) -> None:
     """Write ``state`` (a :class:`bert_tpu_torch.train.TrainState`) to
     ``<ckpt_dir>/train_state.pt``, replacing it whole (written aside, then
-    renamed)."""
-    opt = state.opt_state
-    params, mu, nu, counts = {}, {}, {}, set()
-    for group, sub in state.params.tree().items():
-        for key, p in sub.items():
-            name = f"{group}/{key}"
-            st = opt.state.get(p)
-            params[name] = p.detach().cpu()
-            if st:
-                mu[name] = st["exp_avg"].detach().cpu()
-                nu[name] = st["exp_avg_sq"].detach().cpu()
-                counts.add(int(st["step"]))
-            else:  # no step taken yet
-                mu[name] = nu[name] = torch.zeros_like(params[name])
-                counts.add(0)
-    if len(counts) != 1:
-        raise ValueError(f"AdamW step counts differ across parameters: "
-                         f"{sorted(counts)}")
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(ckpt_dir, TRAIN_STATE_FILE)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    torch.save({"version": _TRAIN_STATE_VERSION, "step": int(state.step),
-                "count": counts.pop(), "params": params, "mu": mu,
-                "nu": nu}, tmp)
-    os.replace(tmp, path)
+    renamed). For a state on a mesh, every rank calls it: the leaves are
+    gathered whole, rank 0 writes, and every rank returns once the file is
+    in place."""
+    from .params import params_to_numpy
+    from .train import adam_moments
+
+    params = params_to_numpy(state.params)
+    moments = adam_moments(state)
+    if moments is None:  # no step taken yet
+        moments = ({g: {k: np.zeros_like(v) for k, v in sub.items()}
+                    for g, sub in params.items()},) * 2 + (0,)
+    mu, nu, count = moments
+    mesh = state.mesh
+    if mesh is None or torch.distributed.get_rank() == 0:
+        flat = {name: {f"{g}/{k}": torch.from_numpy(v)
+                       for g, sub in tree.items() for k, v in sub.items()}
+                for name, tree in (("params", params), ("mu", mu),
+                                   ("nu", nu))}
+        os.makedirs(ckpt_dir, exist_ok=True)
+        path = os.path.join(ckpt_dir, TRAIN_STATE_FILE)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        torch.save({"version": _TRAIN_STATE_VERSION,
+                    "step": int(state.step), "count": count, **flat}, tmp)
+        os.replace(tmp, path)
+    if mesh is not None:
+        torch.distributed.barrier()
 
 
 def load_train_state(ckpt_dir: str, target):

@@ -30,8 +30,14 @@ and warms cuBLAS and the caching allocator. There is no compile to cache:
 the kernel ``.so`` cache of ``_kernels.py`` stands in for bert_tpu's XLA
 compilation cache. ``int8_eval=True`` adds bert_tpu's opt-in W8A8 regime:
 batches of at least ``int8_threshold`` padded tokens run on a per-column
-int8 weight tree (ops/int8_matmul.py). Multi-device execution is not
-ported yet (ROADMAP.md).
+int8 weight tree (ops/int8_matmul.py).
+
+Multi-device execution (``mesh=`` or ``dp=``/``tp=``, as BertTPU takes
+them): one process per rank (parallel/multihost.py), every rank calling
+the same method with the same inputs. Each batch is planned in multiples
+of dp; a rank runs its rows through its Megatron shard of the weights
+(tensor-parallel over ``model``), and the rows are all-gathered over
+``data``, so every rank gets the whole result.
 """
 
 from __future__ import annotations
@@ -54,10 +60,17 @@ from .batching import (
 )
 from .loader import LoadedModel, load_model
 from .model import BertModel, bert_forward, bert_forward_packed
+from .ops.common import round_up as _round_up
 from .ops.int8_matmul import Int8Tensor
 from .packing import PackPlan, Placement, pack_batch, plan_packing
+from .parallel.collectives import gather_rows
+from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, axis_group, axis_size,
+                            local_rows, make_mesh, rank_device)
+from .parallel.sharding import check_tp_divisibility
+from .parallel.spmd import shard_params
 from .params import BertConfig, params_to_int8, params_to_torch
 from .profiling import PhaseTimers
+from .quant import QuantTensor
 from .tokenizer import WordPieceTokenizer
 
 _logger = logging.getLogger(__name__)
@@ -94,8 +107,21 @@ class BertTorch:
         pooling: Optional[str] = None,
         int8_eval: bool = False,
         int8_threshold: int = 8192,
+        mesh: Optional[Any] = None,
+        dp: Optional[int] = None,
+        tp: Optional[int] = None,
     ):
         self.device = resolve_device(device)
+        # multi-device execution: mesh OR dp/tp build a (data, model) mesh
+        # over the process group's ranks; this rank computes on its device
+        if mesh is None and (dp or tp):
+            mesh = make_mesh((dp or 1) * (tp or 1), tp=tp or 1,
+                             device_type=self.device.type)
+        self.mesh = mesh
+        self._dp = axis_size(mesh, DATA_AXIS)
+        self._tp = axis_size(mesh, MODEL_AXIS)
+        if mesh is not None:
+            self.device = rank_device(mesh)
         self.config: BertConfig = loaded.config
         self.vocab = loaded.vocab
         self.tokenizer = WordPieceTokenizer(loaded.vocab)
@@ -127,7 +153,18 @@ class BertTorch:
                              f"got {pooling!r}")
         self.pooling = pooling
         self.timers = PhaseTimers()
-        self._min_rows = 8  # smallest row bucket (single device: dp = 1)
+        if self._dp & (self._dp - 1):
+            raise ValueError(f"dp degree must be a power of two, "
+                             f"got {self._dp}")
+        if self.max_batch % self._dp:
+            raise ValueError(f"max_batch {self.max_batch} must be a "
+                             f"multiple of dp {self._dp}")
+        # smallest row bucket: keeps every padded batch divisible by dp
+        self._min_rows = max(8, self._dp)
+        if self._tp > 1:
+            quantized = any(isinstance(w, QuantTensor)
+                            for w in loaded.params["layers"].values())
+            check_tp_divisibility(self.config, self._tp, quantized=quantized)
         self._packing = packing
         self._pack_seq = min(pack_seq, self.config.n_max_tokens)
         self._pack_segments = pack_segments
@@ -138,10 +175,12 @@ class BertTorch:
         self.host_params = loaded.params
         t0 = time.perf_counter()
         # tables and dense weights are stored in the compute dtype: the
-        # model casts them to it at use, so the numbers are the same
-        state = params_to_torch(loaded.params, device=self.device,
-                                dtype=compute_dtype)
-        self.model = BertModel(state, self.config).eval()
+        # model casts them to it at use, so the numbers are the same. On a
+        # mesh, this rank's Megatron shard, laid out for the device alone
+        state = self._place(loaded.params, compute_dtype)
+        tp_group = axis_group(mesh, MODEL_AXIS)
+        self._dp_group = axis_group(mesh, DATA_AXIS)
+        self.model = BertModel(state, self.config, tp_group).eval()
         # W8A8 regime (ops/int8_matmul.py), opt-in as in bert_tpu: batches
         # of at least int8_threshold padded tokens run on a tree whose
         # matmul weights are per-column int8. With a nonzero threshold the
@@ -153,18 +192,26 @@ class BertTorch:
         self.model_int8 = None
         if int8_eval:
             host_i8 = params_to_int8(loaded.params)["layers"]
-            int8_layers = params_to_torch(
+            int8_layers = self._place(
                 {"embeddings": {}, "layers": {
                     k: v for k, v in host_i8.items()
                     if isinstance(v, Int8Tensor)}},
-                device=self.device)["layers"]
+                torch.float32)["layers"]
             self.model_int8 = BertModel(
                 {"embeddings": state["embeddings"],
                  "layers": {**state["layers"], **int8_layers}},
-                self.config).eval()
+                self.config, tp_group).eval()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.load_phases["to_device"] = round(time.perf_counter() - t0, 3)
+
+    def _place(self, host_params, dtype: torch.dtype):
+        """A host tree on this rank's device: whole, or on a mesh this
+        rank's ``model``-axis shard."""
+        if self.mesh is None:
+            return params_to_torch(host_params, device=self.device,
+                                   dtype=dtype)
+        return shard_params(self.mesh, host_params, dtype=dtype)
 
     # -- constructors --------------------------------------------------------
     @classmethod
@@ -221,7 +268,8 @@ class BertTorch:
         return out
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device, non_blocking=True)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device, non_blocking=True)
 
     def _wire(self, emb: torch.Tensor) -> torch.Tensor:
         if self.wire_dtype == "f16":
@@ -291,19 +339,15 @@ class BertTorch:
                                                      pack_plan))
             if bucket_idx:
                 plan = plan_buckets([lengths[i] for i in bucket_idx],
-                                    self.seq_buckets, self.max_batch)
+                                    self.seq_buckets, self.max_batch,
+                                    min_batch=self._dp)
                 for seq_b, batch_b, sub in plan.groups:
                     idxs = [bucket_idx[j] for j in sub]
                     ids, mask = self.tokenizer.pad_batch(
                         [token_lists[i] for i in idxs], seq_b,
                         batch_size=batch_b
                     )
-                    emb = bert_forward(
-                        self._model_for(batch_b * seq_b),
-                        self._to_device(ids.astype(np.int64)),
-                        self._to_device(mask),
-                        compute_dtype=self.compute_dtype,
-                        pooling=self.pooling)[: len(idxs)]
+                    emb = self._forward(ids, mask)[: len(idxs)]
                     host, done = self._copy_to_host(self._wire(emb))
                     self.timers.record_bucket(batch_b, seq_b)
                     pending.append((np.asarray(idxs), host, done))
@@ -326,12 +370,7 @@ class BertTorch:
             sub = PackPlan(pls, end - start, plan.seq_len, plan.max_segments)
             n_rows = min(_size_bucket(sub.n_rows, self._min_rows), row_cap)
             ids, seg, pos, flat = pack_batch(tl, sub, n_rows=n_rows)
-            emb3 = bert_forward_packed(
-                self._model_for(n_rows * self._pack_seq),
-                self._to_device(ids.astype(np.int64)),
-                self._to_device(seg), self._to_device(pos.astype(np.int64)),
-                n_segments=self._pack_segments,
-                compute_dtype=self.compute_dtype, pooling=self.pooling)
+            emb3 = self._forward_packed(ids, seg, pos)
             # valid slots only: [B, S, D] → [n_sent, D]
             rows = emb3.reshape(-1, emb3.shape[-1])[
                 self._to_device(flat.astype(np.int64))]
@@ -340,6 +379,31 @@ class BertTorch:
             orig = np.asarray([idxs[p.index] for p in pls])
             pending.append((orig, host, done))
         return pending
+
+    def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        """Bucketed batch [B, T] (B a multiple of dp) → [B, D] f32 on
+        this rank's device: its rows through its shard, all-gathered over
+        ``data``. The regime follows the whole batch's padded tokens."""
+        r = local_rows(self.mesh, ids.shape[0])
+        # ids are widened on the host: a cast on the card is one more launch
+        emb = bert_forward(
+            self._model_for(ids.size),
+            self._to_device(ids[r].astype(np.int64)),
+            self._to_device(mask[r]), compute_dtype=self.compute_dtype,
+            pooling=self.pooling)
+        return gather_rows(emb, self._dp_group)
+
+    def _forward_packed(self, ids: np.ndarray, seg: np.ndarray,
+                        pos: np.ndarray) -> torch.Tensor:
+        """Packed rows [B, pack_seq] → [B, S, D], as :meth:`_forward`."""
+        r = local_rows(self.mesh, ids.shape[0])
+        emb3 = bert_forward_packed(
+            self._model_for(ids.size),
+            self._to_device(ids[r].astype(np.int64)), self._to_device(seg[r]),
+            self._to_device(pos[r].astype(np.int64)),
+            n_segments=self._pack_segments,
+            compute_dtype=self.compute_dtype, pooling=self.pooling)
+        return gather_rows(emb3, self._dp_group)
 
     def _model_for(self, n_tokens: int) -> BertModel:
         """The model for a batch of ``n_tokens`` padded tokens (rows × T):
@@ -430,18 +494,11 @@ class BertTorch:
     @torch.inference_mode()
     def _warm_shape(self, rows: int, seq: int, kind: str) -> None:
         """Run one (rows, seq) shape on zeros, through its host copy."""
-        ids = self._to_device(np.zeros((rows, seq), dtype=np.int64))
+        ids = np.zeros((rows, seq), dtype=np.int64)
         if kind == "packed":
-            seg = self._to_device(np.zeros((rows, seq), dtype=np.int32))
-            emb = bert_forward_packed(
-                self._model_for(rows * seq), ids, seg, ids,
-                n_segments=self._pack_segments,
-                compute_dtype=self.compute_dtype, pooling=self.pooling)
+            emb = self._forward_packed(ids, ids.astype(np.int32), ids)
         else:
-            mask = self._to_device(np.ones((rows, seq), dtype=np.float32))
-            emb = bert_forward(self._model_for(rows * seq), ids, mask,
-                               compute_dtype=self.compute_dtype,
-                               pooling=self.pooling)
+            emb = self._forward(ids, np.ones((rows, seq), dtype=np.float32))
         _, done = self._copy_to_host(self._wire(emb))
         if done is not None:
             done.synchronize()
@@ -468,9 +525,13 @@ class BertTorch:
             _logger.warning("warmup manifest unusable or empty — "
                             "falling back to the grid")
         if batch_sizes is None:
-            batch_sizes = sorted({1, min(8, self.max_batch), self.max_batch})
+            batch_sizes = sorted({self._dp,
+                                  min(max(8, self._dp), self.max_batch),
+                                  self.max_batch})
         else:
-            batch_sizes = sorted({min(b, self.max_batch) for b in batch_sizes})
+            batch_sizes = sorted({min(_round_up(b, self._dp),
+                                      self.max_batch)
+                                  for b in batch_sizes})
         for t in self.seq_buckets:
             for b in batch_sizes:
                 self._warm_shape(b, t, "bucketed")
@@ -483,9 +544,9 @@ class BertTorch:
     def _load_manifest_shapes(self, manifest) -> List[tuple]:
         """Parse + validate a warmup manifest (path or ``shapes`` list) into
         (rows, seq, kind) tuples for this engine: tolerates corrupt files,
-        rejects manifests recorded for another model, clamps rows to
-        max_batch and snaps seq to this engine's buckets. Returns [] when
-        nothing usable remains."""
+        rejects manifests recorded for another model, rounds rows up to
+        dp and clamps them to max_batch, and snaps seq to this engine's
+        buckets. Returns [] when nothing usable remains."""
         raw = manifest
         if isinstance(manifest, (str, bytes)):
             try:
@@ -513,7 +574,7 @@ class BertTorch:
                     continue
                 if not 1 <= seq <= self.config.n_max_tokens:
                     continue
-                rows = min(rows, self.max_batch)
+                rows = min(_round_up(rows, self._dp), self.max_batch)
                 seq = (self._pack_seq if kind == "packed"
                        else pick_bucket(seq, self.seq_buckets))
                 shapes.add((rows, seq, kind))

@@ -14,6 +14,8 @@ Usage:
       [pairs.tsv] [--steps 100] [--batch 32] [--seq 64] [--lr 2e-5] \\
       [--out tuned.npz] [--ckpt DIR] [--device cuda|cpu] \\
       [--compute-dtype float32|bfloat16]
+  torchrun --nproc-per-node N -m bert_tpu_torch.finetune -m ... \\
+      --dp D --tp T                     # D·T = N ranks
 
 It trains on the card unless ``--device cpu`` is given, and raises
 without one. Training needs DENSE weights (f32/f16 ggml, HF dir, or .npz
@@ -22,7 +24,10 @@ AFTER fine-tuning (``python -m bert_tpu_torch.convert quantize`` on the
 converted result). ``--ckpt DIR`` saves the train state there at the end
 and resumes from it when it exists, in the port's own format
 (bert_tpu_torch/checkpoint.py), not bert_tpu's orbax directories.
-Sharded training (``--dp``/``--tp``) is not ported (ROADMAP.md A7).
+``--dp``/``--tp`` train over a (data, model) mesh of dp·tp ranks
+(``train.make_sharded_train_step``), one process per rank under
+torchrun; rank 0 prints and writes the ``.npz``, and a train state
+saved at one (dp, tp) resumes at any other.
 """
 
 from __future__ import annotations
@@ -110,8 +115,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--dp", type=int, default=0)
     ap.add_argument("--tp", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.dp or args.tp:
-        sys.exit("--dp/--tp: sharded training is not ported (ROADMAP A7)")
 
     from .checkpoint import load_train_state, save_params, save_train_state
     from .engine import resolve_device
@@ -120,9 +123,18 @@ def main(argv=None) -> dict:
     from .params import params_to_numpy, params_to_torch
     from .quant import QuantTensor
     from .tokenizer import WordPieceTokenizer
-    from .train import init_train_state, make_optimizer, make_train_step
+    from .parallel.mesh import make_mesh
+    from .train import (init_train_state, make_optimizer,
+                        make_sharded_train_step, make_train_step)
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.dp or args.tp:
+        dp, tp = max(1, args.dp), max(1, args.tp)
+        mesh = make_mesh(dp * tp, tp=tp, device_type=device.type)
+    # on a mesh every rank runs this program; rank 0 speaks and writes
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
     loaded = load_model(args.model)
     if any(isinstance(v, QuantTensor)
            for sub in loaded.params.values() for v in sub.values()):
@@ -134,22 +146,30 @@ def main(argv=None) -> dict:
     keep = [i for i, g in enumerate(gold) if g >= args.min_score]
     if len(keep) < 2:
         sys.exit(f"only {len(keep)} pairs score >= {args.min_score}")
-    print(f"{len(keep)} positive pairs (of {len(gold)}) from {args.pairs}")
+    say(f"{len(keep)} positive pairs (of {len(gold)}) from {args.pairs}")
     tokenizer = WordPieceTokenizer(loaded.vocab)
     tok = lambda texts: [tokenizer.tokenize(t, args.seq) for t in texts]
     toks_a, toks_b = tok([s1[i] for i in keep]), tok([s2[i] for i in keep])
 
     opt = make_optimizer(args.lr)
-    model = TrainableBertModel(params_to_torch(loaded.params, device=device),
-                               loaded.config)
+    # on a mesh the whole state is built on the host, and
+    # make_sharded_train_step places each rank's shard of it
+    model = TrainableBertModel(
+        params_to_torch(loaded.params,
+                        device="cpu" if mesh is not None else device),
+        loaded.config)
     state = init_train_state(model, opt)
     if args.ckpt and os.path.isdir(args.ckpt):
         state = load_train_state(args.ckpt, state)
-        print(f"resumed from {args.ckpt} at step {int(state.step)}")
-    step_fn = make_train_step(loaded.config, opt,
-                              temperature=args.temperature,
-                              compute_dtype=_DTYPES[args.compute_dtype],
-                              pooling=pooling)
+        say(f"resumed from {args.ckpt} at step {int(state.step)}")
+    kw = dict(temperature=args.temperature,
+              compute_dtype=_DTYPES[args.compute_dtype], pooling=pooling)
+    if mesh is not None:
+        state, step_fn = make_sharded_train_step(mesh, loaded.config, opt,
+                                                 state, **kw)
+        say(f"sharded step over mesh (data={dp}, model={tp})")
+    else:
+        step_fn = make_train_step(loaded.config, opt, **kw)
 
     losses, grad_norms, step_ms = [], [], []
     t0 = time.time()
@@ -162,19 +182,21 @@ def main(argv=None) -> dict:
         losses.append(loss)
         grad_norms.append(float(metrics["grad_norm"]))
         if it % max(1, args.steps // 10) == 0 or it == args.steps - 1:
-            print(f"step {int(state.step):4d}  loss {loss:.4f}  "
+            say(f"step {int(state.step):4d}  loss {loss:.4f}  "
                   f"grad_norm {grad_norms[-1]:.3f}")
     dt = time.time() - t0
-    print(f"{args.steps} steps in {dt:.1f}s "
+    say(f"{args.steps} steps in {dt:.1f}s "
           f"({args.steps * min(args.batch, len(keep)) / dt:.0f} pairs/s); "
           f"loss {losses[0]:.4f} → {losses[-1]:.4f}")
 
     if args.ckpt:
         save_train_state(args.ckpt, state)
-        print(f"train state → {args.ckpt}")
-    save_params(args.out, params_to_numpy(state.params), loaded.config,
-                loaded.vocab.tokens, pooling=pooling)
-    print(f"weights → {args.out}  "
+        say(f"train state → {args.ckpt}")
+    tuned = params_to_numpy(state.params)  # gathered whole on a mesh
+    if rank0:
+        save_params(args.out, tuned, loaded.config, loaded.vocab.tokens,
+                    pooling=pooling)
+    say(f"weights → {args.out}  "
           f"(serve with BertTorch.from_file({args.out!r}))")
     return {"first_loss": losses[0], "last_loss": losses[-1],
             "out": args.out, "losses": losses, "grad_norms": grad_norms,

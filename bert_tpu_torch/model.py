@@ -30,7 +30,16 @@ as ``nn.Parameter``s, layer-stacked as in bert_tpu's tree, and
 ``remat=True`` recomputes each layer's activations in the backward
 (``torch.utils.checkpoint``) instead of keeping them.
 
-Tensor parallelism (``tp_axis``) is not ported yet (ROADMAP.md A7).
+Tensor parallelism (bert_tpu's ``tp_axis``): a model built from one
+rank's Megatron shard (parallel/sharding.py) carries its mesh's ``model``
+process group, ``tp_group``. Its QKV and FFN-up weights hold whole heads
+and columns, so the local head count follows from the shard width; the
+attention-output and FFN-down products are partial sums, all-reduced
+over ``model`` before their LayerNorms: two all-reduces a layer, as
+bert_tpu's two psums. As bert_tpu does, each partial product is rounded
+to the compute dtype and the rounded partials are summed. In training the
+all-reduces are Megatron's *f* and *g* operators
+(parallel/collectives.py).
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from .ops.fused_attention import fused_qkv_attention, fused_route
 from .ops.int8_matmul import Int8Weight, int8_matmul, int8_matmul_plain
 from .ops.layer_norm import fused_layer_norm, layer_norm_plain
 from .ops.q4_matmul import q4_matmul, q4_matmul_plain
+from .parallel.collectives import copy_to_model, reduce_from_model
 from .params import BertConfig
 from .quant import QuantTensor
 
@@ -134,16 +144,35 @@ def embed(token_ids: torch.Tensor, w: Callable[[str], torch.Tensor],
                       use_kernels=use_kernels)
 
 
+def _row_parallel(h: torch.Tensor, wt, tp_group,
+                  use_kernels: Optional[bool]) -> torch.Tensor:
+    """The attention-output or FFN-down product, for a LayerNorm that
+    rounds it to h's dtype. Without tensor parallelism: the f32 product,
+    which the LayerNorm rounds (bit for bit bert_tpu's cast, then LN,
+    without the cast's own launch). With it: each rank's partial product
+    rounded to h's dtype, then summed over ``model`` in that dtype, as
+    bert_tpu psums its rounded partials (bert_tpu/model.py:150-161)."""
+    if tp_group is None:
+        return dense(h, wt, f32_out=True, use_kernels=use_kernels)
+    return reduce_from_model(dense(h, wt, use_kernels=use_kernels),
+                             tp_group)
+
+
 def encoder_layer(x: torch.Tensor, w: Callable[[str], object],
                   mask_bias: torch.Tensor, config: BertConfig, *,
-                  use_kernels: Optional[bool] = None) -> torch.Tensor:
+                  use_kernels: Optional[bool] = None,
+                  tp_group=None) -> torch.Tensor:
     """One transformer encoder block (bert.cpp:816-903;
     ``bert_tpu.model.encoder_layer``); ``w(key)`` gives the layer's
-    weight of that name."""
+    weight of that name. Under tensor parallelism (``tp_group``, the
+    ``model`` process group; None = none) the weights are this rank's
+    Megatron shard and each residual branch ends in one all-reduce."""
     dh = config.d_head
     b, t, _ = x.shape
-    # ONE fused head-interleaved QKV matmul (params.py)
-    qkv = dense(x, w("qkv_w"), w("qkv_b"), use_kernels=use_kernels)
+    # ONE fused head-interleaved QKV matmul (params.py); under TP a column
+    # shard holds whole heads
+    qkv = dense(copy_to_model(x, tp_group), w("qkv_w"), w("qkv_b"),
+                use_kernels=use_kernels)
     n_head = qkv.shape[-1] // (3 * dh)
     scale = 1.0 / (dh ** 0.5)  # bert.cpp:848
     # bert_tpu/model.py:135-148. use_kernels=False takes the plain
@@ -163,19 +192,15 @@ def encoder_layer(x: torch.Tensor, w: Callable[[str], object],
         ctx = (_mha_plain(q, k, v, mask_bias, scale) if plain
                else multi_head_attention(q, k, v, mask_bias, scale=scale))
         ctx = ctx.permute(0, 2, 1, 3).reshape(b, t, n_head * dh)
-    # The two projections hand the LayerNorm their f32 products, which
-    # it rounds to x's dtype first: bit for bit bert_tpu's cast, then
-    # LN, without the cast's own launch. When tensor parallelism is
-    # ported (ROADMAP.md A7), each product's all-reduce falls here,
-    # between the product and the LayerNorm (bert_tpu/model.py:150-161).
-    att_out = dense(ctx, w("o_w"), f32_out=True, use_kernels=use_kernels)
+    att_out = _row_parallel(ctx, w("o_w"), tp_group, use_kernels)
     x = layer_norm(att_out, w("ln_att_scale"), w("ln_att_bias"),
                    config.layer_norm_eps, residual=x, pre_bias=w("o_b"),
                    out_dtype=x.dtype,
                    use_kernels=use_kernels)  # residual 1, bert.cpp:859-875
-    h = dense(x, w("ff_i_w"), w("ff_i_b"), use_kernels=use_kernels)
+    h = dense(copy_to_model(x, tp_group), w("ff_i_w"), w("ff_i_b"),
+              use_kernels=use_kernels)
     h = F.gelu(h, approximate="tanh" if config.gelu_approx else "none")
-    ff_out = dense(h, w("ff_o_w"), f32_out=True, use_kernels=use_kernels)
+    ff_out = _row_parallel(h, w("ff_o_w"), tp_group, use_kernels)
     return layer_norm(ff_out, w("ln_out_scale"), w("ln_out_bias"),
                       config.layer_norm_eps, residual=x, pre_bias=w("ff_o_b"),
                       out_dtype=x.dtype,
@@ -249,15 +274,18 @@ class EncoderLayer(_Weights):
     """One transformer encoder block over its own weights
     (:func:`encoder_layer`)."""
 
-    def __init__(self, lp: Dict[str, object], config: BertConfig):
+    def __init__(self, lp: Dict[str, object], config: BertConfig,
+                 tp_group=None):
         super().__init__()
         self.config = config
+        self.tp_group = tp_group
         self._register(lp)
 
     def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
                 use_kernels: Optional[bool] = None) -> torch.Tensor:
         return encoder_layer(x, self.w, mask_bias, self.config,
-                             use_kernels=use_kernels)
+                             use_kernels=use_kernels,
+                             tp_group=self.tp_group)
 
 
 class BertModel(nn.Module):
@@ -266,10 +294,11 @@ class BertModel(nn.Module):
     views ``[l]`` of the stacked tensors, so building it copies nothing:
     two models built from trees that share tensors (the engine's Q4 and
     int8 trees share everything but the matmul weights) share their
-    device memory."""
+    device memory. Built from one rank's tensor-parallel shard, it takes
+    the mesh's ``model`` process group as ``tp_group``."""
 
     def __init__(self, params: Dict[str, Dict[str, object]],
-                 config: BertConfig):
+                 config: BertConfig, tp_group=None):
         super().__init__()
         self.config = config
         self.embeddings = Embeddings(params["embeddings"], config)
@@ -285,7 +314,7 @@ class BertModel(nn.Module):
 
         self.layers = nn.ModuleList(
             EncoderLayer({k: layer_slice(v, i) for k, v in layers.items()},
-                         config)
+                         config, tp_group)
             for i in range(config.n_layer))
 
     def embed(self, token_ids: torch.Tensor, dtype: torch.dtype,
@@ -311,12 +340,15 @@ class TrainableBertModel(nn.Module):
     with) as it was.
     :meth:`tree` hands them back as ``{"embeddings": {...}, "layers":
     {...}}``. Same ``embed`` / ``encode`` interface as :class:`BertModel`,
-    so :func:`bert_forward` runs either."""
+    so :func:`bert_forward` runs either. Built from one rank's shard on a
+    mesh (train.make_sharded_train_step), it runs tensor-parallel over
+    the mesh's ``model`` process group, ``tp_group``."""
 
     def __init__(self, params: Dict[str, Dict[str, torch.Tensor]],
-                 config: BertConfig):
+                 config: BertConfig, tp_group=None):
         super().__init__()
         self.config = config
+        self.tp_group = tp_group
         for group in ("embeddings", "layers"):
             for k, v in params[group].items():
                 if not isinstance(v, torch.Tensor):
@@ -340,7 +372,8 @@ class TrainableBertModel(nn.Module):
     def _layer(self, i: int, x: torch.Tensor, mask_bias: torch.Tensor,
                use_kernels: Optional[bool]) -> torch.Tensor:
         return encoder_layer(x, lambda k: self.layers[k][i], mask_bias,
-                             self.config, use_kernels=use_kernels)
+                             self.config, use_kernels=use_kernels,
+                             tp_group=self.tp_group)
 
     def encode(self, x: torch.Tensor, mask_bias: torch.Tensor, *,
                use_kernels: Optional[bool] = None,

@@ -458,7 +458,10 @@ def params_to_numpy(model) -> Dict[str, Dict[str, np.ndarray]]:
     """A :class:`~bert_tpu_torch.model.TrainableBertModel`'s parameters as
     the host params tree (numpy, bert_tpu's layout): what
     :func:`bert_tpu_torch.checkpoint.save_params` writes, and what tests
-    hold leaf by leaf against bert_tpu's."""
-    return {group: {k: p.detach().cpu().numpy().copy()
-                    for k, p in sub.items()}
+    hold leaf by leaf against bert_tpu's. A tensor-parallel shard's leaves
+    are gathered whole first (a collective over its model group)."""
+    from .parallel.sharding import gather_leaf
+
+    return {group: {k: gather_leaf(group, k, p, model.tp_group)
+                    .cpu().numpy().copy() for k, p in sub.items()}
             for group, sub in model.tree().items()}

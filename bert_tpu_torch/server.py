@@ -19,16 +19,24 @@ default window policy is **adaptive** (work-conserving continuous
 batching): a request dispatches at once when the device slot is free, and
 while it is busy the forming batch absorbs every queued arrival (up to
 ``max_batch``). A numeric ``batch_window_ms`` gives a fixed window.
-bert_tpu's per-batch scheduler trace (``BERT_TPU_SCHED_TRACE``) is not
-ported (ROADMAP.md).
+``BERT_TPU_SCHED_TRACE=path.jsonl`` appends one JSON line per dispatched
+batch with its collect / slot / eval timeline, as bert_tpu's does.
+
+On a mesh (``--dp``/``--tp``, one process per rank under torchrun) rank 0
+owns the socket and the scheduler: before it runs a batch it broadcasts
+the batch's token lists, and every other rank runs the same engine call
+in :func:`follow` until rank 0 broadcasts the stop.
 
     python -m bert_tpu_torch.server -m <model> [--device cpu] [--port P]
+    torchrun --nproc-per-node N -m bert_tpu_torch.server -m <model> \\
+        --dp D --tp T                      # D·T = N ranks
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import logging
 import math
 import os
@@ -117,6 +125,11 @@ class BatchingScheduler:
         self.n_batches = 0
         # sliding reservoir of request latencies (submit → result, s)
         self.latencies: deque = deque(maxlen=4096)
+        # per-batch scheduler trace (BERT_TPU_SCHED_TRACE=path.jsonl): one
+        # JSON line per dispatched batch with its timeline, monotonic s
+        trace_path = os.environ.get("BERT_TPU_SCHED_TRACE")
+        self._trace = open(trace_path, "a") if trace_path else None
+        self._last_collect: dict = {}
 
     async def _enqueue(self, payload: Payload, t_submit: float):
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
@@ -177,6 +190,9 @@ class BatchingScheduler:
                 break
             if not fut.done():
                 fut.set_exception(ConnectionError("server shutting down"))
+        if self._trace is not None:
+            self._trace.close()
+            self._trace = None
 
     def _drain_into(self, batch: list) -> None:
         while len(batch) < self.max_batch:
@@ -194,6 +210,8 @@ class BatchingScheduler:
         # a lone closed-loop client's next request cannot exist while its
         # previous one is still evaluating
         self._first_while_busy = self._evals_inflight > 0
+        if self._trace is not None:
+            self._last_collect = {"t_first": time.monotonic()}
         if self.adaptive:
             self._drain_into(batch)  # the slot wait in _run batches more
             return
@@ -227,7 +245,8 @@ class BatchingScheduler:
                 toks[i] = t
         return self.model.eval_tokens(toks)
 
-    async def _eval_one_batch(self, batch, sem: asyncio.Semaphore) -> None:
+    async def _eval_one_batch(self, batch, sem: asyncio.Semaphore,
+                              trace: Optional[dict] = None) -> None:
         loop = asyncio.get_running_loop()
         t_start = time.monotonic()
         try:
@@ -246,6 +265,11 @@ class BatchingScheduler:
             # count only successful batches: a failed one served nobody
             self.n_served += len(batch)
             self.n_batches += 1
+            if self._trace is not None and trace is not None:
+                trace.update({"t_eval0": t_start, "t_eval1": t_done,
+                              "n": len(batch)})
+                self._trace.write(json.dumps(trace) + "\n")
+                self._trace.flush()
         except asyncio.CancelledError:
             for _, fut in batch:
                 if not fut.done():
@@ -287,7 +311,12 @@ class BatchingScheduler:
             while True:
                 batch = []
                 await self._collect(batch)
+                if self._trace is not None:
+                    self._last_collect["t_collect"] = time.monotonic()
+                    self._last_collect["n_collect"] = len(batch)
                 await sem.acquire()
+                if self._trace is not None:
+                    self._last_collect["t_slot"] = time.monotonic()
                 if self.adaptive:
                     # what queued while this batch waited for the slot rides
                     # along at no added latency
@@ -298,7 +327,9 @@ class BatchingScheduler:
                                    or self._first_while_busy) else 0.0
                     self._conc_ema = 0.25 * conc + 0.75 * self._conc_ema
                 self._evals_inflight += 1
-                task = loop.create_task(self._eval_one_batch(batch, sem))
+                task = loop.create_task(self._eval_one_batch(
+                    batch, sem, trace=self._last_collect or None))
+                self._last_collect = {}
                 self._inflight.add(task)
                 task.add_done_callback(self._inflight.discard)
         except asyncio.CancelledError:
@@ -562,6 +593,55 @@ class ServerThread:
         self.stop()
 
 
+class ShardedLeader:
+    """Rank 0's engine on a mesh, as the scheduler sees it: each
+    ``eval_tokens`` first broadcasts its token lists to the other ranks
+    (which run the same call in :func:`follow`), one batch at a time.
+    Everything else is the engine's."""
+
+    def __init__(self, model):
+        self._model = model
+        self._lock = threading.Lock()  # one batch's collectives at a time
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def eval_tokens(self, token_lists):
+        import torch.distributed as dist
+
+        with self._lock:
+            dist.broadcast_object_list([[list(t) for t in token_lists]],
+                                       src=0)
+            return self._model.eval_tokens(token_lists)
+
+    def stop_followers(self) -> None:
+        import torch.distributed as dist
+
+        with self._lock:
+            dist.broadcast_object_list([None], src=0)
+
+
+def follow(model) -> None:
+    """A rank other than 0 on a mesh: run each batch rank 0 broadcasts
+    through ``model.eval_tokens`` (its share of the collectives) until
+    rank 0 broadcasts the stop. A batch that raises is logged and
+    dropped, as rank 0's scheduler fails it and serves on, so that the
+    ranks stay in step; a failure that strikes some ranks and not others
+    part way through leaves the collectives out of step, which the
+    process group's timeout ends."""
+    import torch.distributed as dist
+
+    while True:
+        msg = [None]
+        dist.broadcast_object_list(msg, src=0)
+        if msg[0] is None:
+            return
+        try:
+            model.eval_tokens(msg[0])
+        except Exception:
+            logger.exception("batch evaluation failed")
+
+
 def main(argv=None) -> None:
     from .cli import add_common_args, load_model_from_args
 
@@ -603,6 +683,13 @@ def main(argv=None) -> None:
         model.warmup(batch_sizes=[1, 8, args.max_batch],
                      max_rows=args.max_batch, manifest=manifest)
         print(f"warmup done in {time.time() - t0:.1f}s", flush=True)
+    if model.mesh is not None:
+        import torch.distributed as dist
+
+        if dist.get_rank() != 0:
+            follow(model)
+            return
+        model = ShardedLeader(model)
 
     server = EmbeddingServer(model, host=args.host, port=args.port,
                              max_batch=args.max_batch,
@@ -621,6 +708,11 @@ def main(argv=None) -> None:
     except KeyboardInterrupt:
         pass
     finally:
+        if isinstance(model, ShardedLeader):
+            try:
+                model.stop_followers()
+            except RuntimeError as exc:  # a follower already gone
+                logger.warning("could not stop the other ranks: %r", exc)
         if args.warmup_manifest:
             try:
                 model.save_warmup_manifest(args.warmup_manifest)

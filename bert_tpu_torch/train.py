@@ -20,8 +20,13 @@ Training runs the plain PyTorch versions of every op
 (``use_kernels=False``): the kernels have no backward, and bert_tpu's
 training never runs a Pallas kernel either (its ``use_pallas=False``).
 The tuned weights are served through the kernels. Only dense weights
-train; quantize after fine-tuning. Sharded training
-(``make_sharded_train_step``) is not ported (ROADMAP.md A7).
+train; quantize after fine-tuning.
+
+:func:`make_sharded_train_step` is bert_tpu's GSPMD step in
+``torch.distributed``'s idiom: each rank holds its Megatron shard of the
+parameters and both AdamW moments (parallel/sharding.py), runs its
+``data``-axis rows of the batch, and computes the InfoNCE loss over the
+whole batch; gradients are summed over ``data``.
 """
 
 from __future__ import annotations
@@ -34,7 +39,11 @@ import torch
 import torch.nn.functional as F
 
 from .model import TrainableBertModel, bert_forward
-from .params import BertConfig
+from .parallel.collectives import all_reduce_, broadcast_, gather_rows
+from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, axis_group, axis_size,
+                            local_rows, rank_device)
+from .parallel.sharding import gather_leaf, shard_params, split_dim
+from .params import BertConfig, params_to_numpy, params_to_torch
 
 BETAS = (0.9, 0.999)  # optax.adamw's defaults
 EPS = 1e-8
@@ -44,6 +53,7 @@ class TrainState(NamedTuple):
     params: TrainableBertModel
     opt_state: torch.optim.AdamW
     step: int
+    mesh: Any = None  # the mesh of make_sharded_train_step's states
 
 
 def _decay_mask(params) -> Dict[str, Dict[str, bool]]:
@@ -207,3 +217,118 @@ def make_train_step(
                 {"loss": loss.detach(), "grad_norm": gnorm})
 
     return train_step
+
+
+def adam_moments(state: TrainState):
+    """The AdamW moments of ``state`` as host trees keyed as
+    ``params.tree()`` (whole leaves: a tensor-parallel shard's are
+    gathered, a collective), and optax's ``count``; None before the first
+    step (no moments yet)."""
+    model, opt = state.params, state.opt_state
+    mu, nu, counts = {}, {}, set()
+    for group, sub in model.tree().items():
+        for key, p in sub.items():
+            st = opt.state.get(p)
+            if not st:
+                return None
+            for tree, name in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+                tree.setdefault(group, {})[key] = gather_leaf(
+                    group, key, st[name], model.tp_group).cpu().numpy()
+            counts.add(int(st["step"]))
+    if len(counts) != 1:
+        raise ValueError(f"AdamW step counts differ across parameters: "
+                         f"{sorted(counts)}")
+    return mu, nu, counts.pop()
+
+
+def make_sharded_train_step(
+    mesh,
+    config: BertConfig,
+    optimizer: AdamW,
+    state: TrainState,
+    *,
+    temperature: float = 0.05,
+    compute_dtype: torch.dtype = torch.float32,
+    pooling: str = "mean",
+):
+    """A train step over the mesh, and ``state`` placed on it. Returns
+    (placed_state, step).
+
+    ``state`` is a whole (single-device) TrainState, the same on every
+    rank; each rank keeps its ``model``-axis shard of the parameters and
+    of the AdamW moments, on its device. Restored moments are cut like
+    the parameters, never reset. ``step(state, batch)`` takes the whole
+    batch on every rank: each rank runs its ``data``-axis rows, the
+    embeddings are all-gathered over ``data`` (a gather whose backward
+    keeps this rank's rows and sums nothing: every rank computes the same
+    loss, so a summing backward would multiply the gradient by dp), the
+    InfoNCE loss is taken over the whole batch, and every gradient is
+    summed over ``data``. ``grad_norm`` is the global L2 norm: sharded
+    leaves summed over ``model``, replicated ones counted once (their
+    replicas take model rank 0's gradient, so that they never drift). The
+    step runs the plain versions (bert_tpu's takes ``use_pallas=False``)
+    with per-layer remat, as :func:`make_train_step` does.
+    """
+    if DATA_AXIS not in (mesh.mesh_dim_names or ()):
+        raise ValueError(
+            f"mesh axes {tuple(mesh.mesh_dim_names or ())} lack "
+            f"'{DATA_AXIS}' — build the mesh with parallel.mesh.make_mesh "
+            f"(axes '{DATA_AXIS}'/'{MODEL_AXIS}')")
+    tp = axis_size(mesh, MODEL_AXIS)
+    m = mesh.get_local_rank(MODEL_AXIS) if tp > 1 else 0
+    dp_group = axis_group(mesh, DATA_AXIS)
+    model = TrainableBertModel(
+        params_to_torch(shard_params(params_to_numpy(state.params), tp, m),
+                        device=rank_device(mesh)), config,
+        tp_group=axis_group(mesh, MODEL_AXIS))
+    opt = optimizer.init(model)
+    moments = adam_moments(state)
+    if moments is not None:
+        mu, nu, count = moments
+        place_adam_state(opt, model, shard_params(mu, tp, m),
+                         shard_params(nu, tp, m), count)
+    placed = TrainState(params=model, opt_state=opt, step=state.step,
+                        mesh=mesh)
+    # (parameter, whether it is a model-axis shard)
+    leaves = [(p, split_dim(g, k) is not None and tp > 1)
+              for g, sub in model.tree().items() for k, p in sub.items()]
+
+    def train_step(state: TrainState, batch: Dict[str, Any]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        model, opt = state.params, state.opt_state
+        if not optimizer.built(opt):
+            raise ValueError("train state's optimizer was not built by "
+                             f"{optimizer}")
+        dev = model.embeddings["word"].device
+        rows = local_rows(mesh, np.shape(batch["ids_a"])[0])
+        b = {k: _tensor(v)[rows].to(dev, torch.int64 if k.startswith("ids")
+                                    else torch.float32)
+             for k, v in batch.items()}
+        opt.zero_grad(set_to_none=True)
+        emb_a, emb_b = (gather_rows(bert_forward(
+            model, b[f"ids_{s}"], b[f"mask_{s}"],
+            compute_dtype=compute_dtype, use_kernels=False, remat=True,
+            pooling=pooling), dp_group) for s in ("a", "b"))
+        loss = info_nce_loss(emb_a, emb_b, temperature)
+        loss.backward()
+        for p, cut in leaves:  # optax updates every leaf, a zero grad too
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            all_reduce_(p.grad, dp_group)
+            if not cut:
+                # the model group's replicas of a replicated leaf take one
+                # gradient, so that a kernel that sums in no fixed order
+                # (the embedding backward's atomics) cannot drift them
+                broadcast_(p.grad, model.tp_group)
+        sq = [(torch.sum(torch.square(p.grad.float())), cut)
+              for p, cut in leaves]
+        sq_sharded = sum(s for s, cut in sq if cut)
+        if isinstance(sq_sharded, torch.Tensor):
+            all_reduce_(sq_sharded, model.tp_group)
+        gnorm = torch.sqrt(sq_sharded + sum(s for s, cut in sq if not cut))
+        opt.step()
+        return (TrainState(params=model, opt_state=opt, step=state.step + 1,
+                           mesh=mesh),
+                {"loss": loss.detach(), "grad_norm": gnorm})
+
+    return placed, train_step

@@ -77,7 +77,20 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    launch 2L + 1 times a batch, the fused attention L times) and holds
    card f32 (cos > 0.9999, max|Δ| ≤ 5e-3) and bf16 (cos > 0.999) to the
    CPU;
-7. prints one JSON line with each kernel's numbers, then as the last line
+7. sharded phase: 2 and 4 ranks spawned by
+   ``bert_tpu_torch.parallel.multihost.spawn_ranks`` (on this one card:
+   gloo, NCCL refusing two ranks on one card) run the main path's MiniLM-L6
+   Q4_0 file at (dp, tp) = (1, 2), (2, 1) and (2, 2) and hf_server's
+   rubert-tiny2 directory at (1, 2) through ``BertTorch.from_file(path,
+   dp=, tp=)``, with the counts set to 0 just before and read just after
+   on every rank; fails unless each rank launches q4_matmul at the shard
+   shapes, the LayerNorm, and the fused attention over H/tp heads (MiniLM)
+   or the per-(batch, head) attention over 6 heads (rubert-tiny2), and
+   unless each rank's result agrees with the single rank's (bf16 cos >
+   0.999; f32 cos > 0.9999, max|Δ| ≤ 5e-3); then 3 f32 fine-tune steps at
+   (2, 2) against one rank's (loss, grad_norm, noise_rule). Each rank's
+   device and wall time a request is logged as a time of the shared card;
+8. prints one JSON line with each kernel's numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -1000,6 +1013,7 @@ def main_path(dev, rng, counters):
     one = {k: n - before.get(k, 0) for k, n in
            model.timers.bucket_counts.items() if n > before.get(k, 0)}
     split = main_split(one, model, rng)
+    roofline_request(cfg, one, statistics.median(lat), prof)
 
     for req, emb in zip(requests + [requests[0]], outs + [first]):
         require(emb.shape == (len(req), cfg.n_embd), f"bad shape {emb.shape}")
@@ -1028,6 +1042,27 @@ def main_path(dev, rng, counters):
         f"max|Δ| {float(np.abs(first - ref).max()):.3e}")
     require(bool(np.all(cos16 > 0.999)), "card bf16 cos <= 0.999")
     return launches, n_sent / dt, split, prof
+
+
+def roofline_request(cfg, buckets, latency_s: float, prof) -> None:
+    """The request's speed of light by ``bert_tpu_torch.profiling.roofline``
+    (the H100's bf16 and HBM peaks), summed over the (rows, T) batches it
+    ran (each reads the weights once), and its utilization of the median
+    request latency and of the profiled device time."""
+    from bert_tpu_torch.profiling import roofline
+
+    ests = [(n, roofline(cfg, rows, seq)) for (rows, seq, _), n in
+            buckets.items()]
+    sol_s = sum(n * e.sol_s for n, e in ests)
+    # the request as one estimate: its batches' speed of light summed
+    util = sol_s / latency_s
+    busy = ("device time not measured" if prof is None else
+            f"{100 * sol_s / (prof['device_busy_us'] * 1e-6):.2f}% of its "
+            f"{prof['device_busy_us']:.1f} us of device time")
+    log(f"main path roofline (profiling.roofline: 989 TFLOP/s bf16, 3.35 "
+        f"TB/s): {sol_s * 1e6:.2f} us for the request's batches "
+        f"{sorted(buckets)}; utilization {100 * util:.2f}% of the median "
+        f"request latency {latency_s * 1e3:.3f} ms, {busy} ({gpu_line()})")
 
 
 def main_split(buckets, model, rng):
@@ -2066,6 +2101,360 @@ def train_path(counters):
             "profile": prof, "phase_s": t_all}
 
 
+# ---------------------------------------------------------------------------
+# sharded phase: ranks that share the one card
+# ---------------------------------------------------------------------------
+
+# (dp, tp) of the MiniLM-L6 runs, by world size; rubert-tiny2 runs at tp = 2
+SHARDED_MESHES = {2: ((1, 2), (2, 1)), 4: ((2, 2),)}
+SHARDED_REQUESTS = 3
+
+
+def ranks_label(ranks) -> str:
+    """How a run's times are to be read: ranks that share one card (gloo,
+    the driver's one-card machine) give no scaling figure."""
+    devices = {r["device"] for r in ranks}
+    backend = ranks[0]["backend"]
+    if len(devices) < len(ranks):
+        return (f"{len(ranks)} ranks sharing {len(devices)} card(s) over "
+                f"{backend}: a time of the shared card, no scaling figure")
+    return (f"{len(ranks)} ranks on cards of their own over {backend}; "
+            "device time includes the collectives' waits")
+
+
+def _launch_spies():
+    """Record what each kernel launches on: q4_matmul's (K, N), the fused
+    attention's local heads and the per-(batch, head) attention's [B, H,
+    T, dh] heads. Wraps each module's launch function; the launch counts
+    stay in the wrappers."""
+    from bert_tpu_torch.ops import attention, fused_attention, q4_matmul
+
+    seen = {"q4_matmul": set(), "fused_qkv_attention": set(),
+            "multi_head_attention": set()}
+
+    def spy(mod, name, shape):
+        launch = mod._launch
+
+        def recording(*args):
+            seen[name].add(shape(*args))
+            return launch(*args)
+        mod._launch = recording
+
+    spy(q4_matmul, "q4_matmul",
+        lambda x, qt: (x.shape[1], qt.packed.shape[-1]))
+    spy(fused_attention, "fused_qkv_attention", lambda *a: a[2])
+    spy(attention, "multi_head_attention", lambda q, *a: q.shape[1])
+    return seen
+
+
+def _device_us(fn):
+    """Device time of one ``fn()``: the CUDA kernels' self time that
+    torch.profiler sees, or None where it sees none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:  # the profiler, not the request, failed
+        log(f"device time not measured: the profiler raised {e!r}")
+        return None
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA"))
+    return us or None
+
+
+def sharded_rank(encode_jobs, train=None):
+    """One rank of the sharded phase. Each encode job loads ``path`` with
+    ``BertTorch.from_file(path, dp=, tp=)`` (bf16; the mesh and its gloo
+    group are formed from the launcher's environment), embeds the first
+    request once (the kernels load), then embeds every request with the
+    launch counts set to 0 just before and read just after; then one
+    request's device time and wall time, and the first request in f32.
+    ``train`` runs make_sharded_train_step at (2, 2), f32, one step per
+    batch, with the counts at 0 (training runs the plain versions)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bert_tpu_torch import BertTorch
+    from bert_tpu_torch.ops.attention import multi_head_attention
+    from bert_tpu_torch.ops.fused_attention import fused_qkv_attention
+    from bert_tpu_torch.ops.layer_norm import fused_layer_norm
+    from bert_tpu_torch.ops.q4_matmul import q4_matmul
+
+    counters = (q4_matmul, fused_layer_norm, fused_qkv_attention,
+                multi_head_attention)
+    seen = _launch_spies()
+    out = []
+    for job in encode_jobs:
+        t0 = time.perf_counter()
+        model = BertTorch.from_file(job["path"], dp=job["dp"], tp=job["tp"])
+        model.encode_batch(job["requests"][0])
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        for c in counters:
+            c.launches = 0
+        for v in seen.values():
+            v.clear()
+        t0 = time.perf_counter()
+        embs = [model.encode_batch(r) for r in job["requests"]]
+        wall = (time.perf_counter() - t0) / len(job["requests"])
+        launches = {c.__name__: c.launches for c in counters}
+        shapes = {k: sorted(v) for k, v in seen.items()}
+        dev_us = _device_us(lambda: model.encode_batch(job["requests"][0]))
+        f32 = BertTorch.from_file(job["path"], dp=job["dp"], tp=job["tp"],
+                                  compute_dtype=torch.float32)
+        e32 = f32.encode_batch(job["requests"][0])
+        c = model.config
+        out.append({"dims": (c.n_embd, c.n_intermediate, c.n_head),
+                    "rank": dist.get_rank(), "device": str(model.device),
+                    "backend": dist.get_backend(), "embs": embs, "e32": e32,
+                    "launches": launches, "shapes": shapes,
+                    "device_us": dev_us, "wall_ms": wall * 1e3,
+                    "load_s": t_load, "buckets": model.stats()["buckets"]})
+        del model, f32
+    if train is not None:
+        out.append(_sharded_train(**train))
+    return out
+
+
+def _sharded_train(path, lr, batches):
+    import torch
+    import torch.distributed as dist
+
+    from bert_tpu_torch.loader import load_model
+    from bert_tpu_torch.model import TrainableBertModel
+    from bert_tpu_torch.ops.attention import multi_head_attention
+    from bert_tpu_torch.ops.fused_attention import fused_qkv_attention
+    from bert_tpu_torch.ops.layer_norm import fused_layer_norm
+    from bert_tpu_torch.ops.q4_matmul import q4_matmul
+    from bert_tpu_torch.parallel.mesh import make_mesh
+    from bert_tpu_torch.params import params_to_numpy, params_to_torch
+    from bert_tpu_torch.train import (adam_moments, init_train_state,
+                                      make_optimizer,
+                                      make_sharded_train_step)
+
+    loaded = load_model(path)
+    mesh = make_mesh(4, tp=2)
+    opt = make_optimizer(lr)
+    state = init_train_state(TrainableBertModel(
+        params_to_torch(loaded.params, device="cpu"), loaded.config), opt)
+    state, step = make_sharded_train_step(mesh, loaded.config, opt, state)
+    counters = (q4_matmul, fused_layer_norm, fused_qkv_attention,
+                multi_head_attention)
+    for c in counters:
+        c.launches = 0
+    rows = []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss = float(m["loss"])  # waits for the step
+        ms = (time.perf_counter() - t0) * 1e3
+        params = params_to_numpy(state.params)
+        mu = adam_moments(state)[0]
+        keep = dist.get_rank() == 0  # the others' gathered trees are equal
+        rows.append((loss, float(m["grad_norm"]), params if keep else None,
+                     mu if keep else None, ms))
+    return {"train": rows, "launches": {c.__name__: c.launches
+                                        for c in counters}}
+
+
+def _cos(a, b):
+    import numpy as np
+
+    return np.sum(a * b, axis=-1) / (np.linalg.norm(a, axis=-1)
+                                     * np.linalg.norm(b, axis=-1))
+
+
+def sharded_path():
+    """MiniLM-L6 Q4_0 (bf16, the main path's file) at tp = 2, dp = 2 and
+    (2, 2), rubert-tiny2 (dense, hf_server's directory) at tp = 2, and 3
+    fine-tune steps at (2, 2) (f32, the train phase's file), every rank a
+    process on the one card (parallel.multihost.spawn_ranks; NCCL refuses
+    two ranks on one card, so the group is gloo). Each is held to the
+    single-rank result on the card: bf16 min cos > 0.999; f32 cos >
+    0.9999 and max|Δ| <= 5e-3; the steps by loss (rel 1e-4), grad_norm
+    (rel 1e-3) and noise_rule, as the train phase holds the card to the
+    CPU. Every rank must launch q4_matmul at the shard shapes, the
+    LayerNorm and the fused attention over H/tp heads (MiniLM), the
+    per-(batch, head) attention over 6 heads (rubert-tiny2)."""
+    import numpy as np
+    import torch
+
+    from bert_tpu_torch import BertTorch
+    from bert_tpu_torch.loader import load_model
+    from bert_tpu_torch.parallel.multihost import spawn_ranks
+    from bert_tpu_torch.params import params_to_numpy
+    from bert_tpu_torch.testing import key_bias_lanes, noise_rule
+    from bert_tpu_torch.train import make_train_step
+
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke")
+    q4_path = os.path.join(work, "minilm_l6_q4_0.bin")
+    hf_dir = os.path.join(work, "rubert_tiny2_seed0")
+    f32_path = os.path.join(work, "minilm_l6_f32.bin")
+    rng = np.random.default_rng(21)
+    requests = [request_corpus(rng) for _ in range(SHARDED_REQUESTS)]
+    hf_req = [hf_request(rng)]
+
+    # the single-rank results on the card
+    refs = {}
+    for name, path, reqs in (("minilm", q4_path, requests),
+                             ("rubert", hf_dir, hf_req)):
+        m16 = BertTorch.from_file(path)
+        refs[name] = ([m16.encode_batch(r) for r in reqs],
+                      BertTorch.from_file(path, compute_dtype=torch.float32)
+                      .encode_batch(reqs[0]))
+        del m16
+    loaded = load_model(f32_path)
+    batches = train_batches(loaded, 3, 8, 64)
+    opt, state = new_train_state(loaded, torch.device("cuda"), TRAIN_LR)
+    step = make_train_step(loaded.config, opt)
+    want_steps = []
+    for b in batches:
+        state, m = step(state, b)
+        want_steps.append((float(m["loss"]), float(m["grad_norm"]),
+                           params_to_numpy(state.params),
+                           {g: {k: state.opt_state.state[p]["exp_avg"]
+                                .cpu().numpy() for k, p in sub.items()}
+                            for g, sub in state.params.tree().items()}))
+    del opt, state
+    log(f"sharded: single-rank references in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+    mini = lambda dp, tp: {"path": q4_path, "dp": dp, "tp": tp,  # noqa
+                           "requests": requests, "model": "minilm"}
+    results = {}
+    for world, meshes in SHARDED_MESHES.items():
+        jobs = [mini(dp, tp) for dp, tp in meshes]
+        train = None
+        if world == 2:
+            jobs.append({"path": hf_dir, "dp": 1, "tp": 2,
+                         "requests": hf_req, "model": "rubert"})
+        else:
+            train = {"path": f32_path, "lr": TRAIN_LR, "batches": batches}
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(world, sharded_rank, jobs, train, timeout=900)
+        log(f"sharded: {world} ranks ran {len(jobs)} encode jobs"
+            f"{' and 3 train steps' if train else ''} in "
+            f"{time.perf_counter() - t0:.2f} s (spawn, load and run)")
+        for i, job in enumerate(jobs):
+            results[(job["model"], job["dp"], job["tp"])] = (
+                job, [r[i] for r in ranks])
+        if train:
+            results["train"] = [r[len(jobs)] for r in ranks]
+
+    summary = {}
+    for key in [k for k in results if k != "train"]:
+        _, ranks = results[key]
+        name, dp, tp = key
+        ref16, ref32 = refs[name]
+        what = f"sharded {name} (dp={dp}, tp={tp})"
+        d, f, h = ranks[0]["dims"]
+        heads = h // tp
+        for r in ranks:
+            log(f"{what} rank {r['rank']} on {r['device']} "
+                f"({r['backend']}): launches {r['launches']}, shapes "
+                f"{r['shapes']}, buckets {r['buckets']}")
+            la, sh = r["launches"], r["shapes"]
+            require(la["fused_layer_norm"] > 0,
+                    f"{what}: rank {r['rank']} launched no LayerNorm")
+            if name == "minilm":
+                want_q4 = {(d, 3 * d // tp), (d // tp, d), (d, f // tp),
+                           (f // tp, d)}
+                require(la["q4_matmul"] > 0 and set(sh["q4_matmul"])
+                        == want_q4, f"{what}: rank {r['rank']} q4_matmul "
+                        f"shapes {sh['q4_matmul']}, not {sorted(want_q4)}")
+                require(la["fused_qkv_attention"] > 0
+                        and sh["fused_qkv_attention"] == [heads],
+                        f"{what}: rank {r['rank']} fused attention heads "
+                        f"{sh['fused_qkv_attention']}, not [{heads}]")
+                require(la["multi_head_attention"] == 0,
+                        f"{what}: the per-(b, h) attention launched")
+            else:
+                require(la["multi_head_attention"] > 0
+                        and sh["multi_head_attention"] == [heads],
+                        f"{what}: rank {r['rank']} per-(b, h) attention "
+                        f"heads {sh['multi_head_attention']}, not [{heads}]")
+                require(la["q4_matmul"] == la["fused_qkv_attention"] == 0,
+                        f"{what}: a kernel off the dense dh-26 path launched")
+            for e, want in zip(r["embs"], ref16):
+                require(e.shape == want.shape and bool(np.isfinite(e).all()),
+                        f"{what}: bad embeddings {e.shape}")
+            cos16 = min(float(_cos(e, w).min())
+                        for e, w in zip(r["embs"], ref16))
+            cos32 = float(_cos(r["e32"], ref32).min())
+            err32 = float(np.abs(r["e32"] - ref32).max())
+            require(all(np.array_equal(a, b) for a, b in
+                        zip(r["embs"], ranks[0]["embs"])),
+                    f"{what}: rank {r['rank']} got another result than "
+                    "rank 0")
+            require(cos16 > 0.999, f"{what}: bf16 min cos {cos16:.6f}")
+            require(cos32 > 0.9999 and err32 <= 5e-3,
+                    f"{what}: f32 min cos {cos32:.7f}, max|Δ| {err32:.3e}")
+            dev = ("not measured" if r["device_us"] is None
+                   else f"{r['device_us']:.1f} us")
+            log(f"{what} rank {r['rank']}: vs the single rank, bf16 min cos "
+                f"{cos16:.6f}; f32 min cos {cos32:.7f}, max|Δ| "
+                f"{err32:.3e}; a request: device {dev}, wall "
+                f"{r['wall_ms']:.2f} ms; load + first request "
+                f"{r['load_s']:.2f} s ({ranks_label(ranks)}; {card})")
+        summary[f"{name}_dp{dp}_tp{tp}"] = {
+            "launches": [r["launches"] for r in ranks],
+            "device_us": [r["device_us"] for r in ranks],
+            "wall_ms": [r["wall_ms"] for r in ranks]}
+
+    train = results["train"]
+    label = ranks_label(results[("minilm", 2, 2)][1])
+    for r in train:
+        require(not any(r["launches"].values()),
+                f"sharded train: kernels launched: {r['launches']}")
+    got = train[0]["train"]
+    noisy, keys, worst = None, key_bias_lanes(loaded.config), 0.0
+    for s, (g, w) in enumerate(zip(got, want_steps), 1):
+        require(all(t["train"][s - 1][0] == g[0] for t in train),
+                f"sharded train: step {s} losses differ across ranks")
+        loss_rel = abs(g[0] - w[0]) / abs(w[0])
+        gn_rel = abs(g[1] - w[1]) / abs(w[1])
+        require(np.isfinite([g[0], g[1]]).all() and loss_rel <= 1e-4
+                and gn_rel <= 1e-3, f"sharded train: step {s} loss "
+                f"{g[0]} vs {w[0]}, grad_norm {g[1]} vs {w[1]}")
+        if noisy is None:
+            noisy = {gr: {k: np.zeros(v.shape, bool) for k, v in sub.items()}
+                     for gr, sub in w[2].items()}
+        for gr, sub in w[2].items():
+            for k, want in sub.items():
+                try:
+                    rr = noise_rule(g[2][gr][k], want, g[3][gr][k],
+                                    w[3][gr][k], noisy[gr][k], TRAIN_LR, s,
+                                    f"{gr}/{k}",
+                                    exempt=keys if k == "qkv_b" else None)
+                except AssertionError as e:
+                    raise SmokeFailure(f"sharded train: step {s} {e}") \
+                        from None
+                worst = max(worst, rr["max_abs"])
+        log(f"sharded train (2, 2) step {s}: loss {g[0]:.7f} / single rank "
+            f"{w[0]:.7f} (rel {loss_rel:.2e}), grad_norm {g[1]:.6f} / "
+            f"{w[1]:.6f} (rel {gn_rel:.2e}); rank step ms "
+            f"{[round(t['train'][s - 1][4], 3) for t in train]} "
+            f"({label})")
+    log(f"sharded train: params max|Δ| {worst:.3e} vs the single rank after "
+        f"3 steps (noise_rule held; {card})")
+    summary["train"] = {"params_max_abs": worst,
+                        "step_ms": [[row[4] for row in t["train"]]
+                                    for t in train]}
+    t_all = time.perf_counter() - t_phase
+    log(f"sharded: the phase took {t_all:.2f} s")
+    summary["phase_s"] = t_all
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -2116,6 +2505,7 @@ def main() -> int:
         counters + [int8_matmul, quantize_activations_i8])
     results.update(int8_results)
     train = train_path(counters + [int8_matmul, quantize_activations_i8])
+    sharded = sharded_path()
     # each kernel's launches on its path: MiniLM-L6 for the first three,
     # hf_server for the per-(batch, head) attention, the bert-base int8
     # path for the two int8 kernels
@@ -2167,6 +2557,7 @@ def main() -> int:
         f"pairs/s, {100 * train['f32_peak_share']:.2f}% of the f32 peak, "
         f"loss {train['loss_first']:.4f} -> {train['loss_last']:.4f} on "
         f"{card}")
+    log(f"sharded phase: {json.dumps(sharded)}")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -184,7 +184,12 @@ def test_port_imports_neither_jax_nor_bert_tpu():
             "bert_tpu_torch.ops.attention",
             "bert_tpu_torch.ops.int8_matmul", "bert_tpu_torch.convert",
             "bert_tpu_torch.formats.safetensors", "bert_tpu_torch.train",
-            "bert_tpu_torch.finetune"} <= set(mods)
+            "bert_tpu_torch.finetune", "bert_tpu_torch.profiling",
+            "bert_tpu_torch.testing", "bert_tpu_torch.parallel",
+            "bert_tpu_torch.parallel.mesh", "bert_tpu_torch.parallel.sharding",
+            "bert_tpu_torch.parallel.spmd",
+            "bert_tpu_torch.parallel.multihost",
+            "bert_tpu_torch.parallel.collectives"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -572,10 +572,18 @@ def test_finetune_refuses_quantized(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--dp", "--tp"])
-def test_finetune_refuses_sharding(dense_model, tmp_path, flag):
+def test_finetune_refuses_sharding(dense_model, tmp_path, flag,
+                                   monkeypatch):
+    """--dp/--tp train over dp·tp ranks: launched without them (no
+    torchrun environment, no BERT_TPU_COORDINATOR) it refuses rather than
+    train on one (tests/test_torch_parallel_train.py runs it under
+    torchrun)."""
     from bert_tpu_torch import finetune
 
-    with pytest.raises(SystemExit, match="A7"):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                "BERT_TPU_COORDINATOR"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         finetune.main(["-m", dense_model, "--device", "cpu", flag, "2",
                        "--out", str(tmp_path / "x.npz")])
 
