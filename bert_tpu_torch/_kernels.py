@@ -61,8 +61,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # x, codes, sx, M, K, stream
         **{f"quantize_rows_i8_{t}": [_P, _P, _P, _I, _I, _P]
            for t in ("f32", "bf16")},
-        # codes, w_nk, sx, scale, out, M, Kp, N, stream
-        "int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # codes, w_nk, sx, scale, bias (nullable), out, M, Kp, N,
+        # bf16_out, stream
+        "int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 

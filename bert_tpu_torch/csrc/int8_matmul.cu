@@ -9,52 +9,93 @@
 //     0 for a zero row; IEEE), code = clamp(rint(x * inv), -127, 127) with
 //     rint's round half to even (jnp.round), never -128;
 //   int8_matmul: acc = sum over K of code_x * code_w in int32 (exact: K *
-//     127^2 < 2^31, which the wrapper checks), then out = (float(acc) *
-//     sx[m]) * sw[n], two f32 roundings in that order.
+//     127^2 < 2^31, which the wrapper checks), then p = (float(acc) *
+//     sx[m]) * sw[n], two f32 roundings in that order. Two epilogues:
+//     (a) out = p in f32 (the LayerNorm's f32-input form takes it);
+//     (b) out = r(r(p) + r(b)) in the compute type, r its rounding (bf16:
+//     round to nearest even; f32: none, the add one f32 rounding), with
+//     an optional bias b stored in that type: bit for bit the cast and
+//     the bias add bert_tpu's dense does after its product
+//     (bert_tpu/model.py:73).
 // No --use_fast_math (_kernels.NVCC_FLAGS): every division and rounding
 // here is IEEE's.
 //
 // Layouts. Codes rows are padded to Kp = ceil(K / 32) * 32 with zeros: the
 // activations' codes[M, Kp] (written by quantize_rows_i8) and the weight's
-// w[N, Kp], K contiguous. The s8 mma's B operand wants K contiguous per
-// column and ldmatrix has no transposing form for 8-bit data, so the
-// weight is stored transposed once, at load; the padding keeps every row
-// in whole 16-byte copies (K = 312 or 600 included) and zero codes add
-// nothing to an exact sum.
+// w[N, Kp], K contiguous. wgmma takes 8-bit operands only K-major, for A
+// and B alike, so the weight is stored transposed once, at load; zero
+// codes add nothing to an exact sum, and a row stride of a multiple of 32
+// bytes is what TMA asks for (16).
 //
 // What bounds them on the H100. quantize_rows_i8 moves bytes: x in (2 or 4
 // bytes an element), codes out (1 byte), almost no arithmetic. int8_matmul
-// at bert-base's shapes at M = 8,192 tokens moves 7-13 MB of codes in and
-// writes an f32 [M, N] out: at QKV (K 768, N 2,304) 83.6 MB in all, 75.5 of
-// it the f32 output, 0.0249 ms at 3.35 TB/s, against 29 G int8 ops, 0.0147
-// ms at 1,979 TOPS, so bytes bound it; FFN-down (K 3,072, N 768) is bound by
-// operations (0.0195 ms). The f32 output is the contract q4_matmul has
-// (the LayerNorm's f32-input form and dense(..., f32_out=True) take it).
+// at bert-base's shapes at M = 8,192 tokens reads 7-13 MB of codes; form
+// (a) writes an f32 [M, N], form (b) a bf16 one. QKV (K 768, N 2,304) in
+// form (b) with its bias moves 45.8 MB, 0.0137 ms at 3.35 TB/s, against
+// 29.0 G int8 operations, 0.0147 ms at 1,979 TOP/s: operations bound it
+// (in form (a) the 75.5 MB f32 output made it 0.0250 ms, bytes). FFN-up
+// (b): 0.0195 ms, operations; attention-out (a): 0.0096 ms, bytes;
+// FFN-down (a): 0.0195 ms, operations.
 //
-// Design (simple first). quantize_rows_i8: one warp per row, 16-byte loads
-// where the row allows (else one element a lane), the amax reduced by
-// shuffles, then a second pass over the row (from L1/L2) writes the codes
-// 4 or 8 at a time and the zero tail. int8_matmul: 256-thread blocks (2 x 4
-// warps) own a 128 x 128 output tile, each warp 64 x 32; K is walked 64
-// codes at a time through a 3-slot ring of cp.async copies (16 bytes a
-// thread, zero-filled past M, N and Kp) into shared memory rows padded to
-// 80 bytes, so that ldmatrix reads them without bank conflicts. The s8
-// fragments of mma.m16n8k32 have the byte layout of the bf16 fragments of
-// m16n8k16, so plain ldmatrix.x4 loads A from the codes tile and B from the
-// [n][k] weight tile. Each warp runs 16 mma.sync.m16n8k32 (s8 x s8 -> s32)
-// per 32-deep step; the epilogue scales in f32 and stores float2 pairs,
-// masking the M and N edges. No wgmma, TMA or warp specialisation yet:
-// those wait for the times (PERF.md).
+// Design of quantize_rows_i8: one warp per row, 16-byte loads where the
+// row allows (else one element a lane), the amax reduced by shuffles, then
+// a second pass over the row (from L1/L2) writes the codes 4 or 8 at a
+// time and the zero tail.
+//
+// Design of int8_matmul: persistent, warp-specialised blocks on TMA and
+// wgmma. One block per SM (three warpgroups, 384 threads) walks the 128 x
+// 128 output tiles t = blockIdx.x, + gridDim.x, ..., row-block major, so
+// that the blocks running together cover a few row blocks and every
+// column block: each weight tile is read by many blocks at once, from L2.
+//  - The producer warpgroup (setmaxnreg down to 40 registers; one thread
+//    works) keeps a ring of 6 stages full, in the order the block's tiles
+//    and their K steps come: per stage a 128 x 128-code tile of A (the
+//    activation codes) and of B (the weight), two cp.async.bulk.tensor.2d
+//    loads in the 128-byte swizzle completing on the stage's full
+//    mbarrier; TMA zero-fills past M, N and Kp. It waits on the stage's
+//    empty mbarrier before reusing it.
+//  - Two consumer warpgroups (setmaxnreg up to 232) in ping-pong: each
+//    takes every other tile of the block whole, rows 0-63 and 64-127 in
+//    two accumulators (64 s32 a thread each). Per stage it issues eight
+//    wgmma.mma_async.m64n128k32.s32.s8.s8 (two halves, four k32 steps),
+//    both operands from shared memory through descriptors (a k32 step
+//    advances the start address 32 bytes inside the swizzled 128-byte
+//    rows), one commit group per stage, and releases the previous stage
+//    (128 arrivals) once wgmma.wait_group 1 shows its group retired.
+//  - A warpgroup starts a tile's products only after the other one has
+//    issued those of the tile before (a turn mbarrier each way), then
+//    runs its epilogue while the other one's products run: the epilogue's
+//    arithmetic beside the same warps' own wgmma went slowly on the card,
+//    beside another warpgroup's it does not (PERF.md). The order also
+//    keeps a warpgroup from waiting on a stage's full barrier while an
+//    earlier phase of it is still pending.
+//  - The epilogue's gathers (sx of the thread's four rows; sw and the
+//    bias of 32 columns a chunk, one a lane, handed out by shuffles) are
+//    loaded before the tile's products. Thread t of warp w holds rows 16 w
+//    + t / 4 and + 8 of each half, columns 8 j + 2 (t % 4) and + 1 (the
+//    f32 layout of the bf16 m64nNk16). A 64 x 32 chunk's pairs are
+//    computed branch-free, written to a staging buffer in the output map's
+//    swizzle (two a warpgroup), and stored by one TMA store
+//    (cp.async.bulk.tensor, clipped at the M and N edges) after a
+//    fence.proxy.async and a named barrier of the warpgroup. An output
+//    whose row stride is not a multiple of 16 bytes (an odd N in bf16)
+//    takes masked pair stores from the registers instead.
+// Why 128 x 128: a warpgroup's tile fills 128 accumulator registers a
+// thread, and at M = 8,192 on 132 SMs the 128-wide tiles split the
+// narrow products better than 256-wide ones would: 384 tiles (2.9 waves)
+// against 192 (1.45 waves) at N = 768.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "hopper.cuh"
+#include "hopper_tma.cuh"
 
 namespace {
 
-constexpr int KP_ALIGN = 32;  // the s8 mma's depth; codes rows pad to it
+constexpr int KP_ALIGN = 32;  // the s8 wgmma's depth; codes rows pad to it
 
 int padded_k(int K) { return (K + KP_ALIGN - 1) / KP_ALIGN * KP_ALIGN; }
 
@@ -157,170 +198,396 @@ int launch(const void* x, void* codes, void* sx, int M, int K,
 }  // namespace quant
 
 // ---------------------------------------------------------------------------
-// int8_matmul: codes[M, Kp] x w[N, Kp] -> f32 out[M, N]
+// int8_matmul: codes[M, Kp] x w[N, Kp] -> out[M, N], f32 or bf16
 // ---------------------------------------------------------------------------
 
 namespace mm {
 
-constexpr int BM = 128, BN = 128;  // output tile of a block
-constexpr int BK = 64;             // codes (bytes) of K per ring slot
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;       // 2 x 4 warps, each 64 x 32
-constexpr int LD = BK + 16;        // 80-byte rows: ldmatrix conflict-free
+constexpr int BM = 128;       // output rows of a tile: two m64 halves
+constexpr int BN = 128;       // output columns of a tile
+constexpr int BK = 128;       // codes of K a stage: one 128-byte swizzle row
+constexpr int STAGES = 6;
+constexpr int CONSUMERS = 2;  // wgmma warpgroups; then the producer's
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int CHUNKS = 4;     // epilogue pieces of a half, 32 columns each
+constexpr uint32_t A_BYTES = BM * BK, B_BYTES = BN * BK;
+constexpr uint32_t STAGE_BYTES = A_BYTES + B_BYTES;
+// an epilogue chunk of one warpgroup, staged for its TMA store: 64 rows x
+// 32 columns (128-byte rows in f32, 64-byte rows in bf16); two a
+// warpgroup, so that one fills while the other's store reads it
+constexpr uint32_t CHUNK_BYTES = 64 * 32 * 4;
+// the ring, the staging buffers, then the full and empty barriers of the
+// ring and the two warpgroups' turn barriers; 1,024 bytes of slack to
+// align the ring to the swizzle's 1,024-byte atoms
+constexpr int SMEM = STAGES * STAGE_BYTES + CONSUMERS * 2 * CHUNK_BYTES +
+                     (2 * STAGES + CONSUMERS) * 8 + 1024;
 
-struct Smem {
-  int8_t a[STAGES][BM][LD];
-  int8_t b[STAGES][BN][LD];
-};
+#define I8_R8(i)                                                        \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),           \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
 
-// c += a @ b on the int8 tensor cores: s8 inputs, s32 accumulation. The
-// fragments (PTX ISA, m16n8k32 .s8): A a0 = (g, 4t..4t+3), a1 = (g+8, ..),
-// a2 = (g, 16+4t..), a3 = (g+8, 16+4t..); B b0 = (k 4t..4t+3, n g), b1 =
-// (k 16+4t.., n g); C c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, ..), with
-// g = lane / 4, t = lane % 4 and four codes to a .b32 register.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
+// d (+)= a @ b^T over one k32 step on the int8 tensor cores: A 64 x 32
+// codes and B 128 x 32 codes, K-major in shared memory (descriptors), s32
+// accumulators, 64 a thread; scale_d = 0 overwrites d (a tile's first
+// step).
+__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t a,
+                                         uint64_t b, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : I8_R8(0), I8_R8(8), I8_R8(16), I8_R8(24), I8_R8(32), I8_R8(40),
+        I8_R8(48), I8_R8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// Copy slot st's tiles of K step kt: BM rows of codes and BN rows of w,
-// BK bytes each, 16 bytes a copy; zero-filled past M, N and Kp.
-__device__ __forceinline__ void load_tiles(Smem& s, int st, int kt,
-                                           const int8_t* __restrict__ codes,
-                                           const int8_t* __restrict__ w,
-                                           int M, int Kp, int N, int m0,
-                                           int n0) {
-  const int k0 = kt * BK;
+#undef I8_R8
+
+// What the epilogue of one tile needs besides its accumulators: the
+// tile's first row and column, this thread's row m in the upper half
+// (rows m, m + 8 of each half are its), sx of its four rows, and sw and the
+// bias of columns n0 + 32 c + lane (the other lanes' are fetched by
+// shuffles).
+struct Epi {
+  int row0, n0, m;
+  float sx[4], wv[CHUNKS], bv[CHUNKS];  // sx: rows m, m + 8, m + 64, m + 72
+};
+
+__device__ __forceinline__ float bias_at(const float* b, int n) {
+  return b[n];
+}
+__device__ __forceinline__ float bias_at(const __nv_bfloat16* b, int n) {
+  return __bfloat162float(b[n]);
+}
+
+// This thread's row within a 64-row half: 16 w + t / 4 (and + 8).
+__device__ __forceinline__ int half_row() {
+  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);
+}
+
+// Issued before a tile's products, so that the loads' latency hides
+// behind them.
+template <typename Tout>
+__device__ __forceinline__ Epi gather(int row0, int n0, int M, int N,
+                                      const float* __restrict__ sx,
+                                      const float* __restrict__ sw,
+                                      const Tout* __restrict__ bias) {
+  Epi e;
+  e.row0 = row0;
+  e.n0 = n0;
+  e.m = row0 + half_row();
 #pragma unroll
-  for (int i = threadIdx.x; i < BM * (BK / 16); i += THREADS) {
-    const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
-    const bool ok = m0 + r < M && k0 + c < Kp;
-    hopper::cp_async16(&s.a[st][r][c],
-                       codes + (ok ? (size_t)(m0 + r) * Kp + k0 + c : 0), ok);
+  for (int i = 0; i < 4; ++i) {
+    const int m = e.m + (i & 1) * 8 + (i >> 1) * 64;
+    e.sx[i] = m < M ? sx[m] : 0.f;
   }
 #pragma unroll
-  for (int i = threadIdx.x; i < BN * (BK / 16); i += THREADS) {
-    const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
-    const bool ok = n0 + r < N && k0 + c < Kp;
-    hopper::cp_async16(&s.b[st][r][c],
-                       w + (ok ? (size_t)(n0 + r) * Kp + k0 + c : 0), ok);
+  for (int c = 0; c < CHUNKS; ++c) {
+    const int n = n0 + 32 * c + (threadIdx.x & 31);
+    e.wv[c] = n < N ? sw[n] : 0.f;
+    e.bv[c] = bias != nullptr && n < N ? bias_at(bias, n) : 0.f;
   }
+  return e;
 }
 
 __device__ __forceinline__ float scaled(int acc, float a, float b) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), a), b);
 }
 
+// Form (b) on a pair of outputs: r(r(p) + b), r rounding to the output
+// type, b the bias as stored (in the output type, so exact as a float);
+// for f32 r is the identity and the add one f32 rounding. Without a
+// bias, r(p). Branch-free, so that a chunk's pairs interleave.
+__device__ __forceinline__ float2 finish(float p0, float p1, float b0,
+                                         float b1, bool has_b, const float*) {
+  return make_float2(has_b ? __fadd_rn(p0, b0) : p0,
+                     has_b ? __fadd_rn(p1, b1) : p1);
+}
+__device__ __forceinline__ __nv_bfloat162 finish(float p0, float p1,
+                                                 float b0, float b1,
+                                                 bool has_b,
+                                                 const __nv_bfloat16*) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(p0, p1);
+  const float2 f = __bfloat1622float2(r);
+  const __nv_bfloat162 rb =
+      __floats2bfloat162_rn(__fadd_rn(f.x, b0), __fadd_rn(f.y, b1));
+  return has_b ? rb : r;
+}
+
+// out[m, n] and out[m, n + 1] (n even, n < N), masked at the M and N
+// edges: one store of the pair when N is even (n + 1 < N then).
 __device__ __forceinline__ void store2(float* __restrict__ out, int M, int N,
-                                       int m, int n, float v0, float v1) {
+                                       int m, int n, float2 v) {
   if (m >= M) return;
   float* o = out + (size_t)m * N + n;
-  if ((N & 1) == 0) {  // n is even, so n < N means n + 1 < N
-    if (n < N) *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+  if ((N & 1) == 0) {
+    *reinterpret_cast<float2*>(o) = v;
   } else {
-    if (n < N) o[0] = v0;
-    if (n + 1 < N) o[1] = v1;
+    o[0] = v.x;
+    if (n + 1 < N) o[1] = v.y;
+  }
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* __restrict__ out,
+                                       int M, int N, int m, int n,
+                                       __nv_bfloat162 v) {
+  if (m >= M) return;
+  __nv_bfloat16* o = out + (size_t)m * N + n;
+  if ((N & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(o) = v;
+  } else {
+    o[0] = v.x;
+    if (n + 1 < N) o[1] = v.y;
   }
 }
 
+// Where the epilogue goes. With a tensor map (the output's row stride a
+// multiple of 16 bytes) each warpgroup stages a chunk in shared memory, in
+// the map's swizzle, and one thread stores it by TMA; otherwise every
+// thread stores its pairs.
+template <typename Tout>
+struct Sink {
+  Tout* out;
+  const Tout* bias;
+  int M, N;
+  const CUtensorMap* map;  // null: direct stores
+  uint8_t* stage;          // this warpgroup's two staging buffers
+  int bar;                 // this warpgroup's named barrier
+  uint32_t q;              // chunks staged so far
+};
+
+// Byte offset of (row r, column c) in a staging buffer: 128-byte rows
+// under the 128-byte swizzle (f32) or 64-byte rows under the 64-byte one
+// (bf16), as TMA reads them; both keep the pair stores free of bank
+// conflicts.
+template <typename Tout>
+__device__ __forceinline__ uint32_t staged(int r, int c) {
+  const uint32_t b = c * sizeof(Tout);
+  if (sizeof(Tout) == 4)
+    return r * 128 + (((b >> 4) ^ (r & 7)) << 4) + (b & 15);
+  return r * 64 + (((b >> 4) ^ ((r >> 1) & 3)) << 4) + (b & 15);
+}
+
+// Columns 32 C .. 32 C + 31 of half H of a finished tile: thread t of
+// warp w holds (rows 16 w + t / 4 and + 8 of the half, columns 8 j + 2 (t
+// % 4) and + 1) in acc[4 j .. 4 j + 3], the f32 layout of the bf16
+// m64nNk16.
+template <int H, int C, typename Tout>
+__device__ __forceinline__ void store_chunk(const int (&acc)[BN / 2],
+                                            const Epi& e, Sink<Tout>& o) {
+  using Pair = decltype(finish(0.f, 0.f, 0.f, 0.f, false, o.out));
+  const int lane = threadIdx.x & 31;
+  const bool has_b = o.bias != nullptr;
+  Pair lo[4], hi[4];  // rows m and m + 8, columns 8 j + 2 (t % 4) and + 1
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int j = 4 * C + jj;
+    const int src = 8 * jj + 2 * (lane & 3);  // the lanes holding them
+    const float w0 = __shfl_sync(~0u, e.wv[C], src);
+    const float w1 = __shfl_sync(~0u, e.wv[C], src + 1);
+    const float b0 = __shfl_sync(~0u, e.bv[C], src);
+    const float b1 = __shfl_sync(~0u, e.bv[C], src + 1);
+    const float sa = e.sx[2 * H], sb = e.sx[2 * H + 1];
+    lo[jj] = finish(scaled(acc[4 * j], sa, w0), scaled(acc[4 * j + 1], sa, w1),
+                    b0, b1, has_b, o.out);
+    hi[jj] = finish(scaled(acc[4 * j + 2], sb, w0),
+                    scaled(acc[4 * j + 3], sb, w1), b0, b1, has_b, o.out);
+  }
+  if (o.map == nullptr) {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int n = e.n0 + 32 * C + 8 * jj + 2 * (lane & 3);
+      if (n < o.N) {
+        store2(o.out, o.M, o.N, e.m + 64 * H, n, lo[jj]);
+        store2(o.out, o.M, o.N, e.m + 64 * H + 8, n, hi[jj]);
+      }
+    }
+    return;
+  }
+  const bool lead = (threadIdx.x & 127) == 0;
+  const int r = half_row();
+  uint8_t* buf = o.stage + (o.q & 1) * CHUNK_BYTES;
+  // the store that last read this buffer (two chunks ago) is done
+  if (lead) hopper::bulk_wait_read<1>();
+  hopper::named_bar_sync(o.bar, 128);
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int c = 8 * jj + 2 * (lane & 3);
+    *reinterpret_cast<Pair*>(buf + staged<Tout>(r, c)) = lo[jj];
+    *reinterpret_cast<Pair*>(buf + staged<Tout>(r + 8, c)) = hi[jj];
+  }
+  hopper::fence_proxy_async();
+  hopper::named_bar_sync(o.bar, 128);
+  if (lead) {
+    hopper::tma_store_2d(o.map, buf, e.n0 + 32 * C, e.row0 + 64 * H);
+    hopper::bulk_commit();
+  }
+  ++o.q;
+}
+
+// The whole epilogue of a tile: both halves, chunk by chunk.
+template <typename Tout>
+__device__ __forceinline__ void store_tile(const int (&acc)[2][BN / 2],
+                                           const Epi& e, Sink<Tout>& o) {
+  store_chunk<0, 0>(acc[0], e, o);
+  store_chunk<0, 1>(acc[0], e, o);
+  store_chunk<0, 2>(acc[0], e, o);
+  store_chunk<0, 3>(acc[0], e, o);
+  store_chunk<1, 0>(acc[1], e, o);
+  store_chunk<1, 1>(acc[1], e, o);
+  store_chunk<1, 2>(acc[1], e, o);
+  store_chunk<1, 3>(acc[1], e, o);
+}
+
+// Tout = float: form (a) when bias is null, else form (b) in f32;
+// Tout = __nv_bfloat16: form (b). The roles and the ring are the file
+// header's.
+template <typename Tout>
 __global__ void __launch_bounds__(THREADS, 1)
-    int8_matmul_kernel(const int8_t* __restrict__ codes,
-                       const int8_t* __restrict__ w,
-                       const float* __restrict__ sx,
-                       const float* __restrict__ sw, float* __restrict__ out,
+    int8_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
+                       const __grid_constant__ CUtensorMap map_b,
+                       const __grid_constant__ CUtensorMap map_out,
+                       bool tma_out, const float* __restrict__ sx,
+                       const float* __restrict__ sw,
+                       const Tout* __restrict__ bias, Tout* __restrict__ out,
                        int M, int Kp, int N) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  extern __shared__ unsigned char smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* staging = ring + STAGES * STAGE_BYTES;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(staging + CONSUMERS * 2 * CHUNK_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* turn = empty + STAGES;  // turn[w]: warpgroup w issued a tile
+  const int tiles_n = (N + BN - 1) / BN;
+  const int tiles = (M + BM - 1) / BM * tiles_n;
   const int steps = (Kp + BK - 1) / BK;
 
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-#pragma unroll
-  for (int j = 0; j < STAGES - 1; ++j) {
-    if (j < steps) load_tiles(s, j, j, codes, w, M, Kp, N, m0, n0);
-    hopper::cp_async_commit();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init<1>(&full[s]);
+      hopper::mbar_init<128>(&empty[s]);
+    }
+    for (int w = 0; w < CONSUMERS; ++w) hopper::mbar_init<128>(&turn[w]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < steps; ++kt) {
-    hopper::cp_async_wait<STAGES - 2>();  // step kt has landed (this thread)
-    __syncthreads();  // ... for all; slot (kt - 1) % STAGES is free
-    const int next = kt + STAGES - 1;
-    if (next < steps)
-      load_tiles(s, next % STAGES, next, codes, w, M, Kp, N, m0, n0);
-    hopper::cp_async_commit();
+  __syncthreads();
 
-    const int st = kt % STAGES;
-#pragma unroll
-    for (int kk = 0; kk < BK / 32; ++kk) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        hopper::ldsm_x4(a[mt], &s.a[st][wm * 64 + mt * 16 + (lane & 15)]
-                                   [kk * 32 + (lane >> 4) * 16]);
-      uint32_t b[4][2];
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        // matrices: (n 0-7, k 0-15), (n 0-7, k 16-31), (n 8-15, k 0-15),
-        // (n 8-15, k 16-31) -> b0, b1 of n-tile 2np, then of 2np + 1
-        uint32_t r[4];
-        hopper::ldsm_x4(r, &s.b[st][wn * 32 + np * 16 + (lane >> 4) * 8 +
-                                    (lane & 7)]
-                               [kk * 32 + ((lane >> 3) & 1) * 16]);
-        b[2 * np][0] = r[0];
-        b[2 * np][1] = r[1];
-        b[2 * np + 1][0] = r[2];
-        b[2 * np + 1][1] = r[3];
+  if (threadIdx.x >= CONSUMERS * 128) {
+    // producer: one thread keeps the ring full
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+        for (int k = 0; k < steps; ++k) {
+          hopper::mbar_wait(&empty[s], phase ^ 1);  // the first pass: free
+          hopper::mbar_expect(&full[s], STAGE_BYTES);
+          uint8_t* st = ring + s * STAGE_BYTES;
+          hopper::tma_2d(st, &map_a, k * BK, m0, &full[s]);
+          hopper::tma_2d(st + A_BYTES, &map_b, k * BK, n0, &full[s]);
+          if (++s == STAGES) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
       }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_s8(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
     }
-  }
-
+  } else {
+    // consumers, in ping-pong: warpgroup wg takes the block's tiles i = wg,
+    // wg + 2, ... whole (rows 0-63 and 64-127 as two accumulators), and
+    // starts a tile's products only once the other warpgroup has issued
+    // those of tile i - 1; so one warpgroup's epilogue runs beside the
+    // other's products. That order also keeps a warpgroup's wait on a
+    // stage's full barrier from matching an earlier phase: every use of
+    // the ring before its own has been loaded and consumed by then.
+    hopper::setmaxnreg_inc<232>();
+    const int wg = threadIdx.x >> 7;
+    Sink<Tout> o{out, bias, M, N, tma_out ? &map_out : nullptr,
+                 staging + wg * 2 * CHUNK_BYTES, 1 + wg, 0};
+    int acc[2][BN / 2];
+    for (int i = wg;; i += CONSUMERS) {
+      const int tile = blockIdx.x + i * gridDim.x;
+      if (tile >= tiles) break;
+      const Epi e = gather(tile / tiles_n * BM, tile % tiles_n * BN, M, N,
+                           sx, sw, bias);
+      if (i > 0) hopper::mbar_wait(&turn[wg ^ 1], ((i - 1) >> 1) & 1);
+      int held = 0;
+      for (int k = 0; k < steps; ++k) {
+        const int g = i * steps + k;  // the block's K step: its stage
+        const int s = g % STAGES;
+        hopper::mbar_wait(&full[s], (g / STAGES) & 1);
+        const uint8_t* st = ring + s * STAGE_BYTES;
+        hopper::wgmma_fence();
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    const int m = m0 + wm * 64 + mt * 16 + (lane >> 2);
-    const float sa = m < M ? sx[m] : 0.f;
-    const float sb = m + 8 < M ? sx[m + 8] : 0.f;
+        for (int kk = 0; kk < BK / 32; ++kk) {
+          const uint64_t b = hopper::desc_sw128(st + A_BYTES + kk * 32);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int n = n0 + wn * 32 + nt * 8 + (lane & 3) * 2;
-      const float w0 = n < N ? sw[n] : 0.f;
-      const float w1 = n + 1 < N ? sw[n + 1] : 0.f;
-      const int* c = acc[mt][nt];
-      store2(out, M, N, m, n, scaled(c[0], sa, w0), scaled(c[1], sa, w1));
-      store2(out, M, N, m + 8, n, scaled(c[2], sb, w0),
-             scaled(c[3], sb, w1));
+          for (int h = 0; h < 2; ++h)
+            wgmma_s8(acc[h], hopper::desc_sw128(st + h * 64 * BK + kk * 32),
+                     b, k > 0 || kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // the previous stage's group retired
+        if (k > 0) hopper::mbar_arrive(&empty[held]);
+        held = s;
+      }
+      hopper::mbar_arrive(&turn[wg]);  // the other warpgroup may go on
+      hopper::wgmma_wait<0>();
+      hopper::mbar_arrive(&empty[held]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) hopper::fence_operand(acc[h][j]);
+      store_tile(acc, e, o);
     }
+    if (o.map != nullptr && (threadIdx.x & 127) == 0) hopper::bulk_wait<0>();
   }
 }
 
-// The ring is 60 KB of shared memory, above the 48 KB default: the limit
-// is raised once.
+// The ring and the staging buffers (224 KB) are above the 48 KB default:
+// the limit is raised once per instance. Every tensor map goes through
+// encode_map's cache: the weight's is encoded once, the activation codes'
+// and the output's once per address the caching allocator hands out. The
+// output is stored by TMA when its row stride is a multiple of 16 bytes.
+template <typename Tout>
 int launch(const void* codes, const void* w, const void* sx, const void* sw,
-           void* out, int M, int Kp, int N, cudaStream_t stream) {
-  constexpr int smem = sizeof(Smem);
+           const void* bias, void* out, int M, int Kp, int N,
+           cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      int8_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      int8_matmul_kernel<Tout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int8_matmul_kernel<<<grid, THREADS, smem, stream>>>(
-      (const int8_t*)codes, (const int8_t*)w, (const float*)sx,
-      (const float*)sw, (float*)out, M, Kp, N);
+  constexpr bool f32 = sizeof(Tout) == 4;
+  const bool tma_out = (size_t)N * sizeof(Tout) % 16 == 0;
+  CUtensorMap map_a, map_b, map_out;
+  memset(&map_out, 0, sizeof(map_out));
+  if (!hopper::encode_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, codes, Kp,
+                          M, Kp, BK, BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::encode_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, Kp, N,
+                          Kp, BK, BN, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      (tma_out &&
+       !hopper::encode_map(
+           &map_out,
+           f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+           out, N, M, (uint64_t)N * sizeof(Tout), 32, 64,
+           f32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B)))
+    return (int)cudaErrorInvalidValue;
+  const long long tiles =
+      (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const int grid = (int)(tiles < hopper::sm_count() ? tiles
+                                                    : hopper::sm_count());
+  int8_matmul_kernel<Tout><<<grid, THREADS, SMEM, stream>>>(
+      map_a, map_b, map_out, tma_out, (const float*)sx, (const float*)sw,
+      (const Tout*)bias, (Tout*)out, M, Kp, N);
   return (int)cudaGetLastError();
 }
 
@@ -342,9 +609,10 @@ extern "C" int quantize_rows_i8_bf16(const void* x, void* codes, void* sx,
 }
 
 extern "C" int int8_matmul(const void* codes, const void* w, const void* sx,
-                           const void* sw, void* out, int M, int Kp, int N,
-                           void* stream) {
+                           const void* sw, const void* bias, void* out, int M,
+                           int Kp, int N, int bf16_out, void* stream) {
   if (M <= 0 || N <= 0 || Kp <= 0 || Kp % KP_ALIGN != 0)
     return (int)cudaErrorInvalidValue;
-  return mm::launch(codes, w, sx, sw, out, M, Kp, N, (cudaStream_t)stream);
+  return (bf16_out ? mm::launch<__nv_bfloat16> : mm::launch<float>)(
+      codes, w, sx, sw, bias, out, M, Kp, N, (cudaStream_t)stream);
 }

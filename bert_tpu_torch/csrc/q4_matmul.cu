@@ -59,13 +59,8 @@
 #include <stdint.h>
 #include <string.h>
 
-#include <mutex>
-#include <unordered_map>
-
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include "hopper.cuh"
+#include "hopper_tma.cuh"
 
 namespace {
 
@@ -201,37 +196,6 @@ struct Maps {  // TMA descriptors of x, the packed band, scales and mins
   CUtensorMap x, band, sc, mn;
 };
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-      hopper::smem_addr(bar)));
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(hopper::smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(hopper::smem_addr(bar)), "r"(phase)
-        : "memory");
-}
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
-                                       int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(hopper::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(hopper::smem_addr(bar))
-      : "memory");
-}
-
 // Issue load group j: x of group j and the band of group j+1 (and, for
 // j = 0, the band of group 0), into their ring slots; TMA completes on
 // barrier j % STAGES, cp.async on the commit group.
@@ -252,14 +216,14 @@ __device__ __forceinline__ void load_group(
     for (int b = b0; b <= b1; ++b)
       if (b < groups) bytes += band_bytes;
     uint64_t* bar = &s.bar[j % STAGES];
-    mbar_expect(bar, bytes);
-    tma_2d(&s.x[j % STAGES][0][0], &maps.x, j * BK, m0, bar);
+    hopper::mbar_expect(bar, bytes);
+    hopper::tma_2d(&s.x[j % STAGES][0][0], &maps.x, j * BK, m0, bar);
     for (int b = b0; b <= b1; ++b) {
       if (b >= groups) continue;
       const int st = b % STAGES;
-      tma_2d(&s.band[st][0][0], &maps.band, n0, b * QK, bar);
-      tma_2d(&s.sc[st][0][0], &maps.sc, n0, 2 * b, bar);
-      if (mins) tma_2d(&s.mn[st][0][0], &maps.mn, n0, 2 * b, bar);
+      hopper::tma_2d(&s.band[st][0][0], &maps.band, n0, b * QK, bar);
+      hopper::tma_2d(&s.sc[st][0][0], &maps.sc, n0, 2 * b, bar);
+      if (mins) hopper::tma_2d(&s.mn[st][0][0], &maps.mn, n0, 2 * b, bar);
     }
     return;
   }
@@ -317,7 +281,7 @@ __device__ __forceinline__ void load_group(
 template <int MT, bool TMA>
 __device__ __forceinline__ void wait_group(Smem<MT, TMA>& s, int g) {
   if (TMA)
-    mbar_wait(&s.bar[g % STAGES], (g / STAGES) & 1);
+    hopper::mbar_wait(&s.bar[g % STAGES], (g / STAGES) & 1);
   else
     hopper::cp_async_wait<STAGES - 2>();
 }
@@ -398,7 +362,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const bool q4_1 = mins != nullptr;
 
   if (TMA && threadIdx.x == 0) {
-    for (int st = 0; st < STAGES; ++st) mbar_init(&s.bar[st]);
+    for (int st = 0; st < STAGES; ++st) hopper::mbar_init(&s.bar[st]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -484,75 +448,6 @@ int launch_f32(const void* x, const void* packed, const void* scales,
   return (int)cudaGetLastError();
 }
 
-// A 2-D TMA descriptor of a row-major [rows, cols] array with the given
-// row stride, boxes of box_rows x box_cols elements. A descriptor is a
-// function of these arguments alone, so each is encoded once and kept
-// (the weights' on every call, the activations' as the caching allocator
-// hands their addresses out again): the driver's encoder costs about a
-// microsecond of host time a call.
-struct MapKey {
-  uint64_t ptr, cols, rows, row_bytes;
-  uint32_t type, box_cols, box_rows, swizzle;
-  bool operator==(const MapKey& o) const {
-    return memcmp(this, &o, sizeof(MapKey)) == 0;
-  }
-};
-struct MapKeyHash {
-  size_t operator()(const MapKey& k) const {
-    size_t h = 1469598103934665603ull;
-    const unsigned char* p = reinterpret_cast<const unsigned char*>(&k);
-    for (size_t i = 0; i < sizeof(MapKey); ++i)
-      h = (h ^ p[i]) * 1099511628211ull;
-    return h;
-  }
-};
-
-bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
-                uint64_t cols, uint64_t rows, uint64_t row_bytes,
-                uint32_t box_cols, uint32_t box_rows,
-                CUtensorMapSwizzle swizzle) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }();
-  static std::mutex lock;
-  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  if (encode == nullptr) return false;
-  MapKey key;
-  memset(&key, 0, sizeof(key));  // no uninitialised padding in the hash
-  key.ptr = reinterpret_cast<uint64_t>(ptr);
-  key.cols = cols;
-  key.rows = rows;
-  key.row_bytes = row_bytes;
-  key.type = type;
-  key.box_cols = box_cols;
-  key.box_rows = box_rows;
-  key.swizzle = swizzle;
-  std::lock_guard<std::mutex> guard(lock);
-  const auto hit = cache.find(key);
-  if (hit != cache.end()) {
-    *map = hit->second;
-    return true;
-  }
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  if (encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, step,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  if (cache.size() >= 4096) cache.clear();  // bound the host memory
-  cache.emplace(key, *map);
-  return true;
-}
-
 // Launch the (MT, TMA) instance; its shared memory (above 48 KB at MT = 2)
 // needs the limit raised, once per instance.
 template <int MT, bool TMA>
@@ -568,18 +463,19 @@ int launch_tc(const void* x, const void* packed, const void* scales,
   memset(&maps, 0, sizeof(maps));
   if (TMA) {
     const bool ok =
-        encode_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M,
-                   (uint64_t)K * 2, BK, 32 * MT,
-                   CU_TENSOR_MAP_SWIZZLE_128B) &&
-        encode_map(&maps.band, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, N,
-                   K / 2, N, tc::BN, QK, CU_TENSOR_MAP_SWIZZLE_NONE) &&
-        encode_map(&maps.sc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, N,
-                   K / QK, (uint64_t)N * 4, tc::BN, 2,
-                   CU_TENSOR_MAP_SWIZZLE_NONE) &&
+        hopper::encode_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K,
+                           M, (uint64_t)K * 2, BK, 32 * MT,
+                           CU_TENSOR_MAP_SWIZZLE_128B) &&
+        hopper::encode_map(&maps.band, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed,
+                           N, K / 2, N, tc::BN, QK,
+                           CU_TENSOR_MAP_SWIZZLE_NONE) &&
+        hopper::encode_map(&maps.sc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales,
+                           N, K / QK, (uint64_t)N * 4, tc::BN, 2,
+                           CU_TENSOR_MAP_SWIZZLE_NONE) &&
         (mins == nullptr ||
-         encode_map(&maps.mn, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, mins, N,
-                    K / QK, (uint64_t)N * 4, tc::BN, 2,
-                    CU_TENSOR_MAP_SWIZZLE_NONE));
+         hopper::encode_map(&maps.mn, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, mins,
+                            N, K / QK, (uint64_t)N * 4, tc::BN, 2,
+                            CU_TENSOR_MAP_SWIZZLE_NONE));
     if (!ok) return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((N + tc::BN - 1) / tc::BN, (M + 32 * MT - 1) / (32 * MT));

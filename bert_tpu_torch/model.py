@@ -88,17 +88,20 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
     first and the bias added after, in x's dtype, as
     ``bert_tpu.model.dense`` does. ``f32_out`` (no bias)
     hands back the f32 product unrounded, for a consumer that rounds it
-    itself: the LayerNorm's f32-input form saves the cast's launch."""
+    itself: the LayerNorm's f32-input form saves the cast's launch. An
+    Int8Weight's product does the cast and the bias add in the kernel's
+    epilogue (the same bits, two launches fewer)."""
     if f32_out and b is not None:
         raise ValueError("dense: f32_out takes no bias")
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
+    if isinstance(w, Int8Weight):
+        y = (int8_matmul_plain if _plain(use_kernels, x2) else int8_matmul)(
+            x2, w, None if b is None else b.to(x.dtype),
+            torch.float32 if f32_out else x.dtype)
+        return y.reshape(*shape[:-1], w.n)
     if isinstance(w, QuantTensor):
         y = (q4_matmul_plain if _plain(use_kernels, x2) else q4_matmul)(x2, w)
-        n = w.n
-    elif isinstance(w, Int8Weight):
-        y = (int8_matmul_plain if _plain(use_kernels, x2)
-             else int8_matmul)(x2, w)
         n = w.n
     else:
         y = torch.matmul(x2.float(), w.to(x.dtype).float())

@@ -8,8 +8,12 @@ bounds each and how its design copes):
 
   * ``quantize_rows_i8``: x[M, K] (f32 or bf16) → per-row symmetric int8
     codes and ``sx[M]`` f32 (``quantize_activations_i8``);
-  * ``int8_matmul``: s8 × s8 → s32 ``mma.sync`` tiles and the f32 epilogue
-    ``(float(acc) · sx[m]) · sw[n]`` into an f32 [M, N] (``int8_matmul``).
+  * ``int8_matmul``: persistent warp-specialised blocks, TMA tile loads
+    and s8 × s8 → s32 ``wgmma``, then ``p = (float(acc) · sx[m]) · sw[n]``
+    in f32 and one of two epilogues (``int8_matmul``): (a) p itself, an
+    f32 [M, N]; (b) p rounded to ``out_dtype`` (f32 or bf16), plus an
+    optional bias in that dtype, rounded again: the cast and bias add
+    that ``dense`` would otherwise launch after the product, bit for bit.
 
 The arithmetic is exact by construction, so the kernels equal their plain
 versions, and bert_tpu, bit for bit (finite inputs): the int32 sum is
@@ -20,12 +24,12 @@ reciprocal.
 Layouts. The host weight is bert_tpu's :class:`Int8Tensor`: ``w_i8[K, N]``
 int8 and ``scale[N]`` f32 (``W ≈ w_i8 · scale``). On a device it becomes an
 :class:`Int8Weight`: codes ``[N, Kp]`` with K contiguous, zero padded to
-``Kp = ceil(K / 32) · 32``, once at load. The s8 mma takes B with K
-contiguous per column, and Hopper's ``ldmatrix`` has no transposing form
-for 8-bit data, so the weight is stored transposed. The activation codes
-share the padded row stride (:func:`quantize_activations_i8` returns
-``[M, Kp]`` with a zero tail), so every row is whole 16-byte copies even
-at K = 312 or 600; zero codes add nothing to an exact sum.
+``Kp = ceil(K / 32) · 32``, once at load. ``wgmma`` takes 8-bit operands
+only K-major, A and B alike, so the weight is stored transposed. The
+activation codes share the padded row stride
+(:func:`quantize_activations_i8` returns ``[M, Kp]`` with a zero tail), a
+multiple of 16 bytes as TMA requires even at K = 312 or 600; zero codes
+add nothing to an exact sum.
 
 Plain versions (:func:`quantize_activations_i8_plain`,
 :func:`int8_matmul_plain`) follow bert_tpu op for op. torch has no integer
@@ -38,7 +42,7 @@ CUDA tensor they launch the kernel or raise.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +50,7 @@ import torch
 from .. import _kernels
 from .common import round_up
 
-KP_ALIGN = 32   # the s8 mma's depth: codes rows are padded to a multiple
+KP_ALIGN = 32   # the s8 wgmma's depth: codes rows are padded to a multiple
 # the largest K whose int32 sum cannot overflow: K · 127² ≤ 2^31 - 1
 MAX_K = (2**31 - 1) // (127 * 127)
 
@@ -140,14 +144,18 @@ def _epilogue(acc: torch.Tensor, sx: torch.Tensor,
     return acc.float() * sx[:, None] * scale[None, :]
 
 
-def int8_matmul_plain(x: torch.Tensor, w: Int8Weight) -> torch.Tensor:
-    """Plain version: ``x[M, K] @ (w_i8 · scale)[K, N] → f32[M, N]`` as
-    bert_tpu's ``int8_matmul`` computes it. The padded codes meet in f64
-    (exact: every partial sum is an integer under 2^53), then the f32
-    epilogue."""
+def int8_matmul_plain(x: torch.Tensor, w: Int8Weight,
+                      bias: Optional[torch.Tensor] = None,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version: ``x[M, K] @ (w_i8 · scale)[K, N]`` as bert_tpu's
+    ``int8_matmul`` computes it, then what its ``dense`` does after: the
+    padded codes meet in f64 (exact: every partial sum is an integer
+    under 2^53), the f32 epilogue, ``.to(out_dtype)``, then ``+ bias``
+    (already in ``out_dtype``) where one is given."""
     codes, sx = quantize_activations_i8_plain(x)
     acc = torch.matmul(codes.double(), w.w_nk.double().transpose(-1, -2))
-    return _epilogue(acc, sx, w.scale)
+    y = _epilogue(acc, sx, w.scale).to(out_dtype)
+    return y if bias is None else y + bias.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +209,22 @@ def quantize_activations_i8(x: torch.Tensor
     return _quantize_launch(x)
 
 
+def _check_out(bias: Optional[torch.Tensor], out_dtype: torch.dtype, n: int,
+               device: torch.device) -> None:
+    """The epilogue's operands: ``out_dtype`` f32 or bf16, and a bias, if
+    any, contiguous ``[N]`` in ``out_dtype`` on the product's device."""
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"int8_matmul: out_dtype {out_dtype} not in (f32, "
+                        "bf16)")
+    if bias is not None and (tuple(bias.shape) != (n,)
+                             or bias.dtype != out_dtype
+                             or bias.device != device
+                             or not bias.is_contiguous()):
+        raise ValueError(f"int8_matmul: bias must be contiguous {out_dtype} "
+                         f"({n},) on {device}, got {bias.dtype} "
+                         f"{tuple(bias.shape)} on {bias.device}")
+
+
 def _check_weight(codes: torch.Tensor, sx: torch.Tensor,
                   w: Int8Weight) -> None:
     m, kp = codes.shape
@@ -219,46 +243,57 @@ def _check_weight(codes: torch.Tensor, sx: torch.Tensor,
         raise ValueError(f"int8_matmul: Kp={kp} not a multiple of "
                          f"{KP_ALIGN}")
     for name, t in (("codes", codes), ("w_nk", w.w_nk)):
-        if t.data_ptr() % 16:  # 16-byte cp.async copies of every row
+        if t.data_ptr() % 16:  # a TMA tensor map's base
             raise ValueError(f"int8_matmul: {name} at 0x{t.data_ptr():x} "
                              "is not 16-byte aligned")
 
 
-def int8_matmul_codes(codes: torch.Tensor, sx: torch.Tensor,
-                      w: Int8Weight) -> torch.Tensor:
+def int8_matmul_codes(codes: torch.Tensor, sx: torch.Tensor, w: Int8Weight,
+                      bias: Optional[torch.Tensor] = None,
+                      out_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
     """The matmul kernel alone, on padded codes from
-    :func:`quantize_activations_i8`: → f32 [M, N]. CUDA tensors only."""
+    :func:`quantize_activations_i8`: → [M, N] in ``out_dtype``, plus
+    ``bias``. CUDA tensors only."""
     _check_device(codes, "int8_matmul")
     _check_weight(codes, sx, w)
+    _check_out(bias, out_dtype, w.n, codes.device)
     m = codes.shape[0]
-    out = torch.empty((m, w.n), dtype=torch.float32, device=codes.device)
+    out = torch.empty((m, w.n), dtype=out_dtype, device=codes.device)
     if m == 0:
         return out
     lib = _kernels.library("int8_matmul")
     with torch.cuda.device(codes.device):
         rc = lib.int8_matmul(codes.data_ptr(), w.w_nk.data_ptr(),
                              sx.data_ptr(), w.scale.data_ptr(),
+                             None if bias is None else bias.data_ptr(),
                              out.data_ptr(), m, w.kp, w.n,
+                             int(out_dtype == torch.bfloat16),
                              _kernels.stream_of(codes))
     _kernels.check(rc, "int8_matmul")
     int8_matmul.launches += 1
     return out
 
 
-def int8_matmul(x: torch.Tensor, w: Int8Weight) -> torch.Tensor:
-    """``x[M, K] @ (w_i8 · scale)[K, N] → f32[M, N]``: the activations
-    quantized per row, an exact int8 product, the f32 epilogue. CPU
-    tensors take :func:`int8_matmul_plain`; CUDA tensors launch both
-    kernels (quantize, then matmul) or raise."""
+def int8_matmul(x: torch.Tensor, w: Int8Weight,
+                bias: Optional[torch.Tensor] = None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``x[M, K] @ (w_i8 · scale)[K, N]``: the activations quantized per
+    row, an exact int8 product, the f32 epilogue; then, in ``out_dtype``,
+    the product rounded and ``bias`` added (form (b)), or the f32 product
+    as it is (form (a): f32 and no bias). CPU tensors take
+    :func:`int8_matmul_plain`; CUDA tensors launch both kernels (quantize,
+    then matmul) or raise."""
     _check_x(x, "int8_matmul")
     if x.shape[1] != w.k:
         raise ValueError(f"int8_matmul: x has K={x.shape[1]}, the weight "
                          f"K={w.k}")
+    _check_out(bias, out_dtype, w.n, x.device)
     if x.device.type == "cpu":
-        return int8_matmul_plain(x, w)
+        return int8_matmul_plain(x, w, bias, out_dtype)
     _check_device(x, "int8_matmul")
     codes, sx = _quantize_launch(x)
-    return int8_matmul_codes(codes, sx, w)
+    return int8_matmul_codes(codes, sx, w, bias, out_dtype)
 
 
 quantize_activations_i8.launches = 0  # kernel launches, where they happen

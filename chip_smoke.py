@@ -1410,26 +1410,61 @@ def int8_activations(rng, m: int, k: int):
     return x
 
 
+# bert-base's four int8 products in the form the model runs them: QKV and
+# FFN-up round to the compute dtype and add their bias in the epilogue
+# (form (b)); attention-out and FFN-down hand their f32 product to the
+# LayerNorm (form (a))
+INT8_MODEL_FORM = {"bert-base QKV": "b", "bert-base attention-out": "a",
+                   "bert-base FFN-up": "b", "bert-base FFN-down": "a"}
+
+
+def int8_sass(lib_path: str) -> dict:
+    """Counts of the warpgroup MMA (IGMMA), TMA load (UTMALDG) and TMA store
+    (UTMASTG) instructions in the built int8 library's SASS, by
+    ``cuobjdump --dump-sass`` where the toolkit has it; None without it."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = os.path.join(home, "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "--dump-sass", lib_path], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    return {op: len(re.findall(r"\b" + op + r"\b", sass))
+            for op in ("IGMMA", "UTMALDG", "UTMASTG", "HMMA", "IMMA")}
+
+
 def int8_kernel_phase(dev, rng):
     """Kernels 5 and 6, the activation quantization and the int8 matmul,
     through the public wrappers with a launch check, in f32 and bf16, held
     to their plain versions bit for bit (codes, scales, products): at
     bert-base's and MiniLM's four matmul shapes at M = 8,192, and at edge
-    shapes (M = 1 and 37, N = 8 and 200, K = 1, 33, 312 and 600; row 0 of
-    every x is zero, rows 1-2 hold ±amax and x·inv ties). bert-base's four
-    shapes are timed in bf16 by graph replay: the matmul kernel alone on
-    the codes, the quantize kernel, both together, the plain version,
-    ``torch._int_mm`` on the same codes plus the same epilogue in torch ops
-    (library_ms), cuBLAS bf16 on the dequantized W and the bf16 q4_matmul
-    at the same shape. bert-base's QKV is each kernel's row in the JSON
-    line."""
+    shapes (M = 1 and 37, N = 7, 8, 200, 201 and 301, K = 1, 33, 312 and
+    600; row 0 of every x is zero, rows 1-2 hold ±amax and x·inv ties). The
+    matmul is checked in both epilogue forms: (a) the f32 product, (b) the
+    product in x's dtype without and with a bias; an N whose output rows
+    are not a multiple of 16 bytes takes the direct-store path. bert-base's
+    four shapes are timed in bf16 by graph replay in the form the model
+    uses (INT8_MODEL_FORM): the matmul kernel alone on the codes, the
+    quantize kernel, both together, the plain version, ``torch._int_mm``
+    on the same codes plus the same epilogue in torch ops (library_ms),
+    cuBLAS bf16 on the dequantized W (``torch.addmm`` with the bias in
+    form (b)) and the bf16 q4_matmul at the same shape. bert-base's QKV is
+    each kernel's row in the JSON line."""
     import numpy as np
     import torch
 
+    from bert_tpu_torch import _kernels
     from bert_tpu_torch.ops import int8_matmul as I
     from bert_tpu_torch.ops import q4_matmul as Q
 
     log("kernels 5-6: quantize_activations_i8, int8_matmul")
+    sass = int8_sass(_kernels.lib_path("int8_matmul"))
+    log("  int8_matmul SASS instruction counts: "
+        + ("not read (no cuobjdump)" if sass is None else str(sass)))
+    if sass is not None:
+        require(sass["IGMMA"] > 0 and sass["UTMALDG"] > 0
+                and sass["UTMASTG"] > 0 and sass["IMMA"] == 0,
+                f"int8_matmul: the library is not the wgmma/TMA design: "
+                f"{sass}")
     dtypes = (("f32", torch.float32), ("bf16", torch.bfloat16))
     errs = {"quantize_activations_i8": 0.0, "int8_matmul": 0.0}
 
@@ -1453,15 +1488,23 @@ def int8_kernel_phase(dev, rng):
                 f"{n_sx} scales differ from the plain version")
         log(f"  ok  quantize_activations_i8 {what:38s} codes and scales "
             "equal (tol 0)")
-        out = I.int8_matmul(x, w)
-        require(I.int8_matmul.launches == m0 + 1
-                and I.quantize_activations_i8.launches == q0 + 2,
-                f"int8_matmul {what}: the wrapper did not launch both "
-                "kernels")
-        ref = I.int8_matmul_plain(x, w)
-        err = compare("int8_matmul", out, ref, dn, what)
-        require(torch.equal(out, ref), f"int8_matmul {what}: not bit-exact")
-        errs["int8_matmul"] = max(errs["int8_matmul"], err)
+        bias = torch.from_numpy(rng.standard_normal(w.n).astype(
+            np.float32)).to(dev).to(x.dtype)
+        for i, (form, b, out_dtype) in enumerate((
+                ("(a)", None, torch.float32), ("(b)", None, x.dtype),
+                ("(b)+bias", bias, x.dtype))):
+            out = I.int8_matmul(x, w, b, out_dtype)
+            require(I.int8_matmul.launches == m0 + 1 + i
+                    and I.quantize_activations_i8.launches == q0 + 2 + i,
+                    f"int8_matmul {what} {form}: the wrapper did not launch "
+                    "both kernels")
+            ref = I.int8_matmul_plain(x, w, b, out_dtype)
+            require(out.dtype == out_dtype, f"int8_matmul {what} {form}: "
+                    f"dtype {out.dtype}")
+            err = compare("int8_matmul", out, ref, dn, f"{what} {form}")
+            require(torch.equal(out, ref),
+                    f"int8_matmul {what} {form}: not bit-exact")
+            errs["int8_matmul"] = max(errs["int8_matmul"], err)
 
     shapes = [(8192, 768, 2304, "bert-base QKV"),
               (8192, 768, 768, "bert-base attention-out"),
@@ -1472,10 +1515,14 @@ def int8_kernel_phase(dev, rng):
               (8192, 384, 1536, "MiniLM FFN-up"),
               (8192, 1536, 384, "MiniLM FFN-down"),
               # edges: one row, ragged M/N, K = 1 and 33 (element loads),
-              # rubert-tiny2's K = 312 and 600 (padded to 320 and 608)
+              # rubert-tiny2's K = 312 and 600 (padded to 320 and 608);
+              # N = 7, 201 and 301 store directly (rows of 14, 402 and 602
+              # bytes in bf16; 804 and 1,204 in f32)
               (1, 1, 8, ""), (37, 1, 200, ""), (37, 33, 200, ""),
               (1, 312, 200, ""), (37, 600, 8, ""), (37, 312, 600, ""),
-              (1, 600, 312, "")]
+              (1, 600, 312, ""), (37, 33, 201, "direct stores"),
+              (1, 600, 7, "direct stores"),
+              (300, 320, 301, "direct stores")]
     for (m, k, n, what) in shapes:
         _, w = weight(k, n)
         x32 = int8_activations(rng, m, k)
@@ -1488,6 +1535,7 @@ def int8_kernel_phase(dev, rng):
     bf16 = torch.bfloat16
     timed, quant_timed = [], []
     for (m, k, n, what) in shapes[:4]:
+        form = INT8_MODEL_FORM[what]
         it, w = weight(k, n)
         x = torch.from_numpy(int8_activations(rng, m, k)).to(dev).to(bf16)
         codes, sx = I.quantize_activations_i8(x)
@@ -1495,22 +1543,42 @@ def int8_kernel_phase(dev, rng):
         w_deq = torch.from_numpy(I.dequantize_w8(it)).to(dev).to(bf16)
         qd = q4_weights(rng, k, n, 2, dev)
         kp = w.kp
-        nbytes = m * kp + n * kp + 4 * m + 4 * n + 4 * m * n
+        if form == "b":
+            b = torch.from_numpy(rng.standard_normal(n).astype(
+                np.float32)).to(dev).to(bf16)
+            od, out_bytes = bf16, 2 * m * n + 2 * n
+
+            def library():
+                return I._epilogue(torch._int_mm(codes, w_t), sx,
+                                   w.scale).to(bf16) + b
+
+            def cublas():
+                return torch.addmm(b, x, w_deq)
+        else:
+            b, od, out_bytes = None, torch.float32, 4 * m * n
+
+            def library():
+                return I._epilogue(torch._int_mm(codes, w_t), sx, w.scale)
+
+            def cublas():
+                return torch.matmul(x, w_deq)
+        nbytes = m * kp + n * kp + 4 * m + 4 * n + out_bytes
         b_ms, b_by = bound(nbytes, 2.0 * m * k * n, "int8")
-        lib_out = I._epilogue(torch._int_mm(codes, w_t), sx, w.scale)
-        lib_exact = bool(torch.equal(lib_out, I.int8_matmul_codes(
-            codes, sx, w)))
-        r = dict(shape=f"M={m} K={k} N={n} bf16 x ({what})",
-                 ms=time_ms(lambda: I.int8_matmul_codes(codes, sx, w)),
-                 eager_ms=eager_ms(lambda: I.int8_matmul_codes(codes, sx,
-                                                                w)),
-                 with_quantize_ms=time_ms(lambda: I.int8_matmul(x, w)),
-                 plain_ms=time_ms(lambda: I.int8_matmul_plain(x, w)),
-                 library_ms=time_ms(lambda: I._epilogue(
-                     torch._int_mm(codes, w_t), sx, w.scale)),
+        lib_exact = bool(torch.equal(library(), I.int8_matmul_codes(
+            codes, sx, w, b, od)))
+        r = dict(shape=f"M={m} K={k} N={n} bf16 x, form ({form}) "
+                       f"({what})",
+                 form=form,
+                 ms=time_ms(lambda: I.int8_matmul_codes(codes, sx, w, b,
+                                                        od)),
+                 eager_ms=eager_ms(lambda: I.int8_matmul_codes(codes, sx, w,
+                                                               b, od)),
+                 with_quantize_ms=time_ms(lambda: I.int8_matmul(x, w, b,
+                                                                od)),
+                 plain_ms=time_ms(lambda: I.int8_matmul_plain(x, w, b, od)),
+                 library_ms=time_ms(library),
                  int_mm_alone_ms=time_ms(lambda: torch._int_mm(codes, w_t)),
-                 dense_bf16_matmul_ms=time_ms(lambda: torch.matmul(x,
-                                                                   w_deq)),
+                 dense_bf16_matmul_ms=time_ms(cublas),
                  q4_matmul_bf16_ms=time_ms(lambda: Q.q4_matmul(x, qd)),
                  bound_ms=b_ms, bound_by=b_by, library_bit_exact=lib_exact,
                  max_abs_err=errs["int8_matmul"])
@@ -1521,7 +1589,7 @@ def int8_kernel_phase(dev, rng):
             f"{r['int_mm_alone_ms']:.5f}; bit-exact with the kernel: "
             f"{lib_exact}), cuBLAS bf16 {r['dense_bf16_matmul_ms']:.5f}, "
             f"q4_matmul bf16 {r['q4_matmul_bf16_ms']:.5f}, bound "
-            f"{b_ms:.5f} ({b_by})")
+            f"{b_ms:.5f} ({b_by}) = {100 * b_ms / r['ms']:.1f}% of it")
         timed.append(r)
         qbytes = m * k * 2 + m * kp + 4 * m
         q_ms, q_by = bound(qbytes, 4.0 * m * k, "f32")
@@ -1539,7 +1607,8 @@ def int8_kernel_phase(dev, rng):
         del x, codes, w_deq
         torch.cuda.synchronize()
     tol = dict(tolerance=0.0)
-    return {"int8_matmul": dict(timed[0], **tol, timed_shapes=timed),
+    return {"int8_matmul": dict(timed[0], **tol, timed_shapes=timed,
+                                sass=sass),
             "quantize_activations_i8": dict(quant_timed[0], **tol,
                                             timed_shapes=quant_timed)}
 
@@ -1679,6 +1748,23 @@ def int8_path(dev, rng, counters):
     q4_prof = profile_request(
         q4, counted[0], "int8 path, int8_eval=False",
         extra=(("q4_matmul", ("q4_matmul_bf16_kernel",)),))
+
+    if prof is not None and q4_prof is not None:
+        log(f"int8 path, one request profiled: int8_eval on "
+            f"{prof['device_busy_us'] / 1e3:.3f} ms of device time in "
+            f"{prof['kernels']} kernels ({prof['bf16_casts']} bf16 casts), "
+            f"off {q4_prof['device_busy_us'] / 1e3:.3f} ms in "
+            f"{q4_prof['kernels']} ({q4_prof['bf16_casts']} casts); with "
+            "the earlier mma.sync int8 kernel and its separate casts and "
+            "bias adds (NVIDIA H100 80GB HBM3, 700 W): on 11.29-11.33 ms "
+            "in 434 kernels, off 12.46-12.53 ms")
+        # a Q4 batch casts its QKV and FFN-up products and their biases to
+        # bf16 (4 casts a layer); the int8 batch's epilogue rounds the
+        # products itself, so only the two bias casts a layer remain
+        require(prof["bf16_casts"] == q4_prof["bf16_casts"] - 2 * cfg.n_layer,
+                f"int8 path: {prof['bf16_casts']} bf16 casts with int8_eval "
+                f"on, {q4_prof['bf16_casts']} off: the int8 products are "
+                "still cast apart")
 
     for req, emb, ref in zip(counted, outs, q4_outs):
         require(emb.shape == (len(req), cfg.n_embd)

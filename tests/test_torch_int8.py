@@ -11,7 +11,10 @@ engine's routing is tests/test_int8.py's, on the port.
 
 The fixture shapes are tests/test_int8.py's (D 64, F 128, 4 heads, 2
 layers); the matmuls also run at a MiniLM QKV width (37×384×1152), at
-bert-base's FFN-down width (16×3072×768) and at a ragged K (37×33×200).
+bert-base's FFN-down width (16×3072×768) and at a ragged K (37×33×200);
+the epilogue's two forms (the f32 product; the product rounded to the
+compute dtype plus a bias) at M 1 and 37, K 33 and 312, N 8 and 200, and
+``dense`` on an Int8Weight, bit for bit its former cast and add.
 """
 
 import numpy as np
@@ -130,6 +133,64 @@ def test_int8_matmul_matches_bert_tpu(m, k, n, dname):
     assert torch.equal(T.int8_matmul(xt, w), got)
 
 
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [8, 200])
+@pytest.mark.parametrize("k", [33, 312])
+@pytest.mark.parametrize("m", [1, 37])
+def test_int8_matmul_epilogue_forms(m, k, n, dname, bias):
+    """Form (b): the product rounded to ``out_dtype`` and the bias added in
+    it, bit for bit the cast and add that follow form (a), and bert_tpu's
+    ``int8_matmul(x, it).astype(dt) + b.astype(dt)``."""
+    rng = np.random.default_rng(m * k + n)
+    td, jd = DTYPES[dname]
+    xt, xj = _both(_activations(rng, m, k), dname)
+    it = T.quantize_w8((rng.standard_normal((k, n)) * 0.05).astype(
+        np.float32))
+    b32 = rng.standard_normal(n).astype(np.float32)
+    bt, bj = (torch.from_numpy(b32).to(td), jnp.asarray(b32, dtype=jd))
+    w = T.to_device(it, "cpu")
+    got = T.int8_matmul_plain(xt, w, bias=bt if bias else None,
+                              out_dtype=td)
+    want = T.int8_matmul_plain(xt, w).to(td)
+    jwant = J.int8_matmul(xj, J.Int8Tensor(it.w_i8, it.scale)).astype(jd)
+    if bias:
+        want, jwant = want + bt, jwant + bj
+    assert got.dtype == td and got.shape == (m, n)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(jwant.astype(jnp.float32)))
+    # the wrapper takes the plain version for a CPU tensor
+    assert torch.equal(T.int8_matmul(xt, w, bt if bias else None, td), got)
+
+
+@pytest.mark.parametrize("form", ["bias", "nobias", "f32_out"])
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+def test_dense_int8_keeps_its_bits(form, dname):
+    """``dense`` on an Int8Weight hands the cast and the bias to the int8
+    product's epilogue: the same bits as the f32 product cast to x's dtype
+    with the bias added after (``f32_out``: the f32 product itself)."""
+    rng = np.random.default_rng(7)
+    td, _ = DTYPES[dname]
+    x = torch.from_numpy(_activations(rng, 10, 96)).to(td).reshape(2, 5, 96)
+    w = T.to_device(T.quantize_w8(
+        (rng.standard_normal((96, 40)) * 0.05).astype(np.float32)), "cpu")
+    b = torch.from_numpy(rng.standard_normal(40).astype(np.float32))
+    prod = T.int8_matmul_plain(x.reshape(-1, 96), w).reshape(2, 5, 40)
+    for use_kernels in (None, False):
+        if form == "f32_out":
+            got = tmodel.dense(x, w, f32_out=True, use_kernels=use_kernels)
+            want = prod
+        else:
+            bias = b if form == "bias" else None
+            got = tmodel.dense(x, w, bias, use_kernels=use_kernels)
+            want = prod.to(td)
+            if bias is not None:
+                want = want + b.to(td)
+        assert got.dtype == want.dtype and got.shape == (2, 5, 40)
+        assert torch.equal(got, want)
+
+
 def test_int8_wrappers_raise_off_cpu_and_cuda():
     """A tensor neither on the CPU nor on CUDA raises; the wrappers never
     take the plain version there (ops/fused_attention.py's rule)."""
@@ -159,6 +220,19 @@ def test_int8_wrappers_check_their_operands():
     assert big * 127 * 127 > 2**31 - 1 >= T.MAX_K * 127 * 127
     with pytest.raises(ValueError, match="overflow"):
         T.quantize_activations_i8(torch.ones((1, big)))
+    # the epilogue's operands: out_dtype f32 or bf16; a bias [N] in it, on
+    # the product's device, contiguous
+    x = torch.ones((2, 64))
+    with pytest.raises(TypeError, match="out_dtype torch.float16 not in"):
+        T.int8_matmul(x, w, out_dtype=torch.float16)
+    for bad in (torch.ones(7), torch.ones((1, 8)), torch.ones(16)[::2],
+                torch.ones(8, dtype=torch.bfloat16),
+                torch.ones(8, device="meta")):
+        with pytest.raises(ValueError, match="bias must be contiguous"):
+            T.int8_matmul(x, w, bad)
+    with pytest.raises(ValueError, match="bias must be contiguous "
+                       "torch.bfloat16"):
+        T.int8_matmul(x, w, torch.ones(8), torch.bfloat16)
 
 
 # -- parameter trees ---------------------------------------------------------

@@ -16,6 +16,9 @@ themselves are checked against these plain versions on the card by
 chip_smoke.py; CUDA has no interpret mode.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +30,7 @@ from bert_tpu.ops.fused_attention import fused_qkv_attention as j_fused_attn
 from bert_tpu.ops.layer_norm import _ln_pallas, layer_norm_jnp
 from bert_tpu.ops.q4_matmul import _q4_matmul_jnp, _q4_matmul_pallas
 from bert_tpu.quant import quantize_tensor_tpu
+from bert_tpu_torch import _kernels
 from bert_tpu_torch.ops.fused_attention import (
     _check_alignment as _check_attention_alignment,
     attention_plain,
@@ -377,3 +381,19 @@ def test_wrappers_raise_on_other_devices():
     x = torch.zeros(2, 64, device="meta")
     with pytest.raises(ValueError):
         fused_layer_norm(x, torch.ones(64), torch.zeros(64), eps=1e-12)
+
+
+@pytest.mark.parametrize("name", sorted(_kernels.SIGNATURES))
+def test_kernel_signatures_match_their_sources(name):
+    """Each ctypes signature in ``_kernels.SIGNATURES`` names a C entry
+    point of ``csrc/<name>.cu`` with as many parameters: the library is
+    built and bound only on the card, where a wrong count would pass
+    garbage for every argument after it."""
+    with open(os.path.join(_kernels.SRC_DIR, name + ".cu")) as f:
+        src = f.read()
+    entries = {
+        m.group(1): [p for p in m.group(2).split(",") if p.strip()]
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src)}
+    assert sorted(entries) == sorted(_kernels.SIGNATURES[name])
+    for fn, argtypes in _kernels.SIGNATURES[name].items():
+        assert len(entries[fn]) == len(argtypes), fn
