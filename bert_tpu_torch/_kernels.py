@@ -44,8 +44,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "layer_norm": {
         # x, residual (nullable), pre_bias (nullable), scale, bias, out,
         # M, D, eps, stream; f32_bf16: x f32, residual and out bf16
-        f"layer_norm_{t}": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]
-        for t in ("f32", "bf16", "f32_bf16")
+        **{f"layer_norm_{t}": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]
+           for t in ("f32", "bf16", "f32_bf16")},
+        # the codes form: ... out, codes, sx, M, D, eps, stream
+        **{f"layer_norm_codes_{t}": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _F, _P]
+           for t in ("f32", "bf16", "f32_bf16")},
     },
     "fused_attention": {
         # qkv, bias, out, B, T, H, d_head, pairwise, scale, stream
@@ -64,6 +68,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # codes, w_nk, sx, scale, bias (nullable), out, M, Kp, N,
         # bf16_out, stream
         "int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # form (c): ... out, M, Kp, N, bf16_out, tanh_approx, stream
+        "int8_matmul_gelu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -10,13 +10,15 @@
 //     rint's round half to even (jnp.round), never -128;
 //   int8_matmul: acc = sum over K of code_x * code_w in int32 (exact: K *
 //     127^2 < 2^31, which the wrapper checks), then p = (float(acc) *
-//     sx[m]) * sw[n], two f32 roundings in that order. Two epilogues:
+//     sx[m]) * sw[n], two f32 roundings in that order. Three epilogues:
 //     (a) out = p in f32 (the LayerNorm's f32-input form takes it);
 //     (b) out = r(r(p) + r(b)) in the compute type, r its rounding (bf16:
 //     round to nearest even; f32: none, the add one f32 rounding), with
 //     an optional bias b stored in that type: bit for bit the cast and
 //     the bias add bert_tpu's dense does after its product
-//     (bert_tpu/model.py:73).
+//     (bert_tpu/model.py:73);
+//     (c) out = r(gelu(form (b))), GELU in f32 exactly as PyTorch's CUDA
+//     F.gelu computes it (FFN-up, bert_tpu/model.py:158).
 // No --use_fast_math (_kernels.NVCC_FLAGS): every division and rounding
 // here is IEEE's.
 //
@@ -28,7 +30,9 @@
 // bytes is what TMA asks for (16).
 //
 // What bounds them on the H100. quantize_rows_i8 moves bytes: x in (2 or 4
-// bytes an element), codes out (1 byte), almost no arithmetic. int8_matmul
+// bytes an element), codes out (1 byte), about one operation a byte
+// against the card's ridge of about 295: at 8,192 x 3,072 bf16 75.5 MB,
+// 0.0225 ms at 3.35 TB/s; at 8,192 x 768, 0.0056 ms. int8_matmul
 // at bert-base's shapes at M = 8,192 tokens reads 7-13 MB of codes; form
 // (a) writes an f32 [M, N], form (b) a bf16 one. QKV (K 768, N 2,304) in
 // form (b) with its bias moves 45.8 MB, 0.0137 ms at 3.35 TB/s, against
@@ -37,10 +41,29 @@
 // (b): 0.0195 ms, operations; attention-out (a): 0.0096 ms, bytes;
 // FFN-down (a): 0.0195 ms, operations.
 //
-// Design of quantize_rows_i8: one warp per row, 16-byte loads where the
-// row allows (else one element a lane), the amax reduced by shuffles, then
-// a second pass over the row (from L1/L2) writes the codes 4 or 8 at a
-// time and the zero tail.
+// Design of quantize_rows_i8: one read of x. Below the ridge the only gain
+// is fewer bytes and more of them in flight, so the row is held in
+// registers, as csrc/layer_norm.cu holds its rows: a group of G = 8, 16
+// or 32 lanes a row, V units of U elements a lane (U = 16 where K allows
+// it: two 16-byte loads of bf16, four of f32, and one 16-byte store of
+// codes; else 8, 4 or 1), G and V picked at launch for the fewest masked
+// slots (K = 768 bf16: 16 lanes x 3 units; 3,072: 32 x 6). Every load of
+// a row is issued before its reduction (a butterfly within the group),
+// and the codes come from the same registers; the zero tail runs to Kp.
+// Blocks of up to 8 warps walk the rows, up to 48 registers of raw x a
+// lane, so that enough rows are in flight to fill 132 SMs at M = 8,192
+// (K = 3,072: 24 KB of loads in flight a block). The rows in shared
+// memory by one cp.async.bulk on an mbarrier were the other choice; it
+// was not built: with the row in registers the kernel already reaches
+// the share of its bound in PERF.md, and shared memory would only add a
+// copy. Rows wider than the registers (past 1,536 f32 or 3,072 bf16
+// elements with U = 16) take a simple instance, one block a row, that
+// reads the row a second time for the codes, as the LayerNorm's wide
+// instance does; no model width takes it but f32 rows past 1,536. An
+// amax given by the producer (form (c) reducing it in its epilogue) was
+// built and measured slower on both sides (PERF.md): this kernel took
+// longer without its own reduction than with it, and form (c) longer with
+// the per-row atomics than without.
 //
 // Design of int8_matmul: persistent, warp-specialised blocks on TMA and
 // wgmma. One block per SM (three warpgroups, 384 threads) walks the 128 x
@@ -69,6 +92,15 @@
 //    beside another warpgroup's it does not (PERF.md). The order also
 //    keeps a warpgroup from waiting on a stage's full barrier while an
 //    earlier phase of it is still pending.
+//  - Form (c) adds GELU to each finished pair, in the same slot, beside
+//    the other warpgroup's products. GELU is about 40 operations an
+//    output, so at FFN-up it, not the products, sets the pace: form (c)
+//    takes about 1.6 times form (b) (PERF.md). Other
+//    homes for it were built and measured slower (PERF.md): the
+//    producer warpgroup's three idle warps finishing the staged chunks
+//    (under its 40 registers), the consumer applying it to the staged
+//    chunk after the pair stores, and GELU out of line; erff's one
+//    branch per element costs nothing measurable.
 //  - The epilogue's gathers (sx of the thread's four rows; sw and the
 //    bias of 32 columns a chunk, one a lane, handed out by shuffles) are
 //    loaded before the tile's products. Thread t of warp w holds rows 16 w
@@ -105,27 +137,30 @@ int padded_k(int K) { return (K + KP_ALIGN - 1) / KP_ALIGN * KP_ALIGN; }
 
 namespace quant {
 
-constexpr int WARPS = 8;  // rows per block
+constexpr int VMAX = 8;          // units a lane holds, at most
+constexpr int WIDE_BLOCK = 256;  // threads of the block-per-row instance
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// VEC elements at p, widened to f32: one 16-byte load when VEC > 1.
-template <typename T, int VEC>
-__device__ __forceinline__ void load_row(const T* __restrict__ p,
-                                         float (&v)[VEC]) {
-  if constexpr (VEC == 1) {
-    v[0] = to_f32(p[0]);
-  } else {
-    static_assert(VEC * sizeof(T) == 16, "16-byte vectors");
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) v[i] = to_f32(e[i]);
-  }
+// the elements of a row a lane may hold: 48 registers of raw x
+template <typename T>
+constexpr int lane_elems() {
+  return 192 / (int)sizeof(T);
 }
+template <typename T, int U>
+constexpr int vmax() {
+  return lane_elems<T>() / U < VMAX ? lane_elems<T>() / U : VMAX;
+}
+
+// U consecutive elements of T, moved as min(16, U * sizeof(T))-byte
+// accesses (a unit of 16 f32 is four 16-byte loads)
+template <typename T, int U>
+struct alignas(U * sizeof(T) < 16 ? U * sizeof(T) : 16) Unit {
+  T v[U];
+};
 
 // round half to even (rintf), clamp to +-127; the product is one f32
 // rounding, as jnp's x * inv
@@ -134,65 +169,206 @@ __device__ __forceinline__ uint32_t code(float v, float inv) {
   return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(q)));
 }
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(WARPS * 32)
-    quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ codes,
-                         float* __restrict__ sx, int M, int K, int Kp) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (row >= M) return;  // the whole warp: row is the warp's
-  const T* xr = x + (size_t)row * K;
-  int8_t* cr = codes + (size_t)row * Kp;
-
-  float amax = 0.f;
-  for (int c = lane * VEC; c < K; c += 32 * VEC) {
-    float v[VEC];
-    load_row<T, VEC>(xr + c, v);
+// the U codes of a unit, packed four to a word and written by one store
+// of U bytes (16, 8, 4 or 1)
+template <typename T, int U>
+__device__ __forceinline__ void store_codes(int8_t* __restrict__ p,
+                                            const Unit<T, U>& u, float inv) {
+  if constexpr (U == 1) {
+    *p = static_cast<int8_t>(code(to_f32(u.v[0]), inv));
+  } else {
+    uint32_t w[U / 4];
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) amax = fmaxf(amax, fabsf(v[i]));
+    for (int j = 0; j < U / 4; ++j)
+      w[j] = code(to_f32(u.v[4 * j]), inv) |
+             code(to_f32(u.v[4 * j + 1]), inv) << 8 |
+             code(to_f32(u.v[4 * j + 2]), inv) << 16 |
+             code(to_f32(u.v[4 * j + 3]), inv) << 24;
+    if constexpr (U == 16)
+      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    else if constexpr (U == 8)
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    else
+      *reinterpret_cast<uint32_t*>(p) = w[0];
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float s = __fdiv_rn(amax, 127.f);
-  const float inv = s > 0.f ? __frcp_rn(s) : 0.f;  // a zero row: codes 0
-  if (lane == 0) sx[row] = s;
-
-  for (int c = lane * VEC; c < K; c += 32 * VEC) {
-    float v[VEC];
-    load_row<T, VEC>(xr + c, v);
-    if constexpr (VEC == 1) {
-      cr[c] = static_cast<int8_t>(code(v[0], inv));
-    } else {
-      uint32_t w[VEC / 4];
-#pragma unroll
-      for (int j = 0; j < VEC / 4; ++j)
-        w[j] = code(v[4 * j], inv) | code(v[4 * j + 1], inv) << 8 |
-               code(v[4 * j + 2], inv) << 16 | code(v[4 * j + 3], inv) << 24;
-      if constexpr (VEC == 4)
-        *reinterpret_cast<uint32_t*>(cr + c) = w[0];
-      else
-        *reinterpret_cast<uint2*>(cr + c) = make_uint2(w[0], w[1]);
-    }
-  }
-  for (int c = K + lane; c < Kp; c += 32) cr[c] = 0;
 }
 
-// 16-byte loads when every row starts 16-byte aligned, else one element.
-template <typename T>
-int launch(const void* x, void* codes, void* sx, int M, int K,
-           cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);
-  const dim3 grid((M + WARPS - 1) / WARPS);
-  const bool wide = (size_t)K * sizeof(T) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  if (wide)
-    quantize_rows_kernel<T, VEC><<<grid, WARPS * 32, 0, stream>>>(
-        (const T*)x, (int8_t*)codes, (float*)sx, M, K, padded_k(K));
-  else
-    quantize_rows_kernel<T, 1><<<grid, WARPS * 32, 0, stream>>>(
-        (const T*)x, (int8_t*)codes, (float*)sx, M, K, padded_k(K));
+__device__ __forceinline__ float group_max(float v, int G) {
+  for (int o = G >> 1; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// sx = amax / 127 (IEEE), inv = 1 / sx (IEEE), or 0 for a zero row
+__device__ __forceinline__ float scale_of(float amax) {
+  return __fdiv_rn(amax, 127.f);
+}
+__device__ __forceinline__ float inverse(float s) {
+  return s > 0.f ? __frcp_rn(s) : 0.f;  // a zero row: codes 0
+}
+
+// The row in registers: a group of G lanes a row, V units of U elements a
+// lane (lane l's slot i is unit i * G + l, so each slot is one coalesced
+// run and only the last slot can lie past the row). Every load of the row
+// is issued before the reduction; the codes are formed from the same
+// registers.
+template <typename T, int U, int V>
+__global__ void __launch_bounds__(256, 1)
+    quantize_rows_kernel(const T* __restrict__ x,
+                         int8_t* __restrict__ codes, float* __restrict__ sx,
+                         int M, int K, int Kp, int G) {
+  const int nu = K / U;  // units a row
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (G - 1);
+  const int lg = __ffs(G) - 1;  // G = 2^lg
+  const int rows_per_warp = 32 >> lg;
+  const int warps = blockDim.x >> 5;
+  const bool tail = (V - 1) * G + gl < nu;
+  auto has = [&](int i) { return i < V - 1 || tail; };
+
+  // warp-uniform trip count: every lane takes part in every shuffle
+  const int step = gridDim.x * warps * rows_per_warp;
+  for (int r0 = (blockIdx.x * warps + (threadIdx.x >> 5)) * rows_per_warp;
+       r0 < M; r0 += step) {
+    const int row = r0 + (lane >> lg);
+    const bool live = row < M;
+    const T* xr = x + (size_t)row * K;
+    Unit<T, U> u[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      u[i] = Unit<T, U>{};
+      if (live && has(i))
+        u[i] = *reinterpret_cast<const Unit<T, U>*>(xr + (i * G + gl) * U);
+    }
+    float a = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+#pragma unroll
+      for (int e = 0; e < U; ++e) a = fmaxf(a, fabsf(to_f32(u[i].v[e])));
+    a = group_max(a, G);
+    if (live) {
+      const float s = scale_of(a);
+      const float inv = inverse(s);
+      if (gl == 0) sx[row] = s;
+      int8_t* cr = codes + (size_t)row * Kp;
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        if (has(i)) store_codes<T, U>(cr + (i * G + gl) * U, u[i], inv);
+      for (int c = K + gl; c < Kp; c += G) cr[c] = 0;
+    }
+  }
+}
+
+// Rows wider than the registers hold (more than 32 * vmax units): one
+// block per row, a pass for the amax and a second for the codes that
+// reads the row again, from L2. No model width takes it but f32 rows past
+// 1,536 (PERF.md).
+template <typename T, int U>
+__global__ void __launch_bounds__(WIDE_BLOCK, 1)
+    quantize_wide_kernel(const T* __restrict__ x,
+                         int8_t* __restrict__ codes, float* __restrict__ sx,
+                         int M, int K, int Kp) {
+  __shared__ float red[WIDE_BLOCK / 32];
+  const int nu = K / U;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int row = blockIdx.x; row < M; row += gridDim.x) {
+    const T* xr = x + (size_t)row * K;
+    float a = 0.f;
+    for (int c = threadIdx.x; c < nu; c += WIDE_BLOCK) {
+      const Unit<T, U> u = *reinterpret_cast<const Unit<T, U>*>(xr + c * U);
+#pragma unroll
+      for (int e = 0; e < U; ++e) a = fmaxf(a, fabsf(to_f32(u.v[e])));
+    }
+    a = group_max(a, 32);
+    __syncthreads();  // the previous row's readers are done with red
+    if (lane == 0) red[warp] = a;
+    __syncthreads();
+    a = group_max(lane < WIDE_BLOCK / 32 ? red[lane] : 0.f, 32);
+    const float s = scale_of(a);
+    const float inv = inverse(s);
+    if (threadIdx.x == 0) sx[row] = s;
+    int8_t* cr = codes + (size_t)row * Kp;
+    for (int c = threadIdx.x; c < nu; c += WIDE_BLOCK)
+      store_codes<T, U>(cr + c * U,
+                        *reinterpret_cast<const Unit<T, U>*>(xr + c * U),
+                        inv);
+    for (int c = K + threadIdx.x; c < Kp; c += WIDE_BLOCK) cr[c] = 0;
+  }
+}
+
+struct Args {
+  const void* x;
+  int8_t* codes;
+  float* sx;
+  int M, K;
+  cudaStream_t st;
+};
+
+template <typename T, int U, int V>
+int launch_rows(const Args& a, int G) {
+  const int sms = hopper::sm_count();
+  const long long warps_needed = ((long long)a.M + 32 / G - 1) / (32 / G);
+  // the fewest warps a block (down to one) that still gives every SM two
+  // blocks, so that small M spreads over the card
+  int tb = 256;
+  while (tb > 32 && (warps_needed * 32 + tb - 1) / tb < 2LL * sms) tb >>= 1;
+  const long long blocks = (warps_needed * 32 + tb - 1) / tb;
+  const long long most = (long long)sms * (2048 / tb);
+  quantize_rows_kernel<T, U, V>
+      <<<(int)(blocks < most ? blocks : most), tb, 0, a.st>>>(
+          (const T*)a.x, a.codes, a.sx, a.M, a.K, padded_k(a.K), G);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int U, int V = 1>
+int dispatch_v(const Args& a, int G, int v) {
+  if constexpr (V > vmax<T, U>()) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (v == V) return launch_rows<T, U, V>(a, G);
+    return dispatch_v<T, U, V + 1>(a, G, v);
+  }
+}
+
+template <typename T, int U>
+int launch_u(const Args& a) {
+  const int nu = a.K / U;
+  if (nu > 32 * vmax<T, U>()) {  // wider than a row in registers
+    const int sms = hopper::sm_count();
+    quantize_wide_kernel<T, U>
+        <<<a.M < sms * 8 ? a.M : sms * 8, WIDE_BLOCK, 0, a.st>>>(
+            (const T*)a.x, a.codes, a.sx, a.M, a.K, padded_k(a.K));
+    return (int)cudaGetLastError();
+  }
+  // G lanes a row, V units a lane: the fewest masked slots, then the most
+  // lanes (the LayerNorm's rule)
+  int best_g = 0, best_v = 0, waste = 1 << 30;
+  for (int g = 32; g >= 8; g >>= 1)
+    for (int v = 1; v <= vmax<T, U>(); ++v)
+      if (g * v >= nu && g * v - nu < waste) {
+        waste = g * v - nu;
+        best_g = g;
+        best_v = v;
+      }
+  return dispatch_v<T, U>(a, best_g, best_v);
+}
+
+// The unit by K: 16 elements (16 code bytes a store) where K allows it,
+// else 8, 4 or one; one element where x is not aligned for the unit's
+// accesses. The codes rows (Kp a multiple of 32) are always aligned.
+template <typename T>
+int launch(const Args& a) {
+  int u = a.K % 16 == 0 ? 16 : a.K % 8 == 0 ? 8 : a.K % 4 == 0 ? 4 : 1;
+  const size_t need = u * sizeof(T) < 16 ? u * sizeof(T) : 16;
+  if (reinterpret_cast<uintptr_t>(a.x) % need != 0 ||
+      reinterpret_cast<uintptr_t>(a.codes) % 16 != 0)
+    u = 1;
+  switch (u) {
+    case 16: return launch_u<T, 16>(a);
+    case 8: return launch_u<T, 8>(a);
+    case 4: return launch_u<T, 4>(a);
+    default: return launch_u<T, 1>(a);
+  }
 }
 
 }  // namespace quant
@@ -321,6 +497,43 @@ __device__ __forceinline__ __nv_bfloat162 finish(float p0, float p1,
   return has_b ? rb : r;
 }
 
+// Form (c)'s activation, as PyTorch's CUDA F.gelu computes it (ATen's
+// GeluCUDAKernelImpl, in f32 for bf16 and f32 alike), so that the result
+// is F.gelu's bit for bit: the exact form x * 0.5 * (1 + erf(x / sqrt 2)),
+// or with approximate="tanh" 0.5 * x * (1 + tanh(sqrt(2 / pi) * (x +
+// 0.044715 x^3))). The constants are ATen's: double expressions narrowed
+// to f32 once.
+constexpr int GELU_ERF = 1, GELU_TANH = 2;  // ACT; 0: no activation
+
+template <int ACT>
+__device__ __forceinline__ float gelu(float x) {
+  if constexpr (ACT == GELU_ERF) {
+    constexpr float kAlpha = 0.70710678118654752440;  // M_SQRT1_2
+    return __fmul_rn(__fmul_rn(x, 0.5f),
+                     __fadd_rn(1.f, erff(__fmul_rn(x, kAlpha))));
+  } else {
+    // M_SQRT2 * M_2_SQRTPI * 0.5
+    constexpr float kBeta =
+        1.41421356237309504880 * 1.12837916709551257390 * 0.5;
+    constexpr float kKappa = 0.044715;
+    const float x_cube = x * x * x;
+    const float inner = kBeta * (x + kKappa * x_cube);
+    return 0.5f * x * (1.f + tanhf(inner));
+  }
+}
+
+// GELU of a finished pair, rounded to the output type as F.gelu rounds it
+// (bf16: its input is the stored bf16 value)
+template <int ACT>
+__device__ __forceinline__ float2 activate(float2 v) {
+  return make_float2(gelu<ACT>(v.x), gelu<ACT>(v.y));
+}
+template <int ACT>
+__device__ __forceinline__ __nv_bfloat162 activate(__nv_bfloat162 v) {
+  const float2 f = __bfloat1622float2(v);
+  return __floats2bfloat162_rn(gelu<ACT>(f.x), gelu<ACT>(f.y));
+}
+
 // out[m, n] and out[m, n + 1] (n even, n < N), masked at the M and N
 // edges: one store of the pair when N is even (n + 1 < N then).
 __device__ __forceinline__ void store2(float* __restrict__ out, int M, int N,
@@ -378,7 +591,7 @@ __device__ __forceinline__ uint32_t staged(int r, int c) {
 // warp w holds (rows 16 w + t / 4 and + 8 of the half, columns 8 j + 2 (t
 // % 4) and + 1) in acc[4 j .. 4 j + 3], the f32 layout of the bf16
 // m64nNk16.
-template <int H, int C, typename Tout>
+template <int H, int C, int ACT, typename Tout>
 __device__ __forceinline__ void store_chunk(const int (&acc)[BN / 2],
                                             const Epi& e, Sink<Tout>& o) {
   using Pair = decltype(finish(0.f, 0.f, 0.f, 0.f, false, o.out));
@@ -398,6 +611,10 @@ __device__ __forceinline__ void store_chunk(const int (&acc)[BN / 2],
                     b0, b1, has_b, o.out);
     hi[jj] = finish(scaled(acc[4 * j + 2], sb, w0),
                     scaled(acc[4 * j + 3], sb, w1), b0, b1, has_b, o.out);
+    if constexpr (ACT != 0) {
+      lo[jj] = activate<ACT>(lo[jj]);
+      hi[jj] = activate<ACT>(hi[jj]);
+    }
   }
   if (o.map == nullptr) {
 #pragma unroll
@@ -432,23 +649,23 @@ __device__ __forceinline__ void store_chunk(const int (&acc)[BN / 2],
 }
 
 // The whole epilogue of a tile: both halves, chunk by chunk.
-template <typename Tout>
+template <int ACT, typename Tout>
 __device__ __forceinline__ void store_tile(const int (&acc)[2][BN / 2],
                                            const Epi& e, Sink<Tout>& o) {
-  store_chunk<0, 0>(acc[0], e, o);
-  store_chunk<0, 1>(acc[0], e, o);
-  store_chunk<0, 2>(acc[0], e, o);
-  store_chunk<0, 3>(acc[0], e, o);
-  store_chunk<1, 0>(acc[1], e, o);
-  store_chunk<1, 1>(acc[1], e, o);
-  store_chunk<1, 2>(acc[1], e, o);
-  store_chunk<1, 3>(acc[1], e, o);
+  store_chunk<0, 0, ACT>(acc[0], e, o);
+  store_chunk<0, 1, ACT>(acc[0], e, o);
+  store_chunk<0, 2, ACT>(acc[0], e, o);
+  store_chunk<0, 3, ACT>(acc[0], e, o);
+  store_chunk<1, 0, ACT>(acc[1], e, o);
+  store_chunk<1, 1, ACT>(acc[1], e, o);
+  store_chunk<1, 2, ACT>(acc[1], e, o);
+  store_chunk<1, 3, ACT>(acc[1], e, o);
 }
 
 // Tout = float: form (a) when bias is null, else form (b) in f32;
-// Tout = __nv_bfloat16: form (b). The roles and the ring are the file
-// header's.
-template <typename Tout>
+// Tout = __nv_bfloat16: form (b). ACT = GELU_ERF or GELU_TANH: form (c),
+// GELU after form (b). The roles and the ring are the file header's.
+template <typename Tout, int ACT>
 __global__ void __launch_bounds__(THREADS, 1)
     int8_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
                        const __grid_constant__ CUtensorMap map_b,
@@ -546,7 +763,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int j = 0; j < BN / 2; ++j) hopper::fence_operand(acc[h][j]);
-      store_tile(acc, e, o);
+      store_tile<ACT>(acc, e, o);
     }
     if (o.map != nullptr && (threadIdx.x & 127) == 0) hopper::bulk_wait<0>();
   }
@@ -557,13 +774,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 // encode_map's cache: the weight's is encoded once, the activation codes'
 // and the output's once per address the caching allocator hands out. The
 // output is stored by TMA when its row stride is a multiple of 16 bytes.
-template <typename Tout>
+template <typename Tout, int ACT>
 int launch(const void* codes, const void* w, const void* sx, const void* sw,
            const void* bias, void* out, int M, int Kp, int N,
            cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      int8_matmul_kernel<Tout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM);
+      int8_matmul_kernel<Tout, ACT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr != cudaSuccess) return (int)attr;
   constexpr bool f32 = sizeof(Tout) == 4;
   const bool tma_out = (size_t)N * sizeof(Tout) % 16 == 0;
@@ -585,7 +802,7 @@ int launch(const void* codes, const void* w, const void* sx, const void* sw,
       (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   const int grid = (int)(tiles < hopper::sm_count() ? tiles
                                                     : hopper::sm_count());
-  int8_matmul_kernel<Tout><<<grid, THREADS, SMEM, stream>>>(
+  int8_matmul_kernel<Tout, ACT><<<grid, THREADS, SMEM, stream>>>(
       map_a, map_b, map_out, tma_out, (const float*)sx, (const float*)sw,
       (const Tout*)bias, (Tout*)out, M, Kp, N);
   return (int)cudaGetLastError();
@@ -598,14 +815,15 @@ int launch(const void* codes, const void* w, const void* sx, const void* sw,
 extern "C" int quantize_rows_i8_f32(const void* x, void* codes, void* sx,
                                     int M, int K, void* stream) {
   if (M <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  return quant::launch<float>(x, codes, sx, M, K, (cudaStream_t)stream);
+  return quant::launch<float>(
+      {x, (int8_t*)codes, (float*)sx, M, K, (cudaStream_t)stream});
 }
 
 extern "C" int quantize_rows_i8_bf16(const void* x, void* codes, void* sx,
                                      int M, int K, void* stream) {
   if (M <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  return quant::launch<__nv_bfloat16>(x, codes, sx, M, K,
-                                      (cudaStream_t)stream);
+  return quant::launch<__nv_bfloat16>(
+      {x, (int8_t*)codes, (float*)sx, M, K, (cudaStream_t)stream});
 }
 
 extern "C" int int8_matmul(const void* codes, const void* w, const void* sx,
@@ -613,6 +831,25 @@ extern "C" int int8_matmul(const void* codes, const void* w, const void* sx,
                            int Kp, int N, int bf16_out, void* stream) {
   if (M <= 0 || N <= 0 || Kp <= 0 || Kp % KP_ALIGN != 0)
     return (int)cudaErrorInvalidValue;
-  return (bf16_out ? mm::launch<__nv_bfloat16> : mm::launch<float>)(
+  return (bf16_out ? mm::launch<__nv_bfloat16, 0> : mm::launch<float, 0>)(
       codes, w, sx, sw, bias, out, M, Kp, N, (cudaStream_t)stream);
+}
+
+// Form (c): form (b), then GELU (tanh_approx: the tanh form), stored in
+// the output type.
+extern "C" int int8_matmul_gelu(const void* codes, const void* w,
+                                const void* sx, const void* sw,
+                                const void* bias, void* out, int M, int Kp,
+                                int N, int bf16_out, int tanh_approx,
+                                void* stream) {
+  if (M <= 0 || N <= 0 || Kp <= 0 || Kp % KP_ALIGN != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tanh_approx)
+    return (bf16_out ? mm::launch<__nv_bfloat16, mm::GELU_TANH>
+                     : mm::launch<float, mm::GELU_TANH>)(
+        codes, w, sx, sw, bias, out, M, Kp, N, st);
+  return (bf16_out ? mm::launch<__nv_bfloat16, mm::GELU_ERF>
+                   : mm::launch<float, mm::GELU_ERF>)(
+      codes, w, sx, sw, bias, out, M, Kp, N, st);
 }

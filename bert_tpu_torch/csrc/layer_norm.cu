@@ -51,6 +51,22 @@
 // block per row that forms v = x (+ pre_bias) (+ residual) anew on each of
 // its three passes (sum, squared deviations, write), re-reading x and the
 // residual, which L2 serves; it has no upper limit on D.
+//
+// The codes form (entries layer_norm_codes_*; CODES in the kernels) also
+// writes the W8A8 activation codes of the output for an int8 product
+// that takes it (replacing bert_tpu/ops/int8_matmul.py::
+// quantize_activations_i8 on the LayerNorm's output, and the launch and
+// the read of the output that quantizing it apart costs): codes[M, Kp]
+// int8 (Kp = D rounded up to 32, a zero tail) and sx[M] f32, formed from
+// the ROUNDED outputs, which stay in registers for one more group
+// reduction, the max |out|; the codes are then int8_matmul.cu's
+// arithmetic on the same registers, N codes a store. It adds 1 byte an
+// element and 4 a row to the bytes moved (f32 x, bf16 residual and out at
+// 8,192 x 768: 50.3 MB -> 56.6 MB, 0.0169 ms). The wide instance takes
+// the max in its write pass and reads its own output back for the codes.
+// The outputs are the plain form's bit for bit: the same expression, in
+// instances of their own (CODES), so that the extra registers the codes
+// take are not the plain form's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,6 +129,55 @@ __device__ __forceinline__ float group_sum(float v, int G) {
   return v;
 }
 
+__device__ __forceinline__ float group_max(float v, int G) {
+  for (int o = G >> 1; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// the codes form: the W8A8 activation codes of the rounded output
+// ---------------------------------------------------------------------------
+
+// int8_matmul.cu's arithmetic (bert_tpu's quantize_activations_i8): sx =
+// amax / 127 (IEEE), inv = 1 / sx (IEEE; 0 for a zero row), code =
+// clamp(rint(v * inv), -127, 127) with rint's round half to even; codes
+// rows padded with zeros to Kp, the s8 wgmma's depth of 32.
+constexpr int KP_ALIGN = 32;
+
+__device__ __forceinline__ int padded(int D) {
+  return (D + KP_ALIGN - 1) / KP_ALIGN * KP_ALIGN;
+}
+
+__device__ __forceinline__ float scale_of(float amax) {
+  return __fdiv_rn(amax, 127.f);
+}
+__device__ __forceinline__ float inverse(float s) {
+  return s > 0.f ? __frcp_rn(s) : 0.f;
+}
+__device__ __forceinline__ uint32_t code(float v, float inv) {
+  const float q = fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f);
+  return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(q)));
+}
+
+// the N codes of a vector of outputs, written by one store of N bytes
+template <typename T, int N>
+__device__ __forceinline__ void store_codes(int8_t* p, const Vec<T, N>& o,
+                                            float inv) {
+  uint32_t w[(N + 3) / 4] = {};
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    w[e / 4] |= code(to_f32(o.v[e]), inv) << 8 * (e % 4);
+  if constexpr (N == 8)
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  else if constexpr (N == 4)
+    *reinterpret_cast<uint32_t*>(p) = w[0];
+  else if constexpr (N == 2)
+    *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(w[0]);
+  else
+    *p = static_cast<int8_t>(w[0]);
+}
+
 // vectors a lane may hold: at most 32 floats of the row (and at most 8)
 constexpr int vmax(int N) { return N >= 8 ? 32 / N : 8; }
 
@@ -121,14 +186,16 @@ constexpr int vmax(int N) { return N >= 8 ? 32 / N : 8; }
 // ---------------------------------------------------------------------------
 
 // One block an SM is enough: without that bound, ptxas spilled in two
-// instances to fit a lower register count
-template <typename Tin, typename Tout, int N, int V>
+// instances to fit a lower register count. CODES: the codes form, which
+// also writes codes[M, Kp] and sx[M] of the rounded output.
+template <typename Tin, typename Tout, int N, int V, bool CODES>
 __global__ void __launch_bounds__(256, 1)
     ln_rows_kernel(const Tin* __restrict__ x,
                    const Tout* __restrict__ residual,
                    const float* __restrict__ pre_bias,
                    const float* __restrict__ scale,
                    const float* __restrict__ bias, Tout* __restrict__ out,
+                   int8_t* __restrict__ codes, float* __restrict__ sx,
                    int M, int D, int G, float eps) {
   const int nv = D / N;  // vectors a row
   const int lane = threadIdx.x & 31;
@@ -197,15 +264,48 @@ __global__ void __launch_bounds__(256, 1)
       }
     const float rstd = rsqrtf(group_sum(sq, G) / (float)D + eps);
 
+    if constexpr (!CODES) {
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      if (!live || !has(i)) continue;
-      Vec<Tout, N> o;
+      for (int i = 0; i < V; ++i) {
+        if (!live || !has(i)) continue;
+        Vec<Tout, N> o;
 #pragma unroll
-      for (int e = 0; e < N; ++e)
-        o.v[e] = from_f32<Tout>((v[i][e] - mean) * rstd * sc[i][e] + bi[i][e]);
-      *reinterpret_cast<Vec<Tout, N>*>(out + base + (size_t)(i * G + gl) * N) =
-          o;
+        for (int e = 0; e < N; ++e)
+          o.v[e] =
+              from_f32<Tout>((v[i][e] - mean) * rstd * sc[i][e] + bi[i][e]);
+        *reinterpret_cast<Vec<Tout, N>*>(out + base +
+                                         (size_t)(i * G + gl) * N) = o;
+      }
+    } else {
+      // the same outputs, kept for one more reduction: the max |output|
+      // as rounded (a masked slot's is 0), then the codes from the same
+      // registers
+      Vec<Tout, N> o[V];
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          o[i].v[e] =
+              from_f32<Tout>((v[i][e] - mean) * rstd * sc[i][e] + bi[i][e]);
+          amax = fmaxf(amax, fabsf(to_f32(o[i].v[e])));
+        }
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        if (live && has(i))
+          *reinterpret_cast<Vec<Tout, N>*>(out + base +
+                                           (size_t)(i * G + gl) * N) = o[i];
+      const float s = scale_of(group_max(amax, G));
+      const float inv = inverse(s);
+      if (live) {
+        const int kp = padded(D);
+        int8_t* cr = codes + (size_t)row * kp;
+        if (gl == 0) sx[row] = s;
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          if (has(i)) store_codes<Tout, N>(cr + (i * G + gl) * N, o[i], inv);
+        for (int c = D + gl; c < kp; c += G) cr[c] = 0;
+      }
     }
   }
 }
@@ -224,13 +324,26 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return group_sum(lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f, 32);
 }
 
-template <typename Tin, typename Tout, int N>
+__device__ __forceinline__ float block_max(float v, float* red) {
+  v = group_max(v, 32);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  return group_max(lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f, 32);
+}
+
+// CODES: the codes form. The third pass also takes the max |output| as
+// rounded; a fourth reads the block's own stores back (visible to it
+// after block_max's barrier) and writes the codes.
+template <typename Tin, typename Tout, int N, bool CODES>
 __global__ void __launch_bounds__(ROW_BLOCK)
     ln_block_kernel(const Tin* __restrict__ x,
                     const Tout* __restrict__ residual,
                     const float* __restrict__ pre_bias,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias, Tout* __restrict__ out,
+                    int8_t* __restrict__ codes, float* __restrict__ sx,
                     int M, int D, float eps) {
   __shared__ float red[32];
   const int nv = D / N;
@@ -270,6 +383,7 @@ __global__ void __launch_bounds__(ROW_BLOCK)
       }
     }
     const float rstd = rsqrtf(block_sum(sq, red) / (float)D + eps);
+    float amax = 0.f;
     for (int c = threadIdx.x; c < nv; c += blockDim.x) {
       value(c, v);
       float sc[N], bi[N];
@@ -277,9 +391,24 @@ __global__ void __launch_bounds__(ROW_BLOCK)
       ld_f32<N>(bi, bias + c * N);
       Vec<Tout, N> o;
 #pragma unroll
-      for (int e = 0; e < N; ++e)
+      for (int e = 0; e < N; ++e) {
         o.v[e] = from_f32<Tout>((v[e] - mean) * rstd * sc[e] + bi[e]);
+        if constexpr (CODES) amax = fmaxf(amax, fabsf(to_f32(o.v[e])));
+      }
       *reinterpret_cast<Vec<Tout, N>*>(out + base + (size_t)c * N) = o;
+    }
+    if constexpr (CODES) {
+      const float s = scale_of(block_max(amax, red));
+      const float inv = inverse(s);
+      const int kp = padded(D);
+      int8_t* cr = codes + (size_t)row * kp;
+      if (threadIdx.x == 0) sx[row] = s;
+      for (int c = threadIdx.x; c < nv; c += blockDim.x)
+        store_codes<Tout, N>(
+            cr + c * N,
+            *reinterpret_cast<const Vec<Tout, N>*>(out + base + (size_t)c * N),
+            inv);
+      for (int c = D + threadIdx.x; c < kp; c += blockDim.x) cr[c] = 0;
     }
   }
 }
@@ -294,6 +423,8 @@ struct Args {
   int M, D;
   float eps;
   cudaStream_t st;
+  void* codes = nullptr;  // the codes form: codes[M, Kp] int8 and sx[M]
+  void* sx = nullptr;
 };
 
 template <typename Tin, typename Tout, int N, int V>
@@ -309,10 +440,12 @@ int launch_rows(const Args& a, int G) {
   const int grid = (int)(blocks < (long long)sms * (2048 / tb)
                              ? blocks
                              : (long long)sms * (2048 / tb));
-  ln_rows_kernel<Tin, Tout, N, V><<<grid, tb, 0, a.st>>>(
+  auto kernel = a.codes != nullptr ? ln_rows_kernel<Tin, Tout, N, V, true>
+                                   : ln_rows_kernel<Tin, Tout, N, V, false>;
+  kernel<<<grid, tb, 0, a.st>>>(
       (const Tin*)a.x, (const Tout*)a.residual, (const float*)a.pre_bias,
-      (const float*)a.scale, (const float*)a.bias, (Tout*)a.out, a.M, a.D, G,
-      a.eps);
+      (const float*)a.scale, (const float*)a.bias, (Tout*)a.out,
+      (int8_t*)a.codes, (float*)a.sx, a.M, a.D, G, a.eps);
   return (int)cudaGetLastError();
 }
 
@@ -332,10 +465,12 @@ int launch_n(const Args& a) {
   if (nv > 32 * vmax(N)) {  // wider than a row in registers
     const int sms = hopper::sm_count();
     const int grid = a.M < sms * 8 ? a.M : sms * 8;
-    ln_block_kernel<Tin, Tout, N><<<grid, ROW_BLOCK, 0, a.st>>>(
+    auto kernel = a.codes != nullptr ? ln_block_kernel<Tin, Tout, N, true>
+                                     : ln_block_kernel<Tin, Tout, N, false>;
+    kernel<<<grid, ROW_BLOCK, 0, a.st>>>(
         (const Tin*)a.x, (const Tout*)a.residual, (const float*)a.pre_bias,
-        (const float*)a.scale, (const float*)a.bias, (Tout*)a.out, a.M, a.D,
-        a.eps);
+        (const float*)a.scale, (const float*)a.bias, (Tout*)a.out,
+        (int8_t*)a.codes, (float*)a.sx, a.M, a.D, a.eps);
     return (int)cudaGetLastError();
   }
   // G lanes a row, V vectors a lane: the fewest masked slots, then the
@@ -371,7 +506,8 @@ int launch(const Args& a) {
   if (!aligned(a.x, need(sizeof(Tin))) ||
       !aligned(a.residual, need(sizeof(Tout))) ||
       !aligned(a.out, need(sizeof(Tout))) || !aligned(a.scale, need(4)) ||
-      !aligned(a.bias, need(4)) || !aligned(a.pre_bias, need(4)))
+      !aligned(a.bias, need(4)) || !aligned(a.pre_bias, need(4)) ||
+      !aligned(a.codes, n))  // rows of Kp bytes: n-byte code stores
     return (int)cudaErrorMisalignedAddress;
   if constexpr (std::is_same<Tout, bf16>::value) {
     if (n == 8) return launch_n<Tin, Tout, 8>(a);
@@ -408,4 +544,37 @@ extern "C" int layer_norm_f32_bf16(const void* x, const void* residual,
                                    float eps, void* stream) {
   return launch<float, bf16>({x, residual, pre_bias, scale, bias, out, M, D,
                               eps, (cudaStream_t)stream});
+}
+
+// The codes form of each: also codes[M, Kp] int8 (Kp = D rounded up to 32,
+// zero tail) and sx[M] f32, the W8A8 activation codes of the rounded out
+extern "C" int layer_norm_codes_f32(const void* x, const void* residual,
+                                    const void* pre_bias, const void* scale,
+                                    const void* bias, void* out, void* codes,
+                                    void* sx, int M, int D, float eps,
+                                    void* stream) {
+  if (codes == nullptr || sx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<float, float>({x, residual, pre_bias, scale, bias, out, M, D,
+                               eps, (cudaStream_t)stream, codes, sx});
+}
+
+extern "C" int layer_norm_codes_bf16(const void* x, const void* residual,
+                                     const void* pre_bias, const void* scale,
+                                     const void* bias, void* out, void* codes,
+                                     void* sx, int M, int D, float eps,
+                                     void* stream) {
+  if (codes == nullptr || sx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<bf16, bf16>({x, residual, pre_bias, scale, bias, out, M, D,
+                             eps, (cudaStream_t)stream, codes, sx});
+}
+
+extern "C" int layer_norm_codes_f32_bf16(const void* x, const void* residual,
+                                         const void* pre_bias,
+                                         const void* scale, const void* bias,
+                                         void* out, void* codes, void* sx,
+                                         int M, int D, float eps,
+                                         void* stream) {
+  if (codes == nullptr || sx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<float, bf16>({x, residual, pre_bias, scale, bias, out, M, D,
+                              eps, (cudaStream_t)stream, codes, sx});
 }

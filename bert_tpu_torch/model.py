@@ -30,6 +30,17 @@ as ``nn.Parameter``s, layer-stacked as in bert_tpu's tree, and
 ``remat=True`` recomputes each layer's activations in the backward
 (``torch.utils.checkpoint``) instead of keeping them.
 
+The int8 regime (every matmul weight an :class:`Int8Weight`, as
+``params_to_int8`` makes the tree) folds the quantization of the QKV and
+FFN-up inputs into the op that makes them: the embedding LayerNorm and
+each layer's two LayerNorms take their codes form (the codes of their
+rounded output, for the next QKV and this layer's FFN-up product; the
+last layer's writes none), and FFN-up takes the product's form (c) (bias
+and GELU in its epilogue). The codes travel beside the activation as a
+:class:`Folded`. The attention context and FFN-up's output are quantized
+on their own. The same structure runs on the CPU through the plain
+versions, bit for bit the unfolded ops.
+
 Tensor parallelism (bert_tpu's ``tp_axis``): a model built from one
 rank's Megatron shard (parallel/sharding.py) carries its mesh's ``model``
 process group, ``tp_group``. Its QKV and FFN-up weights hold whole heads
@@ -45,7 +56,7 @@ all-reduces are Megatron's *f* and *g* operators
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -55,12 +66,29 @@ from torch.utils.checkpoint import checkpoint
 from .ops.common import NEG_INF
 from .ops.attention import _mha_plain, multi_head_attention
 from .ops.fused_attention import fused_qkv_attention, fused_route
-from .ops.int8_matmul import Int8Weight, int8_matmul, int8_matmul_plain
-from .ops.layer_norm import fused_layer_norm, layer_norm_plain
+from .ops.int8_matmul import (Int8Weight, int8_matmul, int8_matmul_codes,
+                              int8_matmul_codes_plain, int8_matmul_gelu,
+                              int8_matmul_gelu_plain, int8_matmul_plain,
+                              quantize_activations_i8,
+                              quantize_activations_i8_plain)
+from .ops.layer_norm import (fused_layer_norm, fused_layer_norm_codes,
+                             layer_norm_codes_plain, layer_norm_plain)
 from .ops.q4_matmul import q4_matmul, q4_matmul_plain
 from .parallel.collectives import copy_to_model, reduce_from_model
 from .params import BertConfig
 from .quant import QuantTensor
+
+
+class Folded(NamedTuple):
+    """An activation x [..., D] in the int8 regime with the W8A8 codes of
+    its rows, as its producer wrote them: ``codes`` [M, Kp] int8 and
+    ``sx`` [M] f32, M = x.numel() / D."""
+    x: torch.Tensor
+    codes: torch.Tensor
+    sx: torch.Tensor
+
+
+Codes = Tuple[torch.Tensor, torch.Tensor]  # (codes [M, Kp], sx [M])
 
 
 def _plain(use_kernels: Optional[bool], x: torch.Tensor) -> bool:
@@ -114,18 +142,55 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
     return y
 
 
+def dense_codes(x: torch.Tensor, codes: Codes, w: Int8Weight,
+                b: Optional[torch.Tensor] = None, *, f32_out: bool = False,
+                use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """:func:`dense` on an Int8Weight whose input x comes with its codes
+    from its producer: the product takes them and launches no
+    quantization of x; the same bits."""
+    if not isinstance(w, Int8Weight):
+        raise ValueError("dense_codes: codes are for an Int8Weight")
+    if f32_out and b is not None:
+        raise ValueError("dense: f32_out takes no bias")
+    y = (int8_matmul_codes_plain if _plain(use_kernels, x)
+         else int8_matmul_codes)(*codes, w, None if b is None
+                                 else b.to(x.dtype),
+                                 torch.float32 if f32_out else x.dtype)
+    return y.reshape(*x.shape[:-1], w.n)
+
+
+def dense_gelu(x: torch.Tensor, w: Int8Weight, b: torch.Tensor,
+               codes: Codes, *, approximate: bool,
+               use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """FFN-up in the int8 regime: ``gelu(x @ W + b)`` in x's dtype from x's
+    ``codes``, by the product's form (c); bit for bit :func:`dense`, then
+    ``F.gelu``."""
+    h = (int8_matmul_gelu_plain if _plain(use_kernels, x)
+         else int8_matmul_gelu)(*codes, w, b.to(x.dtype), x.dtype,
+                                approximate)
+    return h.reshape(*x.shape[:-1], w.n)
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float, *, residual: Optional[torch.Tensor] = None,
                pre_bias: Optional[torch.Tensor] = None,
-               out_dtype: Optional[torch.dtype] = None,
-               use_kernels: Optional[bool] = None) -> torch.Tensor:
+               out_dtype: Optional[torch.dtype] = None, codes: bool = False,
+               use_kernels: Optional[bool] = None
+               ) -> Union[torch.Tensor, Folded]:
     """``LN(x [+ pre_bias] [+ residual])`` in ``out_dtype`` (x's dtype by
     default): the fused kernel, or ``layer_norm_plain`` on x rounded to
-    ``out_dtype`` — what the kernel's wrapper runs on a CPU tensor."""
+    ``out_dtype`` — what the kernel's wrapper runs on a CPU tensor. With
+    ``codes``, its codes form: a :class:`Folded`."""
     if _plain(use_kernels, x):
-        return layer_norm_plain(x.to(x.dtype if out_dtype is None
-                                     else out_dtype),
-                                scale, bias, eps, residual, pre_bias)
+        x = x.to(x.dtype if out_dtype is None else out_dtype)
+        if codes:
+            return Folded(*layer_norm_codes_plain(x, scale, bias, eps,
+                                                  residual, pre_bias))
+        return layer_norm_plain(x, scale, bias, eps, residual, pre_bias)
+    if codes:
+        return Folded(*fused_layer_norm_codes(
+            x, scale, bias, eps=eps, residual=residual, pre_bias=pre_bias,
+            out_dtype=out_dtype))
     return fused_layer_norm(x, scale, bias, eps=eps, residual=residual,
                             pre_bias=pre_bias, out_dtype=out_dtype)
 
@@ -133,10 +198,12 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def embed(token_ids: torch.Tensor, w: Callable[[str], torch.Tensor],
           config: BertConfig, dtype: torch.dtype,
           position_ids: Optional[torch.Tensor] = None, *,
-          use_kernels: Optional[bool] = None) -> torch.Tensor:
+          codes: bool = False, use_kernels: Optional[bool] = None
+          ) -> Union[torch.Tensor, Folded]:
     """Token + token-type(0) + position embeddings, then LayerNorm
     (bert.cpp:784-814; ``bert_tpu.model.embed``); ``w(key)`` gives the
-    embedding weight of that name."""
+    embedding weight of that name. ``codes``: the LayerNorm's codes form,
+    for an int8 QKV product (a :class:`Folded`)."""
     # the add order word → token_type → position, in the compute dtype
     t = token_ids.shape[-1]
     x = w("word")[token_ids].to(dtype)
@@ -144,38 +211,53 @@ def embed(token_ids: torch.Tensor, w: Callable[[str], torch.Tensor],
     pos = w("position")
     x = x + (pos[:t] if position_ids is None else pos[position_ids]).to(dtype)
     return layer_norm(x, w("ln_scale"), w("ln_bias"), config.layer_norm_eps,
-                      use_kernels=use_kernels)
+                      codes=codes, use_kernels=use_kernels)
 
 
 def _row_parallel(h: torch.Tensor, wt, tp_group,
-                  use_kernels: Optional[bool]) -> torch.Tensor:
+                  use_kernels: Optional[bool],
+                  codes: Optional[Codes] = None) -> torch.Tensor:
     """The attention-output or FFN-down product, for a LayerNorm that
     rounds it to h's dtype. Without tensor parallelism: the f32 product,
     which the LayerNorm rounds (bit for bit bert_tpu's cast, then LN,
     without the cast's own launch). With it: each rank's partial product
     rounded to h's dtype, then summed over ``model`` in that dtype, as
     bert_tpu psums its rounded partials (bert_tpu/model.py:150-161)."""
+    product = (functools.partial(dense, h, wt) if codes is None
+               else functools.partial(dense_codes, h, codes, wt))
     if tp_group is None:
-        return dense(h, wt, f32_out=True, use_kernels=use_kernels)
-    return reduce_from_model(dense(h, wt, use_kernels=use_kernels),
-                             tp_group)
+        return product(f32_out=True, use_kernels=use_kernels)
+    return reduce_from_model(product(use_kernels=use_kernels), tp_group)
 
 
-def encoder_layer(x: torch.Tensor, w: Callable[[str], object],
+def encoder_layer(x: Union[torch.Tensor, Folded], w: Callable[[str], object],
                   mask_bias: torch.Tensor, config: BertConfig, *,
-                  use_kernels: Optional[bool] = None,
-                  tp_group=None) -> torch.Tensor:
+                  use_kernels: Optional[bool] = None, tp_group=None,
+                  fold: bool = False,
+                  last: bool = False) -> Union[torch.Tensor, Folded]:
     """One transformer encoder block (bert.cpp:816-903;
     ``bert_tpu.model.encoder_layer``); ``w(key)`` gives the layer's
     weight of that name. Under tensor parallelism (``tp_group``, the
     ``model`` process group; None = none) the weights are this rank's
-    Megatron shard and each residual branch ends in one all-reduce."""
+    Megatron shard and each residual branch ends in one all-reduce.
+
+    ``fold``: the int8 regime (the module docstring). x is then a
+    :class:`Folded` whose codes the QKV product takes, and the output
+    comes back as one for the next layer's QKV unless this is the
+    ``last`` layer. Under TP FFN-down's codes are quantized from the
+    rank's column shard of FFN-up's output, as bert_tpu quantizes the
+    local activation."""
+    x_codes = None
+    if fold:
+        x, x_codes = x.x, (x.codes, x.sx)
     dh = config.d_head
     b, t, _ = x.shape
     # ONE fused head-interleaved QKV matmul (params.py); under TP a column
     # shard holds whole heads
-    qkv = dense(copy_to_model(x, tp_group), w("qkv_w"), w("qkv_b"),
-                use_kernels=use_kernels)
+    x_in = copy_to_model(x, tp_group)
+    qkv = (dense_codes(x_in, x_codes, w("qkv_w"), w("qkv_b"),
+                       use_kernels=use_kernels) if fold else
+           dense(x_in, w("qkv_w"), w("qkv_b"), use_kernels=use_kernels))
     n_head = qkv.shape[-1] // (3 * dh)
     scale = 1.0 / (dh ** 0.5)  # bert.cpp:848
     # bert_tpu/model.py:135-148. use_kernels=False takes the plain
@@ -198,25 +280,40 @@ def encoder_layer(x: torch.Tensor, w: Callable[[str], object],
     att_out = _row_parallel(ctx, w("o_w"), tp_group, use_kernels)
     x = layer_norm(att_out, w("ln_att_scale"), w("ln_att_bias"),
                    config.layer_norm_eps, residual=x, pre_bias=w("o_b"),
-                   out_dtype=x.dtype,
+                   out_dtype=x.dtype, codes=fold,
                    use_kernels=use_kernels)  # residual 1, bert.cpp:859-875
-    h = dense(copy_to_model(x, tp_group), w("ff_i_w"), w("ff_i_b"),
-              use_kernels=use_kernels)
-    h = F.gelu(h, approximate="tanh" if config.gelu_approx else "none")
-    ff_out = _row_parallel(h, w("ff_o_w"), tp_group, use_kernels)
+    if fold:
+        x, ln_codes = x.x, (x.codes, x.sx)
+        h = dense_gelu(copy_to_model(x, tp_group), w("ff_i_w"), w("ff_i_b"),
+                       ln_codes, approximate=config.gelu_approx,
+                       use_kernels=use_kernels)
+        h2 = h.reshape(-1, h.shape[-1])
+        h_codes = (quantize_activations_i8_plain if _plain(use_kernels, h2)
+                   else quantize_activations_i8)(h2)
+    else:
+        h = dense(copy_to_model(x, tp_group), w("ff_i_w"), w("ff_i_b"),
+                  use_kernels=use_kernels)
+        h = F.gelu(h, approximate="tanh" if config.gelu_approx else "none")
+        h_codes = None
+    ff_out = _row_parallel(h, w("ff_o_w"), tp_group, use_kernels, h_codes)
     return layer_norm(ff_out, w("ln_out_scale"), w("ln_out_bias"),
                       config.layer_norm_eps, residual=x, pre_bias=w("ff_o_b"),
-                      out_dtype=x.dtype,
+                      out_dtype=x.dtype, codes=fold and not last,
                       use_kernels=use_kernels)  # residual 2, :885-901
 
 
-def _run_layers(layers, x: torch.Tensor, mask_bias: torch.Tensor,
-                use_kernels: Optional[bool], remat: bool) -> torch.Tensor:
+def _run_layers(layers, x: Union[torch.Tensor, Folded],
+                mask_bias: torch.Tensor, use_kernels: Optional[bool],
+                remat: bool, fold: bool = False) -> torch.Tensor:
     """``x = layer(x, mask_bias, use_kernels)`` for each layer in turn.
     ``remat`` runs each under ``torch.utils.checkpoint`` (non-reentrant):
     the backward recomputes the layer's activations instead of keeping
-    them, as bert_tpu's ``jax.checkpoint`` on the scanned layer does."""
-    for layer in layers:
+    them, as bert_tpu's ``jax.checkpoint`` on the scanned layer does.
+    ``fold``: the int8 regime, x a :class:`Folded` (:func:`encoder_layer`)."""
+    for i, layer in enumerate(layers):
+        if fold:
+            layer = functools.partial(layer, fold=True,
+                                      last=i == len(layers) - 1)
         if remat:
             x = checkpoint(layer, x, mask_bias, use_kernels,
                            use_reentrant=False)
@@ -268,9 +365,10 @@ class Embeddings(_Weights):
 
     def forward(self, token_ids: torch.Tensor, dtype: torch.dtype,
                 position_ids: Optional[torch.Tensor] = None,
-                use_kernels: Optional[bool] = None) -> torch.Tensor:
+                use_kernels: Optional[bool] = None,
+                codes: bool = False) -> Union[torch.Tensor, Folded]:
         return embed(token_ids, self.w, self.config, dtype, position_ids,
-                     use_kernels=use_kernels)
+                     codes=codes, use_kernels=use_kernels)
 
 
 class EncoderLayer(_Weights):
@@ -284,11 +382,13 @@ class EncoderLayer(_Weights):
         self.tp_group = tp_group
         self._register(lp)
 
-    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
-                use_kernels: Optional[bool] = None) -> torch.Tensor:
+    def forward(self, x: Union[torch.Tensor, Folded],
+                mask_bias: torch.Tensor,
+                use_kernels: Optional[bool] = None, *, fold: bool = False,
+                last: bool = False) -> Union[torch.Tensor, Folded]:
         return encoder_layer(x, self.w, mask_bias, self.config,
                              use_kernels=use_kernels,
-                             tp_group=self.tp_group)
+                             tp_group=self.tp_group, fold=fold, last=last)
 
 
 class BertModel(nn.Module):
@@ -298,7 +398,9 @@ class BertModel(nn.Module):
     two models built from trees that share tensors (the engine's Q4 and
     int8 trees share everything but the matmul weights) share their
     device memory. Built from one rank's tensor-parallel shard, it takes
-    the mesh's ``model`` process group as ``tp_group``."""
+    the mesh's ``model`` process group as ``tp_group``. A tree of
+    Int8Weights (``params_to_int8`` converts every matmul weight at once)
+    runs the int8 regime folded (``fold``; the module docstring)."""
 
     def __init__(self, params: Dict[str, Dict[str, object]],
                  config: BertConfig, tp_group=None):
@@ -306,6 +408,7 @@ class BertModel(nn.Module):
         self.config = config
         self.embeddings = Embeddings(params["embeddings"], config)
         layers = params["layers"]
+        self.fold = isinstance(layers["qkv_w"], Int8Weight)
 
         def layer_slice(v, i):
             if isinstance(v, QuantTensor):
@@ -322,13 +425,17 @@ class BertModel(nn.Module):
 
     def embed(self, token_ids: torch.Tensor, dtype: torch.dtype,
               position_ids: Optional[torch.Tensor] = None, *,
-              use_kernels: Optional[bool] = None) -> torch.Tensor:
-        return self.embeddings(token_ids, dtype, position_ids, use_kernels)
+              use_kernels: Optional[bool] = None
+              ) -> Union[torch.Tensor, Folded]:
+        """The embeddings (a :class:`Folded` under ``fold``)."""
+        return self.embeddings(token_ids, dtype, position_ids, use_kernels,
+                               codes=self.fold)
 
-    def encode(self, x: torch.Tensor, mask_bias: torch.Tensor, *,
-               use_kernels: Optional[bool] = None,
+    def encode(self, x: Union[torch.Tensor, Folded], mask_bias: torch.Tensor,
+               *, use_kernels: Optional[bool] = None,
                remat: bool = False) -> torch.Tensor:
-        return _run_layers(self.layers, x, mask_bias, use_kernels, remat)
+        return _run_layers(self.layers, x, mask_bias, use_kernels, remat,
+                           self.fold)
 
 
 class TrainableBertModel(nn.Module):

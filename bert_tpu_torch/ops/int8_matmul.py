@@ -7,13 +7,21 @@ kernels in ``bert_tpu_torch/csrc/int8_matmul.cu`` (the source says what
 bounds each and how its design copes):
 
   * ``quantize_rows_i8``: x[M, K] (f32 or bf16) → per-row symmetric int8
-    codes and ``sx[M]`` f32 (``quantize_activations_i8``);
+    codes and ``sx[M]`` f32 (``quantize_activations_i8``), in one read of
+    the row;
   * ``int8_matmul``: persistent warp-specialised blocks, TMA tile loads
     and s8 × s8 → s32 ``wgmma``, then ``p = (float(acc) · sx[m]) · sw[n]``
-    in f32 and one of two epilogues (``int8_matmul``): (a) p itself, an
-    f32 [M, N]; (b) p rounded to ``out_dtype`` (f32 or bf16), plus an
-    optional bias in that dtype, rounded again: the cast and bias add
-    that ``dense`` would otherwise launch after the product, bit for bit.
+    in f32 and one of three epilogues: (a) p itself, an f32 [M, N]; (b) p
+    rounded to ``out_dtype`` (f32 or bf16), plus an optional bias in that
+    dtype, rounded again: the cast and bias add that ``dense`` would
+    otherwise launch after the product, bit for bit (``int8_matmul``,
+    ``int8_matmul_codes``); (c) form (b), then GELU as ``F.gelu`` computes
+    it, rounded to ``out_dtype`` (``int8_matmul_gelu``): FFN-up's product
+    and activation in one launch.
+
+The LayerNorm's codes form (``ops/layer_norm.py``) writes the codes of its
+own rounded output, so the QKV and FFN-up products take codes from their
+producers and launch no quantization of their own (``model.py``).
 
 The arithmetic is exact by construction, so the kernels equal their plain
 versions, and bert_tpu, bit for bit (finite inputs): the int32 sum is
@@ -46,6 +54,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import _kernels
 from .common import round_up
@@ -144,18 +153,41 @@ def _epilogue(acc: torch.Tensor, sx: torch.Tensor,
     return acc.float() * sx[:, None] * scale[None, :]
 
 
+def int8_matmul_codes_plain(codes: torch.Tensor, sx: torch.Tensor,
+                            w: Int8Weight,
+                            bias: Optional[torch.Tensor] = None,
+                            out_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """Plain version of the product on padded codes: the codes meet in
+    f64 (exact: every partial sum is an integer under 2^53), the f32
+    epilogue, ``.to(out_dtype)``, then ``+ bias`` (already in
+    ``out_dtype``) where one is given: what bert_tpu's ``dense`` does
+    after its ``int8_matmul``."""
+    acc = torch.matmul(codes.double(), w.w_nk.double().transpose(-1, -2))
+    y = _epilogue(acc, sx, w.scale).to(out_dtype)
+    return y if bias is None else y + bias.to(out_dtype)
+
+
 def int8_matmul_plain(x: torch.Tensor, w: Int8Weight,
                       bias: Optional[torch.Tensor] = None,
                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version: ``x[M, K] @ (w_i8 · scale)[K, N]`` as bert_tpu's
-    ``int8_matmul`` computes it, then what its ``dense`` does after: the
-    padded codes meet in f64 (exact: every partial sum is an integer
-    under 2^53), the f32 epilogue, ``.to(out_dtype)``, then ``+ bias``
-    (already in ``out_dtype``) where one is given."""
+    ``int8_matmul`` computes it (x quantized per row), then
+    :func:`int8_matmul_codes_plain`."""
     codes, sx = quantize_activations_i8_plain(x)
-    acc = torch.matmul(codes.double(), w.w_nk.double().transpose(-1, -2))
-    y = _epilogue(acc, sx, w.scale).to(out_dtype)
-    return y if bias is None else y + bias.to(out_dtype)
+    return int8_matmul_codes_plain(codes, sx, w, bias, out_dtype)
+
+
+def int8_matmul_gelu_plain(codes: torch.Tensor, sx: torch.Tensor,
+                           w: Int8Weight,
+                           bias: Optional[torch.Tensor] = None,
+                           out_dtype: torch.dtype = torch.float32,
+                           approximate: bool = False) -> torch.Tensor:
+    """Plain version of form (c): ``F.gelu`` of form (b)'s output (exact
+    erf, or tanh where ``approximate``; bert_tpu's ``jax.nn.gelu``) in
+    ``out_dtype``."""
+    return F.gelu(int8_matmul_codes_plain(codes, sx, w, bias, out_dtype),
+                  approximate="tanh" if approximate else "none")
 
 
 # ---------------------------------------------------------------------------
@@ -248,31 +280,73 @@ def _check_weight(codes: torch.Tensor, sx: torch.Tensor,
                              "is not 16-byte aligned")
 
 
-def int8_matmul_codes(codes: torch.Tensor, sx: torch.Tensor, w: Int8Weight,
-                      bias: Optional[torch.Tensor] = None,
-                      out_dtype: torch.dtype = torch.float32
-                      ) -> torch.Tensor:
-    """The matmul kernel alone, on padded codes from
-    :func:`quantize_activations_i8`: → [M, N] in ``out_dtype``, plus
-    ``bias``. CUDA tensors only."""
-    _check_device(codes, "int8_matmul")
-    _check_weight(codes, sx, w)
-    _check_out(bias, out_dtype, w.n, codes.device)
+def _matmul_launch(codes: torch.Tensor, sx: torch.Tensor, w: Int8Weight,
+                   bias: Optional[torch.Tensor], out_dtype: torch.dtype,
+                   gelu: Optional[bool] = None) -> torch.Tensor:
+    """One launch of the matmul kernel into a new [M, N] ``out_dtype``:
+    form (a) or (b), or form (c) where ``gelu`` is given (True: the tanh
+    form)."""
     m = codes.shape[0]
     out = torch.empty((m, w.n), dtype=out_dtype, device=codes.device)
     if m == 0:
         return out
+    fn = "int8_matmul" if gelu is None else "int8_matmul_gelu"
     lib = _kernels.library("int8_matmul")
     with torch.cuda.device(codes.device):
-        rc = lib.int8_matmul(codes.data_ptr(), w.w_nk.data_ptr(),
-                             sx.data_ptr(), w.scale.data_ptr(),
-                             None if bias is None else bias.data_ptr(),
-                             out.data_ptr(), m, w.kp, w.n,
-                             int(out_dtype == torch.bfloat16),
-                             _kernels.stream_of(codes))
-    _kernels.check(rc, "int8_matmul")
+        rc = getattr(lib, fn)(
+            codes.data_ptr(), w.w_nk.data_ptr(), sx.data_ptr(),
+            w.scale.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), m, w.kp, w.n, int(out_dtype == torch.bfloat16),
+            *(() if gelu is None else (int(gelu),)),
+            _kernels.stream_of(codes))
+    _kernels.check(rc, fn)
+    return out
+
+
+def _check_codes(codes: torch.Tensor, sx: torch.Tensor, w: Int8Weight,
+                 bias: Optional[torch.Tensor], out_dtype: torch.dtype,
+                 what: str) -> None:
+    """The operands of a product on codes: a device the wrapper serves
+    (first, so that another device is named as such), then the codes,
+    the weight and the epilogue's."""
+    if codes.device.type != "cpu":
+        _check_device(codes, what)
+    _check_weight(codes, sx, w)
+    _check_out(bias, out_dtype, w.n, codes.device)
+
+
+def int8_matmul_codes(codes: torch.Tensor, sx: torch.Tensor, w: Int8Weight,
+                      bias: Optional[torch.Tensor] = None,
+                      out_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    """The matmul alone, on padded codes from
+    :func:`quantize_activations_i8` or the LayerNorm's codes form: → [M,
+    N] in ``out_dtype``, plus ``bias`` (forms (a) and (b)). CPU tensors
+    take :func:`int8_matmul_codes_plain`; CUDA tensors launch the kernel
+    or raise."""
+    _check_codes(codes, sx, w, bias, out_dtype, "int8_matmul")
+    if codes.device.type == "cpu":
+        return int8_matmul_codes_plain(codes, sx, w, bias, out_dtype)
+    out = _matmul_launch(codes, sx, w, bias, out_dtype)
     int8_matmul.launches += 1
     return out
+
+
+def int8_matmul_gelu(codes: torch.Tensor, sx: torch.Tensor, w: Int8Weight,
+                     bias: Optional[torch.Tensor] = None,
+                     out_dtype: torch.dtype = torch.float32,
+                     approximate: bool = False) -> torch.Tensor:
+    """Form (c) on padded codes: ``F.gelu(form (b))`` [M, N] in
+    ``out_dtype`` (tanh GELU where ``approximate``). CPU tensors take
+    :func:`int8_matmul_gelu_plain`; CUDA tensors launch the kernel or
+    raise."""
+    _check_codes(codes, sx, w, bias, out_dtype, "int8_matmul_gelu")
+    if codes.device.type == "cpu":
+        return int8_matmul_gelu_plain(codes, sx, w, bias, out_dtype,
+                                      approximate)
+    h = _matmul_launch(codes, sx, w, bias, out_dtype, bool(approximate))
+    int8_matmul_gelu.launches += 1
+    return h
 
 
 def int8_matmul(x: torch.Tensor, w: Int8Weight,
@@ -298,3 +372,4 @@ def int8_matmul(x: torch.Tensor, w: Int8Weight,
 
 quantize_activations_i8.launches = 0  # kernel launches, where they happen
 int8_matmul.launches = 0
+int8_matmul_gelu.launches = 0

@@ -27,15 +27,25 @@ followed by the bf16 kernel, in one launch.
 on a CPU. Its rounding differs from the kernel's: it adds ``pre_bias`` and
 ``residual`` in x's dtype before widening to f32, where the kernel (like
 the Pallas kernels) widens first and adds in f32.
+
+The codes form (:func:`fused_layer_norm_codes`, for a W8A8 product that
+takes the output: ``model.py``'s int8 branch) also writes the output's
+per-row int8 activation codes and scales, as
+``ops/int8_matmul.quantize_activations_i8`` would make them from the
+rounded output, from the same registers: one more reduction a row, and
+no launch or read of the output to quantize it. Its plain version is
+:func:`layer_norm_plain`, then ``quantize_activations_i8_plain``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _kernels
+from . import int8_matmul as _i8
+from .common import round_up
 
 _ENTRY = {(torch.float32, torch.float32): "layer_norm_f32",
           (torch.bfloat16, torch.bfloat16): "layer_norm_bf16",
@@ -81,7 +91,7 @@ def _check_alignment(x, residual, pre_bias, scale, bias,
                              f"(D {d}, {n}-element vectors)")
 
 
-def _launch(x, scale, bias, eps, residual, pre_bias, out_dtype):
+def _launch(x, scale, bias, eps, residual, pre_bias, out_dtype, codes=False):
     d = x.shape[-1]
     fn = _ENTRY.get((x.dtype, out_dtype))
     if fn is None:
@@ -107,17 +117,26 @@ def _launch(x, scale, bias, eps, residual, pre_bias, out_dtype):
     _check_alignment(x, residual, pre_bias, scale, bias, out_dtype)
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     m = x.numel() // d
+    if codes:
+        fn = fn.replace("layer_norm_", "layer_norm_codes_")
+        q = (torch.empty((m, round_up(d, _i8.KP_ALIGN)), dtype=torch.int8,
+                         device=x.device),
+             torch.empty((m,), dtype=torch.float32, device=x.device))
     if m == 0:
-        return out
+        return (out, *q) if codes else out
     lib = _kernels.library("layer_norm")
     with torch.cuda.device(x.device):
         rc = getattr(lib, fn)(
             x.data_ptr(),
             None if residual is None else residual.data_ptr(),
             None if pre_bias is None else pre_bias.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), m, d,
+            scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            *((q[0].data_ptr(), q[1].data_ptr()) if codes else ()), m, d,
             float(eps), _kernels.stream_of(x))
     _kernels.check(rc, fn)
+    if codes:
+        fused_layer_norm_codes.launches += 1
+        return (out, *q)
     fused_layer_norm.launches += 1
     return out
 
@@ -143,4 +162,39 @@ def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor,
     return _launch(x, scale, bias, eps, residual, pre_bias, out_dtype)
 
 
+def layer_norm_codes_plain(x, scale, bias, eps, residual=None, pre_bias=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Plain version of the codes form: :func:`layer_norm_plain`, then
+    ``quantize_activations_i8_plain`` of its output's rows."""
+    out = layer_norm_plain(x, scale, bias, eps, residual, pre_bias)
+    return (out, *_i8.quantize_activations_i8_plain(
+        out.reshape(-1, out.shape[-1])))
+
+
+def fused_layer_norm_codes(x: torch.Tensor, scale: torch.Tensor,
+                           bias: torch.Tensor, *, eps: float,
+                           residual: Optional[torch.Tensor] = None,
+                           pre_bias: Optional[torch.Tensor] = None,
+                           out_dtype: Optional[torch.dtype] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """:func:`fused_layer_norm`'s codes form: ``(out, codes, sx)`` with
+    ``out`` as :func:`fused_layer_norm` gives it and, over its M = numel / D
+    rows, ``codes`` [M, Kp] int8 (Kp = D rounded up to 32, a zero tail) and
+    ``sx`` [M] f32: the W8A8 activation codes of ``out`` as rounded. CPU
+    tensors take :func:`layer_norm_codes_plain` on ``x.to(out_dtype)``;
+    CUDA tensors launch the kernel or raise."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if x.device.type == "cpu":
+        return layer_norm_codes_plain(x.to(out_dtype), scale, bias, eps,
+                                      residual, pre_bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_layer_norm_codes: unsupported device "
+                         f"{x.device}")
+    return _launch(x, scale, bias, eps, residual, pre_bias, out_dtype,
+                   codes=True)
+
+
 fused_layer_norm.launches = 0  # kernel launches, counted where they happen
+fused_layer_norm_codes.launches = 0

@@ -50,16 +50,22 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
 5. int8_path: holds the W8A8 kernels (the activation quantization and the
    int8 matmul) to their plain versions bit for bit, in f32 and bf16, at
    bert-base's and MiniLM's four matmul shapes at M = 8,192 and at edge
-   shapes (M = 1 and 37, N = 8 and 200, K = 1, 33, 312 and 600, a zero
-   row, rows of ±amax ties); times bert-base's four shapes beside
+   shapes (M = 1 and 37, N = 8 and 200, K = 1, 33, 312, 600 and 20,000, a
+   zero row, rows of ±amax ties); times bert-base's four shapes beside
    ``torch._int_mm`` with the same epilogue, cuBLAS bf16 on the
-   dequantized W and the bf16 q4_matmul; writes a bert-base Q4_0 ggml file
-   from seed 0 and loads it with ``BertTorch.from_file(path,
-   int8_eval=True)``; each request holds 64 sentences of 65-128 tokens (one
-   64x128 batch: 8,192 padded tokens, the int8 regime) and 8 short ones
-   (one packed batch, Q4); fails unless int8_matmul and the quantize kernel
-   launched 4L times per int8 batch and q4_matmul on the packed one; logs
-   the rate beside the same requests with ``int8_eval=False``, profiles one
+   dequantized W and the bf16 q4_matmul; holds the folded forms bit for
+   bit to their plain versions and to the unfolded composition (the
+   LayerNorm's codes form, the matmul's form (c) with GELU) and times each
+   beside its bound;
+   writes a bert-base Q4_0 ggml file from seed 0 and loads it with
+   ``BertTorch.from_file(path, int8_eval=True)``; each request holds 64
+   sentences of 65-128 tokens (one 64x128 batch: 8,192 padded tokens, the
+   int8 regime) and 8 short ones (one packed batch, Q4); fails unless each
+   int8 batch launched int8_matmul 3L times, form (c) L times, the
+   quantize kernel 2L times and the LayerNorm's codes form 2L times, and
+   q4_matmul ran the packed one, and unless the profiled request shows no
+   GELU or quantize of the int8 batch's QKV and FFN-up inputs; logs the
+   rate beside the same requests with ``int8_eval=False``, profiles one
    request, and holds int8 against Q4 on the card (cos > 0.999) and the
    card's f32 int8 against the CPU's f32 int8 (cos > 0.9999, max|Δ| ≤
    5e-3);
@@ -149,7 +155,9 @@ WARMUP_LARGEST = (64, 12, 2048, 26)
 # f32 products), so kernel and plain version agree bit for bit.
 TOL = {"q4_matmul": {"f32": 1e-3, "bf16": 5e-2},
        "int8_matmul": {"f32": 0.0, "bf16": 0.0},
+       "int8_matmul_gelu": {"f32": 0.0, "bf16": 0.0},
        "quantize_activations_i8": {"f32": 0.0, "bf16": 0.0},
+       "fused_layer_norm_codes": {"f32": 0.0, "bf16": 0.0},
        "fused_qkv_attention": {"f32": 2e-4, "bf16": 2e-2},
        "fused_layer_norm": {"f32": 1e-4, "bf16": 3e-2},
        "multi_head_attention": {"f32": 1e-4, "bf16": 2e-2}}
@@ -166,13 +174,21 @@ REPLACES = {
     "quantize_activations_i8": "bert_tpu/ops/int8_matmul.py:83 "
                                "(quantize_activations_i8; XLA in bert_tpu, "
                                "no Pallas kernel)",
+    "fused_layer_norm_codes": "bert_tpu/ops/layer_norm.py:42,50,58 "
+                              "(_ln_kernel, _ln_res_kernel, "
+                              "_ln_res_pb_kernel) + bert_tpu/ops/"
+                              "int8_matmul.py:83 (quantize_activations_i8)",
+    "int8_matmul_gelu": "bert_tpu/ops/int8_matmul.py:94 (int8_matmul) + "
+                        "bert_tpu/model.py:158 (jax.nn.gelu)",
 }
 SOURCE = {"q4_matmul": "bert_tpu_torch/csrc/q4_matmul.cu",
           "fused_layer_norm": "bert_tpu_torch/csrc/layer_norm.cu",
           "fused_qkv_attention": "bert_tpu_torch/csrc/fused_attention.cu",
           "multi_head_attention": "bert_tpu_torch/csrc/attention.cu",
           "int8_matmul": "bert_tpu_torch/csrc/int8_matmul.cu",
-          "quantize_activations_i8": "bert_tpu_torch/csrc/int8_matmul.cu"}
+          "int8_matmul_gelu": "bert_tpu_torch/csrc/int8_matmul.cu",
+          "quantize_activations_i8": "bert_tpu_torch/csrc/int8_matmul.cu",
+          "fused_layer_norm_codes": "bert_tpu_torch/csrc/layer_norm.cu"}
 
 
 class SmokeFailure(RuntimeError):
@@ -914,7 +930,10 @@ def profile_request(model, request, path: str, extra=()):
         return None
 
     def family(*names):
-        hit = [e for e in kernels if any(n in e.key for n in names)]
+        # a name, or a tuple of names that must all be in the kernel's
+        hit = [e for e in kernels
+               if any(all(p in e.key for p in ((n,) if isinstance(n, str)
+                                               else n)) for n in names)]
         return (sum(e.self_device_time_total for e in hit),
                 sum(e.count for e in hit))
     ln_us, ln_n = family("ln_rows_kernel", "ln_block_kernel")
@@ -1437,8 +1456,8 @@ def int8_kernel_phase(dev, rng):
     through the public wrappers with a launch check, in f32 and bf16, held
     to their plain versions bit for bit (codes, scales, products): at
     bert-base's and MiniLM's four matmul shapes at M = 8,192, and at edge
-    shapes (M = 1 and 37, N = 7, 8, 200, 201 and 301, K = 1, 33, 312 and
-    600; row 0 of every x is zero, rows 1-2 hold ±amax and x·inv ties). The
+    shapes (M = 1 and 37, N = 7, 8, 200, 201 and 301, K = 1, 33, 312, 600
+    and 20,000, the quantize's block-per-row instance; row 0 of every x is zero, rows 1-2 hold ±amax and x·inv ties). The
     matmul is checked in both epilogue forms: (a) the f32 product, (b) the
     product in x's dtype without and with a bias; an N whose output rows
     are not a multiple of 16 bytes takes the direct-store path. bert-base's
@@ -1522,7 +1541,9 @@ def int8_kernel_phase(dev, rng):
               (1, 312, 200, ""), (37, 600, 8, ""), (37, 312, 600, ""),
               (1, 600, 312, ""), (37, 33, 201, "direct stores"),
               (1, 600, 7, "direct stores"),
-              (300, 320, 301, "direct stores")]
+              (300, 320, 301, "direct stores"),
+              # rows past the registers: quantize_wide_kernel
+              (5, 20000, 8, "block-per-row quantize")]
     for (m, k, n, what) in shapes:
         _, w = weight(k, n)
         x32 = int8_activations(rng, m, k)
@@ -1607,10 +1628,252 @@ def int8_kernel_phase(dev, rng):
         del x, codes, w_deq
         torch.cuda.synchronize()
     tol = dict(tolerance=0.0)
+    fold = int8_fold_phase(dev, np.random.default_rng(21))
+    # the path quantizes the attention context and FFN-down's input; the
+    # row is FFN-down's, the wider
     return {"int8_matmul": dict(timed[0], **tol, timed_shapes=timed,
                                 sass=sass),
-            "quantize_activations_i8": dict(quant_timed[0], **tol,
-                                            timed_shapes=quant_timed)}
+            "quantize_activations_i8": dict(quant_timed[3], **tol,
+                                            timed_shapes=quant_timed),
+            **{k: dict(v, **tol) for k, v in fold.items()}}
+
+
+def int8_fold_phase(dev, rng):
+    """The quantization folded into its producers, through the
+    public wrappers with a launch check, f32 and bf16, bit for bit:
+
+    * the LayerNorm's codes form: its output against the plain form's
+      kernel, its codes and sx against ``quantize_rows_i8`` of that output
+      (today's composition) and the plain quantization, and the output
+      against ``layer_norm_plain`` at the LayerNorm's tolerance; f32 ->
+      bf16, bf16 and f32 forms, with and without residual and pre_bias,
+      D = 33, 312, 600, 768 and 1,280 (the block-per-row instance), M = 1,
+      37, 300 and 8,192, and a zero row (a constant row, zero bias);
+    * int8_matmul's form (c): against form (b) by the kernel, then
+      ``F.gelu`` (today's composition) and against its plain version;
+      exact and tanh GELU, at bert-base's and MiniLM's FFN-up (M = 8,192) and N = 7, 201, 301,
+      600, K = 33, 312, 320, 600, M = 1, 37, 300.
+
+    Then times each new form at M = 8,192 by graph replay beside its
+    bound and what it replaces."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from bert_tpu_torch.ops import int8_matmul as I
+    from bert_tpu_torch.ops import layer_norm as L
+
+    log("int8 fold: the LayerNorm's codes form, int8_matmul's form (c)")
+    dtypes = (("f32", torch.float32), ("bf16", torch.bfloat16))
+
+    # -- the LayerNorm's codes form
+    forms = (("f32->bf16", torch.float32, torch.bfloat16),
+             ("bf16", torch.bfloat16, torch.bfloat16),
+             ("f32", torch.float32, torch.float32))
+
+    def ln_operands(m, d, tin, tout, res, zero_row=False):
+        x = rng.standard_normal((m, d)).astype(np.float32) * 3.0
+        bias = rng.standard_normal(d).astype(np.float32)
+        if zero_row:
+            x[0] = 1.5  # a constant row: out = bias = 0 there
+            bias[:] = 0.0
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        kw = {}
+        if res:
+            kw = dict(residual=t(rng.standard_normal((m, d)).astype(
+                np.float32)).to(tout),
+                pre_bias=t(rng.standard_normal(d).astype(np.float32)))
+            if zero_row:
+                kw["residual"][0] = 0.0
+                kw["pre_bias"].zero_()
+        return (t(x).to(tin), t(rng.uniform(0.5, 1.5, d).astype(np.float32)),
+                t(bias), kw)
+
+    ln_err = 0.0
+    ln_shapes = [(8192, 768), (1, 768), (37, 33), (300, 312), (37, 600),
+                 (37, 1280), (1, 312), (300, 768)]
+    for (m, d) in ln_shapes:
+        for fname, tin, tout in forms:
+            for res in (False, True):
+                zero = (m, d) == (300, 768)
+                x, sc, bi, kw = ln_operands(m, d, tin, tout, res, zero)
+                what = (f"M,D={m},{d} {fname}" + (" +res+pre_bias" if res
+                                                   else "")
+                        + (" zero row" if zero else ""))
+                n0, c0 = (L.fused_layer_norm.launches,
+                          L.fused_layer_norm_codes.launches)
+                out, codes, sx = L.fused_layer_norm_codes(
+                    x, sc, bi, eps=1e-12, out_dtype=tout, **kw)
+                require(L.fused_layer_norm_codes.launches == c0 + 1
+                        and L.fused_layer_norm.launches == n0,
+                        f"fused_layer_norm_codes {what}: no launch")
+                ref = L.fused_layer_norm(x, sc, bi, eps=1e-12,
+                                         out_dtype=tout, **kw)
+                qk = I.quantize_activations_i8(ref.reshape(-1, d))
+                qp = I.quantize_activations_i8_plain(out.reshape(-1, d))
+                torch.cuda.synchronize()
+                require(torch.equal(out, ref), f"fused_layer_norm_codes "
+                        f"{what}: the output is not the plain form's")
+                for name, (c, s) in (("quantize_rows_i8 of the output", qk),
+                                     ("the plain quantization", qp)):
+                    require(torch.equal(codes, c) and torch.equal(sx, s),
+                            f"fused_layer_norm_codes {what}: "
+                            f"{int((codes != c).sum())} codes and "
+                            f"{int((sx != s).sum())} scales differ from "
+                            f"{name}")
+                if zero:
+                    require(float(sx[0]) == 0.0 and not codes[0].any(),
+                            f"fused_layer_norm_codes {what}: row 0")
+                plain = L.layer_norm_plain(x.to(tout), sc, bi, 1e-12,
+                                           kw.get("residual"),
+                                           kw.get("pre_bias"))
+                dn = "bf16" if tout == torch.bfloat16 else "f32"
+                ln_err = max(ln_err, compare("fused_layer_norm", out, plain,
+                                             dn, what))
+    log(f"  ok  fused_layer_norm_codes at {len(ln_shapes)} shapes x 3 forms "
+        "x 2: output, codes and sx bit for bit the LayerNorm kernel then "
+        "quantize_rows_i8, and the plain quantization (tol 0)")
+
+    # -- int8_matmul's form (c)
+    def weight(k, n):
+        return I.to_device(I.quantize_w8((rng.standard_normal((k, n))
+                                          * 0.02).astype(np.float32)), dev)
+
+    gelu_shapes = [(8192, 768, 3072, "bert-base FFN-up"),
+                   (8192, 384, 1536, "MiniLM FFN-up"),
+                   (1, 600, 7, "direct stores"), (37, 33, 201,
+                                                  "direct stores"),
+                   (300, 320, 301, "direct stores"), (37, 312, 600, ""),
+                   (1, 312, 200, "")]
+    for (m, k, n, what) in gelu_shapes:
+        w = weight(k, n)
+        x32 = int8_activations(rng, m, k)
+        for dn, dt in dtypes:
+            x = torch.from_numpy(x32).to(dev).to(dt)
+            codes, sx = I.quantize_activations_i8(x)
+            b = torch.from_numpy(rng.standard_normal(n).astype(
+                np.float32)).to(dev).to(dt)
+            for approx in (False, True):
+                tag = (f"M,K,N={m},{k},{n} {dn} "
+                       f"{'tanh' if approx else 'erf'}"
+                       + (f" ({what})" if what else ""))
+                g0, m0 = I.int8_matmul_gelu.launches, I.int8_matmul.launches
+                h = I.int8_matmul_gelu(codes, sx, w, b, dt, approx)
+                require(I.int8_matmul_gelu.launches == g0 + 1
+                        and I.int8_matmul.launches == m0,
+                        f"int8_matmul_gelu {tag}: no launch")
+                comp = F.gelu(I.int8_matmul_codes(codes, sx, w, b, dt),
+                              approximate="tanh" if approx else "none")
+                hp = I.int8_matmul_gelu_plain(codes, sx, w, b, dt, approx)
+                torch.cuda.synchronize()
+                for name, want in (("form (b) then F.gelu", comp),
+                                   ("the plain version", hp)):
+                    require(torch.equal(h, want),
+                            f"int8_matmul_gelu {tag}: "
+                            f"{int((h != want).sum())} values differ from "
+                            f"{name}, max|Δ| "
+                            f"{float((h.float() - want.float()).abs().max())}")
+        del w
+        torch.cuda.synchronize()
+    log(f"  ok  int8_matmul_gelu at {len(gelu_shapes)} shapes, f32 and bf16, "
+        "erf and tanh: bit for bit form (b) then F.gelu, and the plain "
+        "version (tol 0)")
+
+    # -- timings, bf16, M = 8,192 (graph replay)
+    bf16 = torch.bfloat16
+    m = 8192
+    d = 768
+    x, sc, bi, kw = ln_operands(m, d, torch.float32, bf16, True)
+    kp = I.round_up(d, I.KP_ALIGN)
+    # x f32, residual bf16 in; out bf16, codes, sx out; three [D] params
+    # (scale, bias, pre_bias)
+    ln_ms, ln_by = bound(m * d * (4 + 2 + 2) + m * kp + 4 * m + 3 * 4 * d,
+                         10.0 * m * d, "f32")
+    codes_form = lambda: L.fused_layer_norm_codes(x, sc, bi, eps=1e-12,
+                                                  out_dtype=bf16, **kw)
+    plain_form = lambda: L.fused_layer_norm(x, sc, bi, eps=1e-12,
+                                            out_dtype=bf16, **kw)
+    out0 = plain_form()
+
+    def composition():
+        out = plain_form()
+        return I.quantize_activations_i8(out)
+    xe, sce, bie, _ = ln_operands(m, d, bf16, bf16, False)
+    ln_row = dict(
+        shape=f"M={m} D={d} f32 x -> bf16, +res+pre_bias, codes form",
+        ms=time_ms(codes_form), eager_ms=eager_ms(codes_form),
+        plain_form_ms=time_ms(plain_form),
+        # the embedding LayerNorm's: bf16 in and out, no residual
+        bf16_codes_form_ms=time_ms(lambda: L.fused_layer_norm_codes(
+            xe, sce, bie, eps=1e-12)),
+        bf16_plain_form_ms=time_ms(lambda: L.fused_layer_norm(
+            xe, sce, bie, eps=1e-12)),
+        composition_ms=time_ms(composition),
+        quantize_alone_ms=time_ms(lambda: I.quantize_activations_i8(out0)),
+        plain_ms=time_ms(lambda: L.layer_norm_codes_plain(
+            x.to(bf16), sc, bi, 1e-12, kw["residual"], kw["pre_bias"])),
+        library_ms=None, bound_ms=ln_ms, bound_by=ln_by,
+        max_abs_err=ln_err)
+    log(f"  {ln_row['shape']}: {ln_row['ms']:.5f} ms (eager "
+        f"{ln_row['eager_ms']:.5f}); the plain form "
+        f"{ln_row['plain_form_ms']:.5f} "
+        f"({ln_row['ms'] / ln_row['plain_form_ms']:.2f}x); the plain form "
+        f"then quantize_rows_i8 {ln_row['composition_ms']:.5f}; bf16 in, "
+        f"no residual (the embedding's): codes form "
+        f"{ln_row['bf16_codes_form_ms']:.5f}, plain form "
+        f"{ln_row['bf16_plain_form_ms']:.5f}; plain "
+        f"{ln_row['plain_ms']:.5f}; bound {ln_ms:.5f} ({ln_by}) = "
+        f"{100 * ln_ms / ln_row['ms']:.1f}% of it")
+
+    k, n = 768, 3072
+    w = weight(k, n)
+    xq = torch.from_numpy(int8_activations(rng, m, k)).to(dev).to(bf16)
+    codes, sx = I.quantize_activations_i8(xq)
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+        dev).to(bf16)
+    w_t = w.w_nk.t()
+    kp = w.kp
+    c_ms, c_by = bound(m * kp + n * kp + 4 * m + 4 * n + 2 * n + 2 * m * n,
+                       2.0 * m * k * n, "int8")
+
+    def library():
+        y = I._epilogue(torch._int_mm(codes, w_t), sx, w.scale).to(bf16) + b
+        return F.gelu(y)
+
+    def composition_c():
+        y = I.int8_matmul_codes(codes, sx, w, b, bf16)
+        h = F.gelu(y)
+        return I.quantize_activations_i8(h)
+
+    def folded_c():
+        return I.quantize_activations_i8(I.int8_matmul_gelu(codes, sx, w, b,
+                                                            bf16))
+    gelu_row = dict(
+        shape=f"M={m} K={k} N={n} bf16, form (c) (bert-base FFN-up)",
+        ms=time_ms(lambda: I.int8_matmul_gelu(codes, sx, w, b, bf16)),
+        eager_ms=eager_ms(lambda: I.int8_matmul_gelu(codes, sx, w, b,
+                                                     bf16)),
+        tanh_ms=time_ms(lambda: I.int8_matmul_gelu(codes, sx, w, b, bf16,
+                                                   True)),
+        form_b_ms=time_ms(lambda: I.int8_matmul_codes(codes, sx, w, b,
+                                                      bf16)),
+        form_b_gelu_quantize_ms=time_ms(composition_c),
+        form_c_quantize_ms=time_ms(folded_c),
+        plain_ms=time_ms(lambda: I.int8_matmul_gelu_plain(codes, sx, w, b,
+                                                          bf16)),
+        library_ms=time_ms(library), bound_ms=c_ms, bound_by=c_by,
+        max_abs_err=0.0)
+    log(f"  {gelu_row['shape']}: {gelu_row['ms']:.5f} ms (eager "
+        f"{gelu_row['eager_ms']:.5f}; tanh {gelu_row['tanh_ms']:.5f}); form "
+        f"(b) {gelu_row['form_b_ms']:.5f}; FFN-up to FFN-down's codes: "
+        f"(b) + F.gelu + quantize {gelu_row['form_b_gelu_quantize_ms']:.5f}"
+        f", (c) + quantize {gelu_row['form_c_quantize_ms']:.5f}; "
+        f"plain {gelu_row['plain_ms']:.5f}; _int_mm + epilogue + F.gelu "
+        f"{gelu_row['library_ms']:.5f}; bound {c_ms:.5f} ({c_by}) = "
+        f"{100 * c_ms / gelu_row['ms']:.1f}% of it")
+    del w, x, xq
+    torch.cuda.synchronize()
+    return {"fused_layer_norm_codes": ln_row, "int8_matmul_gelu": gelu_row}
 
 
 def int8_request(rng):
@@ -1710,14 +1973,26 @@ def int8_path(dev, rng, counters):
         f"{threshold} padded tokens, {q4_batches} Q4)")
     log(f"int8 path kernel launches: {launches}")
     per = 4 * cfg.n_layer
+    n_layer = cfg.n_layer
     require(int8_batches == len(counted) and q4_batches == len(counted),
             "int8 path: each request did not run one int8 and one Q4 batch")
-    require(launches["int8_matmul"] == per * int8_batches
-            and launches["quantize_activations_i8"] == per * int8_batches,
-            f"int8 path: int8_matmul / quantize launched "
-            f"{launches['int8_matmul']} / "
-            f"{launches['quantize_activations_i8']} times, not {per} per "
-            f"int8 batch ({int8_batches})")
+    # an int8 batch, folded: QKV (b), attention-out (a) and FFN-down (a)
+    # by int8_matmul, FFN-up by form (c); the attention context and
+    # FFN-down's input quantized on their own; the
+    # embedding LayerNorm and all but the last layer's output LayerNorm,
+    # and every attention LayerNorm, in the codes form
+    want = {"int8_matmul": 3 * n_layer, "int8_matmul_gelu": n_layer,
+            "quantize_activations_i8": 2 * n_layer,
+            "fused_layer_norm_codes": 2 * n_layer}
+    for name, n in want.items():
+        require(launches[name] == n * int8_batches,
+                f"int8 path: {name} launched {launches[name]} times, not "
+                f"{n} per int8 batch ({int8_batches})")
+    require(launches["fused_layer_norm"]
+            == int8_batches + (2 * n_layer + 1) * q4_batches,
+            f"int8 path: fused_layer_norm launched "
+            f"{launches['fused_layer_norm']} times, not once per int8 "
+            f"batch (the last layer's) and {2 * n_layer + 1} per Q4 batch")
     require(launches["q4_matmul"] == per * q4_batches,
             "int8 path: q4_matmul did not run the packed batches")
     require(launches["multi_head_attention"] == 0
@@ -1725,11 +2000,16 @@ def int8_path(dev, rng, counters):
             * len(counted),
             "int8 path: bert-base's d_head 64 did not take the fused "
             "attention")
-    prof = profile_request(
-        model, counted[0], "int8 path",
-        extra=(("int8_matmul", ("int8_matmul_kernel",)),
-               ("quantize_i8", ("quantize_rows_kernel",)),
-               ("q4_matmul", ("q4_matmul_bf16_kernel",))))
+    families = (("int8_matmul", ("int8_matmul_kernel",)),
+                ("quantize_i8", ("quantize_rows_kernel",
+                                 "quantize_wide_kernel")),
+                ("gelu", ("GeluCUDAKernelImpl",)),
+                # the LayerNorm's codes instances: CODES, the last
+                # template argument, true
+                ("ln_codes", (("ln_rows_kernel", ", true>("),
+                              ("ln_block_kernel", ", true>("))),
+                ("q4_matmul", ("q4_matmul_bf16_kernel",)))
+    prof = profile_request(model, counted[0], "int8 path", extra=families)
 
     # the same requests with the int8 regime off
     t0 = time.perf_counter()
@@ -1745,19 +2025,37 @@ def int8_path(dev, rng, counters):
         f"{max(q4_lat) * 1e3:.3f} ms (int8_eval=True: {rate:.1f} "
         f"sentences/s, {statistics.median(lat) * 1e3:.3f} ms; "
         f"{gpu_line()})")
-    q4_prof = profile_request(
-        q4, counted[0], "int8 path, int8_eval=False",
-        extra=(("q4_matmul", ("q4_matmul_bf16_kernel",)),))
+    q4_prof = profile_request(q4, counted[0], "int8 path, int8_eval=False",
+                              extra=families)
 
     if prof is not None and q4_prof is not None:
         log(f"int8 path, one request profiled: int8_eval on "
             f"{prof['device_busy_us'] / 1e3:.3f} ms of device time in "
             f"{prof['kernels']} kernels ({prof['bf16_casts']} bf16 casts), "
             f"off {q4_prof['device_busy_us'] / 1e3:.3f} ms in "
-            f"{q4_prof['kernels']} ({q4_prof['bf16_casts']} casts); with "
-            "the earlier mma.sync int8 kernel and its separate casts and "
-            "bias adds (NVIDIA H100 80GB HBM3, 700 W): on 11.29-11.33 ms "
-            "in 434 kernels, off 12.46-12.53 ms")
+            f"{q4_prof['kernels']} ({q4_prof['bf16_casts']} casts); "
+            f"GELU {prof['gelu_launches']} launches on, "
+            f"{q4_prof['gelu_launches']} off; quantize "
+            f"{prof['quantize_i8_launches']} on; the unfolded quantizer "
+            "(NVIDIA H100 80GB HBM3, 700 W, PERF.md): on 5.539-5.578 ms in "
+            "386-387 kernels, off 12.450-12.667 ms in 386")
+        # the int8 batch launches no GELU and quantizes only the attention
+        # context and FFN-down's input; the packed Q4 batch keeps its L
+        # GELUs
+        require(prof["gelu_launches"] == n_layer
+                and q4_prof["gelu_launches"] == 2 * n_layer,
+                f"int8 path: GELU launched {prof['gelu_launches']} times "
+                f"with int8_eval on, {q4_prof['gelu_launches']} off: a "
+                "standalone GELU is left in the int8 batch")
+        require(prof["ln_codes_launches"] == 2 * n_layer
+                and q4_prof["ln_codes_launches"] == 0,
+                f"int8 path: the LayerNorm's codes form launched "
+                f"{prof['ln_codes_launches']} times with int8_eval on, "
+                f"{q4_prof['ln_codes_launches']} off, not 2L and 0")
+        require(prof["quantize_i8_launches"] == 2 * n_layer,
+                f"int8 path: {prof['quantize_i8_launches']} quantize "
+                "launches in the profiled request, not 2L: a standalone "
+                "quantize of a QKV or FFN-up input is left")
         # a Q4 batch casts its QKV and FFN-up products and their biases to
         # bf16 (4 casts a layer); the int8 batch's epilogue rounds the
         # products itself, so only the two bias casts a layer remain
@@ -2555,8 +2853,10 @@ def main() -> int:
     from bert_tpu_torch.ops.attention import multi_head_attention
     from bert_tpu_torch.ops.fused_attention import fused_qkv_attention
     from bert_tpu_torch.ops.int8_matmul import (int8_matmul,
+                                                int8_matmul_gelu,
                                                 quantize_activations_i8)
-    from bert_tpu_torch.ops.layer_norm import fused_layer_norm
+    from bert_tpu_torch.ops.layer_norm import (fused_layer_norm,
+                                               fused_layer_norm_codes)
     from bert_tpu_torch.ops.q4_matmul import q4_matmul
 
     card = gpu_line()
@@ -2586,15 +2886,16 @@ def main() -> int:
         dev, np.random.default_rng(18), counters)
     hf_launches, hf_rate, hf_split, hf_prof = hf_server_path(
         np.random.default_rng(19), counters)
+    int8_counters = [int8_matmul, int8_matmul_gelu, quantize_activations_i8,
+                     fused_layer_norm_codes]
     int8_results, int8_info = int8_path(
-        dev, np.random.default_rng(20),
-        counters + [int8_matmul, quantize_activations_i8])
+        dev, np.random.default_rng(20), counters + int8_counters)
     results.update(int8_results)
-    train = train_path(counters + [int8_matmul, quantize_activations_i8])
+    train = train_path(counters + int8_counters)
     sharded = sharded_path()
     # each kernel's launches on its path: MiniLM-L6 for the first three,
     # hf_server for the per-(batch, head) attention, the bert-base int8
-    # path for the two int8 kernels
+    # path for the int8 kernels and the LayerNorm's codes form
     launches["multi_head_attention"] = hf_launches["multi_head_attention"]
     for name in int8_results:
         launches[name] = int8_info["launches"][name]
@@ -2602,7 +2903,8 @@ def main() -> int:
     kernels = []
     for name in ("q4_matmul", "fused_layer_norm", "fused_qkv_attention",
                  "multi_head_attention", "int8_matmul",
-                 "quantize_activations_i8"):
+                 "quantize_activations_i8", "fused_layer_norm_codes",
+                 "int8_matmul_gelu"):
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
