@@ -21,6 +21,11 @@ dispatched before any result is gathered, and each result is copied
 device→host without blocking into pinned memory as soon as its batch is
 queued.
 
+``use_kernels`` is bert_tpu's ``use_pallas`` (model.py): None launches
+the kernels on the card; False runs every batch, int8 ones included,
+through the plain PyTorch versions on any device; True is refused off the
+card, at construction.
+
 ``from_file`` takes a ggml-bin file, an HF checkpoint directory or a
 ``.npz`` weight cache (``save_cache`` writes one). ``encode_iter`` /
 ``eval_tokens_iter`` stream a corpus with bounded memory. ``warmup`` runs
@@ -78,14 +83,19 @@ _WIRE_DTYPES = {"f32": torch.float32, "f16": torch.float16,
                 "int8": torch.int8}
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None,
+                   use_kernels: Optional[bool] = None) -> torch.device:
     """``None`` → the card. Raises when a CUDA device is asked for (or
-    defaulted to) and none is present: nothing falls back to the CPU."""
+    defaulted to) and none is present: nothing falls back to the CPU. A
+    caller that asks for the kernels (``use_kernels=True``) on another
+    device is refused here too, before any work."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "bert_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
+    if use_kernels and dev.type != "cuda":
+        raise ValueError(f"use_kernels=True needs CUDA tensors, got {dev}")
     return dev
 
 
@@ -98,6 +108,7 @@ class BertTorch:
         *,
         device=None,
         compute_dtype: Optional[torch.dtype] = None,
+        use_kernels: Optional[bool] = None,
         max_batch: int = 128,
         seq_buckets: Optional[Sequence[int]] = None,
         wire_dtype: Optional[str] = None,
@@ -111,7 +122,7 @@ class BertTorch:
         dp: Optional[int] = None,
         tp: Optional[int] = None,
     ):
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, use_kernels)
         # multi-device execution: mesh OR dp/tp build a (data, model) mesh
         # over the process group's ranks; this rank computes on its device
         if mesh is None and (dp or tp):
@@ -132,6 +143,7 @@ class BertTorch:
             raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                              f"got {compute_dtype}")
         self.compute_dtype = compute_dtype
+        self.use_kernels = use_kernels
         self.max_batch = max_batch
         self.seq_buckets = list(seq_buckets) if seq_buckets is not None else \
             default_seq_buckets(self.config.n_max_tokens)
@@ -220,7 +232,8 @@ class BertTorch:
                   **kw) -> "BertTorch":
         """Load a ggml-bin file, HF checkpoint directory or ``.npz`` weight
         cache onto ``device`` (default: the card)."""
-        resolve_device(device)  # fail before parsing the file
+        # fail before parsing the file
+        resolve_device(device, kw.get("use_kernels"))
         return cls(load_model(path, quantize_ftype=quantize_ftype),
                    device=device, **kw)
 
@@ -390,7 +403,7 @@ class BertTorch:
             self._model_for(ids.size),
             self._to_device(ids[r].astype(np.int64)),
             self._to_device(mask[r]), compute_dtype=self.compute_dtype,
-            pooling=self.pooling)
+            use_kernels=self.use_kernels, pooling=self.pooling)
         return gather_rows(emb, self._dp_group)
 
     def _forward_packed(self, ids: np.ndarray, seg: np.ndarray,
@@ -402,7 +415,8 @@ class BertTorch:
             self._to_device(ids[r].astype(np.int64)), self._to_device(seg[r]),
             self._to_device(pos[r].astype(np.int64)),
             n_segments=self._pack_segments,
-            compute_dtype=self.compute_dtype, pooling=self.pooling)
+            compute_dtype=self.compute_dtype, use_kernels=self.use_kernels,
+            pooling=self.pooling)
         return gather_rows(emb3, self._dp_group)
 
     def _model_for(self, n_tokens: int) -> BertModel:

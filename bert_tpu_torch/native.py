@@ -27,10 +27,11 @@ _LIB_PATH = os.path.join(_CSRC, "libwordpiece.so")
 _lib = None
 
 
-def build_native() -> Optional[str]:
-    """Build libwordpiece.so with make; returns its path, or None when the
-    host has no toolchain (callers then take the Python paths)."""
-    if os.path.exists(_LIB_PATH):
+def build_native(force: bool = False) -> Optional[str]:
+    """Build libwordpiece.so with make (``force``: even when it exists);
+    returns its path, or None when the host has no toolchain (callers
+    then take the Python paths)."""
+    if os.path.exists(_LIB_PATH) and not force:
         return _LIB_PATH
     try:
         subprocess.run(["make", "-C", _CSRC, "-s", "libwordpiece.so"],
@@ -142,16 +143,33 @@ class NativeWordPiece:
     # Below this batch size a thread pool costs more than it saves.
     _MIN_PER_THREAD = 512
 
-    def tokenize_batch(self, texts: Sequence[str], n_max_tokens: int
-                       ) -> List[List[int]]:
+    def _thread_count(self, n: int, n_threads: Optional[int]) -> int:
+        """Worker threads for a batch of ``n``: ``n_threads`` when given,
+        else a nonzero int in ``BERT_TPU_TOKENIZE_THREADS`` as it stands,
+        else one per core but never fewer than _MIN_PER_THREAD sentences
+        each; clamped to [1, n]."""
+        if n_threads is None:
+            try:
+                env = int(os.environ.get("BERT_TPU_TOKENIZE_THREADS", "0"))
+            except ValueError:
+                # a malformed value (e.g. 'auto') takes the default: it
+                # must not fail every tokenize call
+                logger.warning("BERT_TPU_TOKENIZE_THREADS is not an int; "
+                               "using the auto default")
+                env = 0
+            # the amortization threshold gates only the auto default
+            n_threads = env or min(os.cpu_count() or 1,
+                                   n // self._MIN_PER_THREAD)
+        return max(1, min(n_threads, n))
+
+    def tokenize_batch(self, texts: Sequence[str], n_max_tokens: int,
+                       n_threads: Optional[int] = None) -> List[List[int]]:
         """One FFI call per worker for the whole batch. ctypes releases the
         GIL for the duration of wp_tokenize_batch and the native core is
         stateless over a read-only vocab, so contiguous slices tokenize on
-        a thread pool in true parallel (one thread per core, never fewer
-        than _MIN_PER_THREAD sentences each)."""
+        a thread pool in true parallel (:meth:`_thread_count` threads)."""
         n = len(texts)
-        n_threads = max(1, min(os.cpu_count() or 1,
-                               n // self._MIN_PER_THREAD, n))
+        n_threads = self._thread_count(n, n_threads)
         out = np.empty((n, n_max_tokens), dtype=np.int32)
         lens = np.empty((n,), dtype=np.int32)
 

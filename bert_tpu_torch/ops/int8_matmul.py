@@ -73,6 +73,15 @@ class Int8Tensor:
     w_i8: np.ndarray
     scale: np.ndarray
 
+    @property
+    def shape(self) -> Tuple[int, int]:
+        """The logical ``(K, N)`` (a stacked tree's last two axes)."""
+        return tuple(self.w_i8.shape[-2:])
+
+    @property
+    def n(self) -> int:
+        return self.w_i8.shape[-1]
+
 
 @dataclass
 class Int8Weight:

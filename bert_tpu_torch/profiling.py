@@ -76,6 +76,15 @@ class PhaseTimers:
                 },
             }
 
+    def reset(self) -> None:
+        """Zero every total, count, bucket count and the sentence count
+        (between a benchmark's trials)."""
+        with self._lock:
+            self.totals.clear()
+            self.counts.clear()
+            self.bucket_counts.clear()
+            self.sentences = 0
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):

@@ -34,7 +34,17 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    casts) and times its q4_matmul and attention calls bucket by bucket;
    fails unless the LayerNorm launched 2L + 1 times a batch; checks the
    result against the same file on the CPU in f32 (card f32: cos > 0.9999
-   and atol 5e-3; card bf16: cos > 0.999);
+   and atol 5e-3; card bf16: cos > 0.999); then the API's switches on the
+   same file: ``BertTorch.from_file(path, use_kernels=False)`` answers
+   the same requests with the counts set to 0 just before and read just
+   after, and fails if any of the eight counted kernels launched, or if a
+   sentence's embedding has cos <= 0.999 against the default engine's, or
+   if the default engine's counts for a request moved; both engines'
+   device time is logged from a profiled request; the native tokenizer's
+   ``tokenize_batch`` is timed at 1, 2, 4 and 8 threads and the auto
+   default on one request (55 sentences) and on 2,750 sentences (ids
+   unchanged at every count); ``read_ggml(path, mmap=False)`` must give
+   the mmap reader's records, each parse timed;
 4. hf_server path: writes a random-weight HF checkpoint directory at
    rubert-tiny2's published widths (D 312, 12 heads of 26, F 600, 3
    layers, vocab 83,828, 2,048 positions, CLS pooling) from seed 0, loads
@@ -1060,7 +1070,158 @@ def main_path(dev, rng, counters):
     log(f"card bf16 (f16 wire) vs CPU f32: min cos {cos16.min():.6f}, "
         f"max|Δ| {float(np.abs(first - ref).max()):.3e}")
     require(bool(np.all(cos16 > 0.999)), "card bf16 cos <= 0.999")
-    return launches, n_sent / dt, split, prof
+    main = {"path": path, "model": model, "requests": requests,
+            "outs": outs}
+    return launches, n_sent / dt, split, prof, main
+
+
+def api_phase(main: dict, rate: float, prof, counters) -> dict:
+    """The main path's API switches (bert_tpu's calls the port takes):
+    (a) the same MiniLM file with ``use_kernels=False`` answers the main
+    path's requests with every counted kernel idle and agrees with the
+    default engine, whose counts it leaves as they were; (b) the native
+    tokenizer's wall time by thread count; (c) ``read_ggml(mmap=False)``
+    equals the mmap reader on the file."""
+    import numpy as np
+    import torch
+
+    from bert_tpu_torch import BertTorch
+
+    model, requests, outs = main["model"], main["requests"], main["outs"]
+
+    def one_request_counts():
+        for c in counters:
+            c.launches = 0
+        model.encode_batch(requests[0])
+        torch.cuda.synchronize()
+        return {c.__name__: c.launches for c in counters}
+
+    # (a) the engine's kernel switch
+    default_counts = one_request_counts()
+    plain = BertTorch.from_file(main["path"], use_kernels=False)
+    require(plain.device.type == "cuda" and plain.use_kernels is False,
+            "use_kernels=False did not build a card engine")
+    plain.encode_batch(requests[0])  # first call: cuBLAS, the allocator
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    got, lat = [], []
+    for r in requests:
+        t0 = time.perf_counter()
+        got.append(plain.encode_batch(r))
+        lat.append(time.perf_counter() - t0)
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"use_kernels=False: {len(requests)} requests, kernel launches "
+        f"{launches}")
+    require(all(n == 0 for n in launches.values()),
+            f"a kernel launched under use_kernels=False: {launches}")
+    cos = np.concatenate([np.sum(a * b, axis=-1) for a, b in zip(got, outs)])
+    n_sent = sum(len(r) for r in requests)
+    log(f"use_kernels=False vs the default engine, bf16: min cos "
+        f"{cos.min():.6f} over {cos.size} sentences; {n_sent / sum(lat):.1f} "
+        f"sentences/s (default {rate:.1f}; {gpu_line()})")
+    require(cos.size == n_sent and bool(np.all(cos > 0.999)),
+            "use_kernels=False disagrees with the default engine (cos <= "
+            "0.999)")
+    plain_prof = profile_request(plain, requests[0], "use_kernels=False")
+    busy = [None if p is None else p["device_busy_us"]
+            for p in (prof, plain_prof)]
+    log(f"device busy a request: default {busy[0]} us, use_kernels=False "
+        f"{busy[1]} us")
+    again = one_request_counts()
+    log(f"default engine, one request: kernel launches {default_counts} "
+        f"before the plain engine, {again} after")
+    require(again == default_counts and all(
+        default_counts[k] > 0 for k in ("q4_matmul", "fused_layer_norm",
+                                        "fused_qkv_attention")),
+            "the default engine's kernel counts moved")
+    out = {"use_kernels_false": {
+        "launches": launches, "min_cos": float(cos.min()),
+        "sentences_per_s": n_sent / sum(lat),
+        "device_busy_us": busy[1], "default_device_busy_us": busy[0],
+        "default_request_launches": default_counts}}
+    out["tokenize"] = tokenize_timing(model, requests[0])
+    out["read_ggml"] = read_ggml_modes(main["path"])
+    return out
+
+
+def tokenize_timing(model, request, reps: int = 7) -> dict:
+    """(b) ``NativeWordPiece.tokenize_batch`` wall time (median of
+    ``reps``) at 1, 2, 4 and 8 threads and the auto default, on one
+    main-path request and on 50 requests of request_corpus (2,750
+    sentences, the size of bench.py's 2,758-sentence corpus), with
+    ``BERT_TPU_TOKENIZE_THREADS`` unset. The ids must not move."""
+    import numpy as np
+
+    native = model.tokenizer._native
+    require(native is not None, "the native tokenizer did not load")
+    rng = np.random.default_rng(22)
+    corpus = [s for _ in range(50) for s in request_corpus(rng)]
+    n_max = model.config.n_max_tokens
+    env = os.environ.pop("BERT_TPU_TOKENIZE_THREADS", None)
+    rows = {}
+    try:
+        for label, texts in (("request", request), ("corpus", corpus)):
+            want = native.tokenize_batch(texts, n_max, n_threads=1)
+            row = {}
+            for n_threads in (1, 2, 4, 8, None):
+                require(native.tokenize_batch(texts, n_max, n_threads)
+                        == want, f"tokenize_batch ids moved at n_threads="
+                        f"{n_threads}")
+                wall = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    native.tokenize_batch(texts, n_max, n_threads)
+                    wall.append(time.perf_counter() - t0)
+                key = (f"auto ({native._thread_count(len(texts), None)})"
+                       if n_threads is None else str(n_threads))
+                row[key] = statistics.median(wall) * 1e3
+            rows[f"{label} ({len(texts)} sentences)"] = row
+    finally:
+        if env is not None:
+            os.environ["BERT_TPU_TOKENIZE_THREADS"] = env
+    log(f"tokenize_batch wall ms by n_threads (median of {reps}; "
+        f"os.cpu_count() {os.cpu_count()}; {gpu_line()}): "
+        + "; ".join(f"{label}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in row.items())
+            for label, row in rows.items()))
+    return {"cpu_count": os.cpu_count(), "ms": rows}
+
+
+def read_ggml_modes(path: str) -> dict:
+    """(c) ``read_ggml(path, mmap=False)`` against the mmap reader on the
+    main path's file: every record the same, each parse timed."""
+    import numpy as np
+
+    from bert_tpu_torch.formats import read_ggml
+
+    t0 = time.perf_counter()
+    a = read_ggml(path)
+    mmap_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = read_ggml(path, mmap=False)
+    stream_s = time.perf_counter() - t0
+    require(a.hparams == b.hparams and a.vocab_tokens == b.vocab_tokens
+            and list(a.tensors) == list(b.tensors),
+            "read_ggml(mmap=False): header, vocab or names differ")
+    for name, ra in a.tensors.items():
+        rb = b.tensors[name]
+        require((ra.shape, ra.ftype) == (rb.shape, rb.ftype)
+                and not isinstance(rb.data if rb.qraw is None else rb.qraw,
+                                   np.memmap),
+                f"read_ggml(mmap=False): {name} differs")
+        if ra.qraw is None:
+            require(np.array_equal(ra.data, rb.data),
+                    f"read_ggml(mmap=False): {name}'s data differ")
+        else:
+            require(np.array_equal(ra.qraw, rb.qraw)
+                    and np.array_equal(ra.to_f32(), rb.to_f32()),
+                    f"read_ggml(mmap=False): {name}'s q4 blocks differ")
+    log(f"read_ggml of the MiniLM file ({len(a.tensors)} tensors, "
+        f"{os.path.getsize(path) / 1e6:.1f} MB): mmap {mmap_s * 1e3:.2f} ms "
+        f"(pages fault in at first use), stream {stream_s * 1e3:.2f} ms; "
+        f"records equal")
+    return {"mmap_ms": mmap_s * 1e3, "stream_ms": stream_s * 1e3}
 
 
 def roofline_request(cfg, buckets, latency_s: float, prof) -> None:
@@ -2882,12 +3043,13 @@ def main() -> int:
     results = kernel_phase(dev, np.random.default_rng(17))
     counters = [q4_matmul, fused_layer_norm, fused_qkv_attention,
                 multi_head_attention]
-    launches, rate, main_split_rows, main_prof = main_path(
+    launches, rate, main_split_rows, main_prof, main = main_path(
         dev, np.random.default_rng(18), counters)
-    hf_launches, hf_rate, hf_split, hf_prof = hf_server_path(
-        np.random.default_rng(19), counters)
     int8_counters = [int8_matmul, int8_matmul_gelu, quantize_activations_i8,
                      fused_layer_norm_codes]
+    api = api_phase(main, rate, main_prof, counters + int8_counters)
+    hf_launches, hf_rate, hf_split, hf_prof = hf_server_path(
+        np.random.default_rng(19), counters)
     int8_results, int8_info = int8_path(
         dev, np.random.default_rng(20), counters + int8_counters)
     results.update(int8_results)
@@ -2946,6 +3108,7 @@ def main() -> int:
         f"loss {train['loss_first']:.4f} -> {train['loss_last']:.4f} on "
         f"{card}")
     log(f"sharded phase: {json.dumps(sharded)}")
+    log(f"API switches: {json.dumps(api)}")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
