@@ -19,7 +19,11 @@ PyTorch version runs instead.
 import torch as _torch
 
 # f32 means f32: TF32 keeps ~10 mantissa bits, the H100 form of the
-# reduced-precision trap recorded at bert_tpu/ops/common.py:14-25.
+# reduced-precision trap recorded at bert_tpu/ops/common.py:14-25. The f32
+# instances of the q4_matmul and fused attention kernels do run on the
+# bf16 tensor cores, but as bert_tpu's Precision.HIGHEST runs on the TPU:
+# each operand split into three bf16 parts and six products summed in f32,
+# which is f32-grade (csrc/q4_matmul.cu), not TF32.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 

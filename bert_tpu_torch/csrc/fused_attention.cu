@@ -46,12 +46,34 @@
 // (96 -> 192 blocks) but measured slower there, as at every main-path
 // shape (PERF.md): each block then loads every key tile for fewer rows.
 // Keys past T are masked out of the max and the sum; rows past T are not
-// stored. The wrapper checks that qkv is 16-byte aligned.
+// stored. The wrapper checks that qkv is 16-byte aligned (both
+// instances).
 //
-// The f32 instance keeps the CUDA-core design (f32 must stay f32: TF32 is
-// off package-wide): one 64-thread block per (64 query rows, head, batch
-// row), each thread owning one query row, with key/value tiles of 32 rows
-// staged in shared memory and the online softmax in f32.
+// The f32 instance: the same flash-attention-2 shape on the same tensor
+// cores, with the Pallas kernel's Precision.HIGHEST in f32 (both dots,
+// bert_tpu/ops/fused_attention.py:80-96), which the TPU's matrix unit runs
+// as six bf16 products; so does this kernel. Each f32 operand is split
+// into three bf16 parts (hi + mid + lo, exactly; hopper.cuh) and the six
+// cross products down to 2^-16 of hi*hi are summed in f32, smallest first
+// (not TF32, which keeps 10 bits and stays off package-wide). The tensor
+// cores' f32 sums truncate, so no accumulator takes more than one key
+// tile's products: S starts from zero each tile, and e v goes into a
+// fresh accumulator that one IEEE FMA adds to the rescaled context
+// (o = o * corr + e v). q is scaled by 1/sqrt(dh) in f32 (q's type) and split
+// once into three sets of A fragments in registers. The key/value rows of
+// a tile arrive by cp.async in f32 (16 or 32 KB); each thread splits the
+// chunks it copied itself (so no barrier stands between copy and split)
+// into three bf16 k and three bf16 v tiles, double buffered, from which
+// ldmatrix and ldmatrix.trans feed the products as in the bf16 instance:
+// after tile i's products a thread splits its part of tile i+1 and starts
+// the copy of tile i+2, which then runs under tile i+1's products, and one
+// barrier a tile hands the split tiles over (77 KB of shared memory at dh
+// 32, 143 KB at dh 64). e = exp(s - m) stays f32 (the Pallas kernel's
+// astype to q's type is a no-op in f32) and is split in the S
+// accumulator's registers into three sets of A fragments for e v, six
+// products again. The bound in f32 is max(bytes / 3.35 TB/s, 6 x the
+// bf16 FLOPs / 989 TFLOP/s), beside 4*B*H*T^2*dh / 67 TFLOP/s on the CUDA
+// cores.
 
 #include <cfloat>
 #include <cuda_bf16.h>
@@ -61,140 +83,11 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// f32: CUDA cores
-// ---------------------------------------------------------------------------
-
-namespace simt {
-
-constexpr int BQ = 64;   // queries per block, one per thread
-constexpr int BKV = 32;  // keys per shared-memory tile
-
-template <int DH>
-__global__ void __launch_bounds__(BQ)
-    fused_attention_f32_kernel(const float* __restrict__ qkv,
-                               const float* __restrict__ bias,
-                               float* __restrict__ out, int seq, int H,
-                               int pairwise, float scale) {
-  __shared__ float ks[BKV][DH];
-  __shared__ float vs[BKV][DH];
-  __shared__ float bs[BQ][BKV + 1];  // pairwise bias tile (+1: no conflicts)
-  __shared__ float kb[BKV];          // key-side bias tile
-  __shared__ float sc[BKV][BQ];      // the tile's scores, a column per thread
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * DH;
-  const size_t row_stride = 3 * (size_t)D;
-  const float* base = qkv + (size_t)b * seq * row_stride + (size_t)h * 3 * DH;
-  const int qi = q0 + tid;
-  const bool active = qi < seq;
-
-  // q, pre-scaled as the Pallas kernel does
-  float q[DH], acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    q[d] = active ? base[(size_t)qi * row_stride + d] * scale : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = -FLT_MAX;  // running max; finite, so m - m_new never yields NaN
-  float l = 0.f;       // running sum of the probabilities
-
-  for (int k0 = 0; k0 < seq; k0 += BKV) {
-    const int nk = min(BKV, seq - k0);
-    __syncthreads();  // the previous tile has been consumed
-    for (int i = tid; i < BKV * DH; i += BQ) {
-      const int j = i / DH, d = i % DH;
-      float kv = 0.f, vv = 0.f;
-      if (j < nk) {
-        const float* r = base + (size_t)(k0 + j) * row_stride;
-        kv = r[DH + d];
-        vv = r[2 * DH + d];
-      }
-      ks[j][d] = kv;
-      vs[j][d] = vv;
-    }
-    if (pairwise) {
-      for (int i = tid; i < BQ * BKV; i += BQ) {
-        const int r = i / BKV, j = i % BKV;
-        const int qr = q0 + r;
-        bs[r][j] = (qr < seq && j < nk)
-                       ? bias[((size_t)b * seq + qr) * seq + k0 + j]
-                       : 0.f;
-      }
-    } else if (tid < BKV) {
-      kb[tid] = tid < nk ? bias[(size_t)b * seq + k0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // nk is the same for every thread of the block: no divergence
-    float tmax = -FLT_MAX;
-#pragma unroll 2
-    for (int j = 0; j < nk; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) dot = fmaf(q[d], ks[j][d], dot);
-      const float sj = dot + (pairwise ? bs[tid][j] : kb[j]);
-      sc[j][tid] = sj;
-      tmax = fmaxf(tmax, sj);
-    }
-    const float m_new = fmaxf(m, tmax);
-    const float corr = expf(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] *= corr;
-#pragma unroll 2
-    for (int j = 0; j < nk; ++j) {
-      const float p = expf(sc[j][tid] - m_new);
-      l += p;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
-    }
-    m = m_new;
-  }
-
-  if (active) {
-    float* o = out + ((size_t)b * seq + qi) * D + (size_t)h * DH;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) o[d] = acc[d] / l;
-  }
-}
-
-}  // namespace simt
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync) fed by a cp.async ring
-// ---------------------------------------------------------------------------
-
-namespace tc {
-
 using bf16 = __nv_bfloat16;
-constexpr int WARPS = 4;     // 16 query rows each
+constexpr int WARPS = 4;        // 16 query rows each
 constexpr int BQ = 16 * WARPS;  // query rows per block
-constexpr int BKV = 64;      // keys per tile
-constexpr int NT = BKV / 8;  // n8 score tiles per key tile
-
-template <int DH>
-struct Smem {
-  bf16 k[2][BKV][DH + 8];
-  bf16 v[2][BKV][DH + 8];
-};
-
-// Issue the copies of key tile k0 (its k and v rows) into ring slot st;
-// rows past T are zero-filled.
-template <int DH>
-__device__ __forceinline__ void load_tile(Smem<DH>& s, int st, int k0,
-                                          const bf16* __restrict__ base,
-                                          size_t row_stride, int seq) {
-  constexpr int CH = DH / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < BKV * CH; i += 32 * WARPS) {
-    const int j = i / CH, c = (i % CH) * 8;
-    const bool ok = k0 + j < seq;
-    const bf16* r = base + (size_t)(ok ? k0 + j : 0) * row_stride;
-    hopper::cp_async16(&s.k[st][j][c], r + DH + c, ok);
-    hopper::cp_async16(&s.v[st][j][c], r + 2 * DH + c, ok);
-  }
-}
+constexpr int BKV = 64;         // keys per tile
+constexpr int NT = BKV / 8;     // n8 score tiles per key tile
 
 // The bias of this lane's score entries in key tile k0: entry e of n8 tile
 // nt is (row g + 8*(e/2), key k0 + 8*nt + 2*t + e%2). Keys past T read 0
@@ -229,6 +122,64 @@ __device__ __forceinline__ void load_bias(float (&bv)[NT][4],
       bv[nt][2 * hf] = v0;
       bv[nt][2 * hf + 1] = v1;
     }
+  }
+}
+
+// S's tile into scores: add the bias, drop keys past T to -FLT_MAX (in
+// place), and move the running max m of rows g and g + 8 past the tile's;
+// the sum l is rescaled by corr = exp(m_old - m_new), which the caller
+// applies to the context.
+__device__ __forceinline__ void online_max(float (&sa)[NT][4],
+                                           const float (&sv)[NT][4],
+                                           float (&m)[2], float (&l)[2],
+                                           float (&corr)[2], int k0, int seq,
+                                           int t) {
+  float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + nt * 8 + 2 * t + (e & 1);
+      const float v = key < seq ? sa[nt][e] + sv[nt][e] : -FLT_MAX;
+      sa[nt][e] = v;
+      mx[e >> 1] = fmaxf(mx[e >> 1], v);
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    corr[i] = expf(m[i] - m_new);
+    l[i] *= corr[i];
+    m[i] = m_new;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync) fed by a cp.async ring
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+template <int DH>
+struct Smem {
+  bf16 k[2][BKV][DH + 8];
+  bf16 v[2][BKV][DH + 8];
+};
+
+// Issue the copies of key tile k0 (its k and v rows) into ring slot st;
+// rows past T are zero-filled.
+template <int DH>
+__device__ __forceinline__ void load_tile(Smem<DH>& s, int st, int k0,
+                                          const bf16* __restrict__ base,
+                                          size_t row_stride, int seq) {
+  constexpr int CH = DH / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < BKV * CH; i += 32 * WARPS) {
+    const int j = i / CH, c = (i % CH) * 8;
+    const bool ok = k0 + j < seq;
+    const bf16* r = base + (size_t)(ok ? k0 + j : 0) * row_stride;
+    hopper::cp_async16(&s.k[st][j][c], r + DH + c, ok);
+    hopper::cp_async16(&s.v[st][j][c], r + 2 * DH + c, ok);
   }
 }
 
@@ -313,26 +264,8 @@ __global__ void __launch_bounds__(32 * WARPS)
         hopper::mma_bf16(sa[2 * np], qa[kk], r[0], r[1]);
         hopper::mma_bf16(sa[2 * np + 1], qa[kk], r[2], r[3]);
       }
-    float mx[2] = {-FLT_MAX, -FLT_MAX};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * t + (e & 1);
-        const float v = key < seq ? sa[nt][e] + sv[nt][e] : -FLT_MAX;
-        sa[nt][e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
-      }
-    float corr[2], m_new[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      m_new[i] = fmaxf(m[i], mx[i]);
-      corr[i] = expf(m[i] - m_new[i]);
-      l[i] *= corr[i];
-      m[i] = m_new[i];
-    }
+    float corr[2];
+    online_max(sa, sv, m, l, corr, k0, seq, t);
 #pragma unroll
     for (int j = 0; j < OT; ++j) {
       o[j][0] *= corr[0];
@@ -348,8 +281,7 @@ __global__ void __launch_bounds__(32 * WARPS)
       float p[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        p[e] = __bfloat162float(
-            __float2bfloat16(expf(sa[nt][e] - m_new[e >> 1])));
+        p[e] = __bfloat162float(__float2bfloat16(expf(sa[nt][e] - m[e >> 1])));
       l[0] += p[0] + p[1];
       l[1] += p[2] + p[3];
       pa[nt >> 1][2 * (nt & 1)] = hopper::pack_bf16(p[0], p[1]);
@@ -388,34 +320,261 @@ __global__ void __launch_bounds__(32 * WARPS)
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// f32: the same tensor cores, six products of split operands
+// ---------------------------------------------------------------------------
+
+namespace x6 {
+
+template <int DH>
+struct Smem {
+  float kv[2][BKV][DH];         // the next tile's k and v rows, as copied
+  bf16 k[2][3][BKV][DH + 8];    // [buffer][part]: hi, mid, lo
+  bf16 v[2][3][BKV][DH + 8];
+};
+
+// Issue the copies of key tile k0's k and v rows into kv; rows past T are
+// zero-filled. Thread i copies chunks i, i + 128, ... (split_tile's).
+template <int DH>
+__device__ __forceinline__ void load_tile(Smem<DH>& s, int k0,
+                                          const float* __restrict__ base,
+                                          size_t row_stride, int seq) {
+  constexpr int CH = DH / 4;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < BKV * CH; i += 32 * WARPS) {
+    const int j = i / CH, c = (i % CH) * 4;
+    const bool ok = k0 + j < seq;
+    const float* r = base + (size_t)(ok ? k0 + j : 0) * row_stride;
+    hopper::cp_async16(&s.kv[0][j][c], r + DH + c, ok);
+    hopper::cp_async16(&s.kv[1][j][c], r + 2 * DH + c, ok);
+  }
+  hopper::cp_async_commit();
+}
+
+// Wait for this thread's copies, then split them into buffer bf: the
+// chunks are the ones this thread copied, so no block barrier is needed
+// between copy and split; the compiler barrier keeps the reads of kv
+// ahead of the next load_tile's copies into it.
+template <int DH>
+__device__ __forceinline__ void split_tile(Smem<DH>& s, int bf) {
+  constexpr int CH = DH / 4;
+  hopper::cp_async_wait<0>();
+  for (int i = threadIdx.x; i < BKV * CH; i += 32 * WARPS) {
+    const int j = i / CH, c = (i % CH) * 4;
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      const float4 f = *reinterpret_cast<const float4*>(&s.kv[w][j][c]);
+      uint32_t p0[3], p1[3];
+      hopper::split_bf16x3(f.x, f.y, p0);
+      hopper::split_bf16x3(f.z, f.w, p1);
+      bf16(*dst)[BKV][DH + 8] = w ? s.v[bf] : s.k[bf];
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        *reinterpret_cast<uint2*>(&dst[p][j][c]) = make_uint2(p0[p], p1[p]);
+    }
+  }
+  asm volatile("" ::: "memory");
+}
+
+template <int DH>
+__global__ void __launch_bounds__(32 * WARPS)
+    fused_attention_f32_kernel(const float* __restrict__ qkv,
+                               const float* __restrict__ bias,
+                               float* __restrict__ out, int seq, int H,
+                               int pairwise, float scale) {
+  constexpr int KS = DH / 16;  // k16 steps over dh
+  constexpr int OT = DH / 8;   // n8 tiles of the context
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<DH>& s = *reinterpret_cast<Smem<DH>*>(smem_raw);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int row0 = blockIdx.x * BQ + warp * 16;  // this warp's first row
+  const int D = H * DH;
+  const size_t row_stride = 3 * (size_t)D;
+  const float* base =
+      qkv + (size_t)b * seq * row_stride + (size_t)h * 3 * DH;
+  const int n_tiles = (seq + BKV - 1) / BKV;
+  const int g = lane >> 2, t = lane & 3;
+
+  load_tile(s, 0, base, row_stride, seq);
+
+  // q's A fragments: q * scale in f32, as the Pallas kernel scales q in
+  // q's type, split three ways
+  uint32_t qa[3][KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + g + 8 * (i & 1);
+      const int d = kk * 16 + 2 * t + 8 * (i >> 1);
+      float2 f = make_float2(0.f, 0.f);
+      if (r < seq)
+        f = *reinterpret_cast<const float2*>(base + (size_t)r * row_stride +
+                                             d);
+      uint32_t p[3];
+      hopper::split_bf16x3(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale),
+                           p);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) qa[q][kk][i] = p[q];
+    }
+
+  float o[OT][4];
+#pragma unroll
+  for (int j = 0; j < OT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f};
+
+  split_tile(s, 0);
+  if (n_tiles > 1) load_tile(s, BKV, base, row_stride, seq);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int bf = it & 1, k0 = it * BKV;
+    float sv[NT][4];
+    load_bias(sv, bias, b, seq, pairwise, row0, k0, lane);
+    __syncthreads();  // buffer bf is split; buffer bf^1 (tile it-1) is free
+
+    // S = q k^T in six products, plus the bias
+    float sa[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sa[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t r[3][4];
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          hopper::ldsm_x4(
+              r[q], &s.k[bf][q][np * 16 + (lane & 7) + ((lane >> 4) << 3)]
+                               [kk * 16 + ((lane >> 3) & 1) * 8]);
+#pragma unroll
+        for (int p = 0; p < 6; ++p) {
+          const int pa = hopper::x6_a(p), pb = hopper::x6_b(p);
+          hopper::mma_bf16(sa[2 * np], qa[pa][kk], r[pb][0], r[pb][1]);
+          hopper::mma_bf16(sa[2 * np + 1], qa[pa][kk], r[pb][2], r[pb][3]);
+        }
+      }
+    float corr[2];
+    online_max(sa, sv, m, l, corr, k0, seq, t);
+    // e = exp(s - m) in f32, in place
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sa[nt][e] = expf(sa[nt][e] - m[e >> 1]);
+      l[0] += sa[nt][0] + sa[nt][1];
+      l[1] += sa[nt][2] + sa[nt][3];
+    }
+    // o = o * corr + e v, e v in six products into a fresh accumulator
+    // (the tensor cores' f32 sums truncate, so each tile's sum is taken
+    // apart and added in IEEE f32); S's C fragments of n8 tiles 2u and
+    // 2u+1, split three ways, are the A fragments of k16 step u
+    float ot[OT][4];
+#pragma unroll
+    for (int j = 0; j < OT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ot[j][e] = 0.f;
+#pragma unroll
+    for (int u = 0; u < NT / 2; ++u) {
+      uint32_t ea[3][4], p[3];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int nt = 2 * u + (i >> 1), e = 2 * (i & 1);
+        hopper::split_bf16x3(sa[nt][e], sa[nt][e + 1], p);
+#pragma unroll
+        for (int q = 0; q < 3; ++q) ea[q][i] = p[q];
+      }
+#pragma unroll
+      for (int dp = 0; dp < OT / 2; ++dp) {
+        uint32_t r[3][4];
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          hopper::ldsm_x4_trans(
+              r[q], &s.v[bf][q][u * 16 + (lane & 15)]
+                               [dp * 16 + (lane >> 4) * 8]);
+#pragma unroll
+        for (int p6 = 0; p6 < 6; ++p6) {
+          const int pa = hopper::x6_a(p6), pb = hopper::x6_b(p6);
+          hopper::mma_bf16(ot[2 * dp], ea[pa], r[pb][0], r[pb][1]);
+          hopper::mma_bf16(ot[2 * dp + 1], ea[pa], r[pb][2], r[pb][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < OT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[j][e] = __fmaf_rn(o[j][e], corr[e >> 1], ot[j][e]);
+    // the next tile: split it (every thread finished tile it-1 with
+    // buffer bf^1 at the barrier above) and start the copy after it
+    if (it + 1 < n_tiles) {
+      split_tile(s, bf ^ 1);
+      if (it + 2 < n_tiles)
+        load_tile(s, k0 + 2 * BKV, base, row_stride, seq);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = row0 + g + 8 * hf;
+    if (r >= seq) continue;
+    float* dst = out + ((size_t)b * seq + r) * D + (size_t)h * DH + 2 * t;
+#pragma unroll
+    for (int j = 0; j < OT; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(o[j][2 * hf] / l[hf], o[j][2 * hf + 1] / l[hf]);
+  }
+}
+
+// Launch the DH instance; its shared memory (above 48 KB) needs the limit
+// raised, once per instance.
+template <int DH>
+int launch(const float* qkv, const float* bias, float* out, dim3 grid,
+           int seq, int H, int pairwise, float scale, cudaStream_t st) {
+  constexpr int smem = sizeof(Smem<DH>);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fused_attention_f32_kernel<DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  fused_attention_f32_kernel<DH><<<grid, 32 * WARPS, smem, st>>>(
+      qkv, bias, out, seq, H, pairwise, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace x6
+
 int launch_f32(const void* qkv, const void* bias, void* out, int B, int seq,
                int H, int dh, int pairwise, float scale, cudaStream_t st) {
-  const dim3 grid((seq + simt::BQ - 1) / simt::BQ, H, B);
+  const dim3 grid((seq + BQ - 1) / BQ, H, B);
   const auto* q = (const float*)qkv;
   const auto* bp = (const float*)bias;
-  if (dh == 32) {
-    simt::fused_attention_f32_kernel<32><<<grid, simt::BQ, 0, st>>>(
-        q, bp, (float*)out, seq, H, pairwise, scale);
-  } else if (dh == 64) {
-    simt::fused_attention_f32_kernel<64><<<grid, simt::BQ, 0, st>>>(
-        q, bp, (float*)out, seq, H, pairwise, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dh == 32)
+    return x6::launch<32>(q, bp, (float*)out, grid, seq, H, pairwise, scale,
+                          st);
+  if (dh == 64)
+    return x6::launch<64>(q, bp, (float*)out, grid, seq, H, pairwise, scale,
+                          st);
+  return (int)cudaErrorInvalidValue;
 }
 
 int launch_bf16(const void* qkv, const void* bias, void* out, int B, int seq,
                 int H, int dh, int pairwise, float scale, cudaStream_t st) {
-  const dim3 grid((seq + tc::BQ - 1) / tc::BQ, H, B);
+  const dim3 grid((seq + BQ - 1) / BQ, H, B);
   const auto* q = (const __nv_bfloat16*)qkv;
   const auto* bp = (const float*)bias;
   auto* o = (__nv_bfloat16*)out;
   if (dh == 32) {
-    tc::fused_attention_bf16_kernel<32><<<grid, 32 * tc::WARPS, 0, st>>>(
+    tc::fused_attention_bf16_kernel<32><<<grid, 32 * WARPS, 0, st>>>(
         q, bp, o, seq, H, pairwise, scale);
   } else if (dh == 64) {
-    tc::fused_attention_bf16_kernel<64><<<grid, 32 * tc::WARPS, 0, st>>>(
+    tc::fused_attention_bf16_kernel<64><<<grid, 32 * WARPS, 0, st>>>(
         q, bp, o, seq, H, pairwise, scale);
   } else {
     return (int)cudaErrorInvalidValue;

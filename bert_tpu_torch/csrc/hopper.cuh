@@ -1,7 +1,8 @@
 // Warp-level tensor-core and asynchronous-copy primitives shared by the
-// bf16 kernels (sm_90a): 16-byte and 4-byte cp.async into shared memory
-// with zero fill, ldmatrix (plain and transposed), and the bf16
-// mma.sync.m16n8k16 with f32 accumulation.
+// kernels (sm_90a): 16-byte and 4-byte cp.async into shared memory with
+// zero fill, ldmatrix (plain and transposed), the bf16 mma.sync.m16n8k16
+// with f32 accumulation, and the three-way bf16 split by which the f32
+// instances run f32 products on the bf16 tensor cores.
 //
 // Fragment layout of mma.m16n8k16 (PTX ISA), with g = lane / 4 and
 // t = lane % 4: A (16x16, row-major) a0 = (g, 2t..2t+1), a1 = (g+8, 2t..),
@@ -91,6 +92,35 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// Two f32 values split three ways: v = hi + mid + lo exactly, each part a
+// bf16 rounded to nearest even (hi = bf16(v), mid = bf16(v - hi), lo =
+// bf16(v - hi - mid); both differences are exact in f32, and what is left
+// after mid fits lo's 8 bits). p[0], p[1], p[2] = hi, mid, lo, each a
+// .b32 of two bf16, `a` in the low half. Exact for finite values below
+// bf16's largest finite (3.39e38).
+__device__ __forceinline__ void split_bf16x3(float a, float b,
+                                             uint32_t (&p)[3]) {
+  p[0] = pack_bf16(a, b);
+  const float2 h = unpack_bf16(p[0]);
+  a = __fsub_rn(a, h.x);  // _rn: never contracted with a's producer
+  b = __fsub_rn(b, h.y);
+  p[1] = pack_bf16(a, b);
+  const float2 m = unpack_bf16(p[1]);
+  p[2] = pack_bf16(__fsub_rn(a, m.x), __fsub_rn(b, m.y));
+}
+
+// The six products of split f32 operands (the TPU's Precision.HIGHEST):
+// product p multiplies part x6_a(p) of A by part x6_b(p) of B (0 = hi, 1 =
+// mid, 2 = lo), smallest first: lo*hi, mid*mid, hi*lo, mid*hi, hi*mid,
+// hi*hi. The terms left out (mid*lo, lo*mid, lo*lo) are below 2^-24 of
+// hi*hi.
+__device__ __forceinline__ constexpr int x6_a(int p) {
+  return p == 0 ? 2 : p == 1 || p == 3 ? 1 : 0;
+}
+__device__ __forceinline__ constexpr int x6_b(int p) {
+  return p == 2 ? 2 : p == 1 || p == 4 ? 1 : 0;
 }
 
 // The number of SMs of the current device, read once.

@@ -51,8 +51,9 @@ def attention_plain(qkv: torch.Tensor, mask_bias: torch.Tensor, *,
 
 
 def _check_alignment(qkv: torch.Tensor, mask_bias: torch.Tensor) -> None:
-    """The bf16 kernel copies qkv rows by 16 bytes and reads the bias by 8:
-    raise where an operand is not aligned for that; never fall back."""
+    """The kernel (either dtype) copies qkv rows by 16 bytes and reads the
+    bias by 8: raise where an operand is not aligned for that; never fall
+    back."""
     for name, t, need in (("qkv", qkv, 16), ("mask_bias", mask_bias, 8)):
         if t.data_ptr() % need:
             raise ValueError(f"fused_qkv_attention: {name} at "
@@ -80,8 +81,7 @@ def _launch(qkv, mask_bias, n_head, d_head, scale):
                          f"{tuple(mask_bias.shape)}")
     if not (qkv.is_contiguous() and mask_bias.is_contiguous()):
         raise ValueError("fused_qkv_attention: operands must be contiguous")
-    if qkv.dtype == torch.bfloat16:
-        _check_alignment(qkv, mask_bias)
+    _check_alignment(qkv, mask_bias)
     out = torch.empty((b, t, n_head * d_head), dtype=qkv.dtype,
                       device=qkv.device)
     if b == 0 or t == 0:

@@ -23,16 +23,19 @@ from .. import _kernels
 from ..quant import GROUP, QK, QuantTensor
 
 # Router: the fused kernel for M ≤ fused_max_m(x.dtype) rows,
-# dequantize-then-matmul above; chip_smoke.py times both at 1,024-16,384
-# rows at the QKV and FFN-up shapes (PERF.md). On an NVIDIA H100 80GB HBM3
-# at 700 W the bf16 kernel (tensor cores) beat the plain branch at every M
-# measured, by more than 4x at 16,384 rows, so FUSED_MAX_M is the largest
-# M measured. FUSED_MAX_M_F32 is a policy, not a crossover measured on the
-# card: the f32 instance (CUDA cores) lost to the plain branch's f32 cuBLAS
-# GEMM at every M measured, and f32 keeps the 2,048 rows the router had
-# before, so that f32 calls up to that size still run the kernel.
+# dequantize-then-matmul above; chip_smoke.py's router phase times both at
+# 1,024-16,384 rows at the QKV and FFN-up shapes and logs the threshold its
+# measurement gives (PERF.md). On an NVIDIA H100 80GB HBM3 at 700 W the
+# bf16 kernel beat the plain branch at every M measured, by more than 4x
+# at 16,384 rows, so FUSED_MAX_M is the largest M measured. So did the
+# f32 instance (the six-product split on the tensor cores) against the
+# plain branch's f32 cuBLAS GEMM, at both shapes at every M measured (by
+# 13% and more at 16,384 rows), so FUSED_MAX_M_F32 is the largest M
+# measured too. They are kept apart because each follows its own
+# measurement: the f32 instance's first design (CUDA cores) lost at every
+# M.
 FUSED_MAX_M = 16384
-FUSED_MAX_M_F32 = 2048
+FUSED_MAX_M_F32 = 16384
 
 
 def q4_dequantize(qt: QuantTensor, dtype: torch.dtype = torch.float32
@@ -85,11 +88,12 @@ def _check_operands(x: torch.Tensor, qt: QuantTensor) -> None:
         raise ValueError("q4_matmul: x must be contiguous")
 
 
-def bf16_alignment(n: int) -> dict:
-    """Byte alignment the bf16 kernel's loads need of each operand at N = n:
-    x rows by 16 bytes; the packed band by 16 where N % 16 == 0 (the TMA
-    instance), else by the cp.async instance's 4 or 1 bytes; the scale and
-    min rows by 16 or 4, the widest that N's row stride allows."""
+def load_alignment(n: int) -> dict:
+    """Byte alignment the kernel's loads need of each operand at N = n, in
+    either dtype: x rows by 16 bytes (TMA tiles or 16-byte cp.async); the
+    packed band by 16 where N % 16 == 0 (the TMA instance), else by the
+    cp.async instance's 4 or 1 bytes; the scale and min rows by 16 or 4, the
+    widest that N's row stride allows."""
     band = 16 if n % 16 == 0 else 4 if n % 4 == 0 else 1
     rows = 16 if n % 4 == 0 else 4
     return {"x": 16, "packed": band, "scales": rows, "mins": rows}
@@ -97,8 +101,8 @@ def bf16_alignment(n: int) -> dict:
 
 def _check_alignment(x: torch.Tensor, qt: QuantTensor) -> None:
     """Raise where an operand (a per-layer slice, say) is not aligned for
-    the bf16 kernel's loads; never fall back."""
-    need = bf16_alignment(qt.packed.shape[-1])
+    the kernel's loads; never fall back."""
+    need = load_alignment(qt.packed.shape[-1])
     for name, t in (("x", x), ("packed", qt.packed), ("scales", qt.scales),
                     ("mins", qt.mins)):
         if t is not None and t.data_ptr() % need[name]:
@@ -112,8 +116,7 @@ def _launch(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
-    if x.dtype == torch.bfloat16:
-        _check_alignment(x, qt)
+    _check_alignment(x, qt)
     fn = "q4_matmul_f32" if x.dtype == torch.float32 else "q4_matmul_bf16"
     lib = _kernels.library("q4_matmul")
     with torch.cuda.device(x.device):

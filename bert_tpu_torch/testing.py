@@ -1,12 +1,17 @@
-"""Comparison rules shared by the port's tests and its card check, and
-the jobs its sharded tests run on each rank.
+"""Comparison rules shared by the port's tests and its card check, the
+jobs its sharded tests run on each rank, and the f32 kernels' split
+arithmetic written out in PyTorch.
 
 :func:`noise_rule` holds the parameters of two AdamW runs of the same
 steps (two devices, two packages, or two meshes) to each other. The
 port's CPU tests hold it against bert_tpu's steps; ``chip_smoke.py``
 holds the card against the CPU and the sharded steps against one rank.
 :func:`rank_jobs` runs on ranks spawned by
-``parallel.multihost.spawn_ranks``.
+``parallel.multihost.spawn_ranks``. :func:`split_bf16x3` and
+:func:`matmul_bf16x6` are what the f32 instances of ``csrc/q4_matmul.cu``
+and ``csrc/fused_attention.cu`` compute on the tensor cores, for the CPU
+tests to hold against bert_tpu's HIGHEST-precision f32; nothing on the
+main path calls them.
 """
 
 from __future__ import annotations
@@ -81,6 +86,43 @@ def noise_rule(got: np.ndarray, want: np.ndarray, mu_got: np.ndarray,
             "exempt": int(ex.sum()), "beyond": n_beyond,
             "max_abs": float(d.max()), "max_abs_outside_noise": out_max,
             "max_abs_exempt": float(d[ex].max()) if ex.any() else 0.0}
+
+
+# --- the split arithmetic of the f32 kernels ---------------------------------
+
+# The products of matmul_bf16x6, in the kernels' order (smallest first):
+# (part of a, part of b), 0 = hi, 1 = mid, 2 = lo (csrc/hopper.cuh x6_a/b).
+BF16X6_PASSES = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def split_bf16x3(x):
+    """f32 tensor → (hi, mid, lo), bf16 tensors with hi + mid + lo == x
+    exactly: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
+    each rounded to nearest even (the kernels' ``split_bf16x3``)."""
+    import torch
+
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16)
+    r = x - hi.to(torch.float32)  # exact in f32
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def matmul_bf16x6(a, b, passes=BF16X6_PASSES):
+    """``a @ b`` for f32 operands as the f32 kernels take it on the bf16
+    tensor cores: both split three ways, each pass a bf16 × bf16 product
+    taken in f32 (exact products, f32 sums), the passes summed in f32 in
+    the kernels' order. ``passes`` may name fewer (a test's three-product
+    variant)."""
+    import torch
+
+    sa, sb = split_bf16x3(a), split_bf16x3(b)
+    out = None
+    for i, j in passes:
+        term = torch.matmul(sa[i].to(torch.float32), sb[j].to(torch.float32))
+        out = term if out is None else out + term
+    return out
 
 
 # --- rank jobs --------------------------------------------------------------

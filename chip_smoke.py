@@ -21,8 +21,14 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    beside cast + kernel); holds the per-(batch, head) attention at ragged
    T (1-2,047), at head dims 1-256 and at the warmup grid's largest shape
    (64x2048), and times it beside SDPA on the same and on zero-padded
-   operands. A kernel whose ptxas report shows a spill fails the build
-   step;
+   operands. The f32 instances are timed too: q4_matmul at the main path's
+   eight shapes beside its plain version and cuBLAS f32 on the
+   dequantized W, the fused attention at its three shapes beside SDPA in
+   f32, the per-(batch, head) attention at rubert-tiny2's 2,048 bucket and
+   the wide-head instance's 2x2x100 dh 256 (each with its max|Δ| against
+   an f64 product where it is redesigned); the router's sweep reports the
+   threshold its measurement gives in each dtype. A kernel whose ptxas
+   report shows a spill fails the build step;
 3. main path: writes a MiniLM-L6 Q4_0 ggml file from seed 0, loads it with
    ``BertTorch.from_file(path)`` (the card, bf16) and answers a few
    mixed-length ``encode_batch`` requests — packed short sentences,
@@ -34,7 +40,11 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    casts) and times its q4_matmul and attention calls bucket by bucket;
    fails unless the LayerNorm launched 2L + 1 times a batch; checks the
    result against the same file on the CPU in f32 (card f32: cos > 0.9999
-   and atol 5e-3; card bf16: cos > 0.999); then the API's switches on the
+   and atol 5e-3; card bf16: cos > 0.999); the card's f32 engine answers
+   one request with the counts set to 0 just before and read just after
+   (the f32 q4_matmul and fused attention must launch) and one more
+   profiled (device busy, kernels, the two kernels' shares); then the
+   API's switches on the
    same file: ``BertTorch.from_file(path, use_kernels=False)`` answers
    the same requests with the counts set to 0 just before and read just
    after, and fails if any of the eight counted kernels launched, or if a
@@ -331,6 +341,62 @@ def attention_bias(rng, b: int, t: int, pairwise: bool):
     return bias.astype(np.float32)
 
 
+def split_bound(nbytes: float, flops: float):
+    """The f32 instances' bound: the six bf16 products on the tensor
+    cores (6x the f32 product's operations at the bf16 rate) or the bytes,
+    whichever is larger; and, beside it, the f32 product's operations on
+    the CUDA cores (67 TFLOP/s)."""
+    b_ms, b_by = bound(nbytes, 6.0 * flops, "bf16")
+    return b_ms, b_by, flops / PEAK_FLOPS["f32"] * 1e3
+
+
+def q4_f32_timing(dev, rng):
+    """The f32 instance at the main path's eight shapes (M 512 and 1,024
+    x QKV, attention-out, FFN-up, FFN-down; Q4_0): the kernel by graph
+    replay and eager, its plain version, and cuBLAS f32 on the
+    pre-dequantized f32 W; each beside its bound. The kernel's and the
+    plain version's max|Δ| against an f64 product of the same operands
+    say how close each comes to exact."""
+    import numpy as np
+    import torch
+
+    from bert_tpu_torch.ops import q4_matmul as Q
+
+    rows = []
+    for m in (512, 1024):
+        for (k, n, what) in ((384, 1152, "QKV"), (384, 384, "attention-out"),
+                             (384, 1536, "FFN-up"), (1536, 384, "FFN-down")):
+            qd = q4_weights(rng, k, n, 2, dev)
+            x = torch.from_numpy(
+                rng.standard_normal((m, k)).astype(np.float32)).to(dev)
+            w = Q.q4_dequantize(qd, torch.float32)
+            exact = torch.matmul(x.double(), w.double())
+            f64_err = {
+                name: float((fn().double() - exact).abs().max())
+                for name, fn in (("kernel", lambda: Q._launch(x, qd)),
+                                 ("plain", lambda: Q.q4_matmul_plain(x, qd)))}
+            nbytes = m * k * 4 + k // 2 * n + k // 32 * n * 4 + m * n * 4
+            b_ms, b_by, simt_ms = split_bound(nbytes, 2.0 * m * n * k)
+            r = dict(shape=f"M={m} K={k} N={n} q4_0 f32 ({what})",
+                     ms=time_ms(lambda: Q.q4_matmul(x, qd)),
+                     eager_ms=eager_ms(lambda: Q.q4_matmul(x, qd)),
+                     plain_ms=time_ms(lambda: Q.q4_matmul_plain(x, qd)),
+                     dense_f32_matmul_ms=time_ms(lambda: torch.matmul(x, w)),
+                     bound_ms=b_ms, bound_by=b_by,
+                     cuda_core_bound_ms=simt_ms,
+                     kernel_f64_err=f64_err["kernel"],
+                     plain_f64_err=f64_err["plain"])
+            log(f"  {r['shape']}: kernel {r['ms']:.5f} ms (eager "
+                f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f}, cuBLAS "
+                f"dense f32 {r['dense_f32_matmul_ms']:.5f}, bound "
+                f"{b_ms:.5f} ({b_by}; CUDA cores {simt_ms:.5f}); max|Δ| "
+                f"vs f64: kernel {f64_err['kernel']:.3e}, plain "
+                f"{f64_err['plain']:.3e}")
+            rows.append(r)
+        torch.cuda.synchronize()
+    return rows
+
+
 def router_phase(dev, rng):
     """The q4 router's threshold on this card: the kernel against the
     plain dequantize-then-matmul at large M, at the QKV and FFN-up shapes,
@@ -358,13 +424,26 @@ def router_phase(dev, rng):
                 rows.append(r)
             del x, x32
             torch.cuda.synchronize()
+    measured = {}
     for dn in ("bf16", "f32"):
-        wins = [m for m in sorted({r["M"] for r in rows})
+        ms = sorted({r["M"] for r in rows})
+        wins = [m for m in ms
                 if all(r["kernel_ms"] < r["plain_ms"] for r in rows
                        if r["M"] == m and r["dtype"] == dn)]
-        log(f"  {dn}: the kernel wins at both shapes for M in {wins} "
-            f"(FUSED_MAX_M = {Q.FUSED_MAX_M}, f32: {Q.FUSED_MAX_M_F32})")
-    return rows
+        # the largest M up to which the kernel wins at every M measured
+        # (the largest measured where it wins at all of them); None where
+        # it loses at the smallest
+        measured[dn] = None
+        for m in ms:
+            if m not in wins:
+                break
+            measured[dn] = m
+        log(f"  {dn}: the kernel wins at both shapes for M in {wins}; "
+            f"threshold by this run: {measured[dn]} (FUSED_MAX_M = "
+            f"{Q.FUSED_MAX_M}, f32: {Q.FUSED_MAX_M_F32})")
+    return {"rows": rows, "measured_max_m": measured,
+            "FUSED_MAX_M": Q.FUSED_MAX_M,
+            "FUSED_MAX_M_F32": Q.FUSED_MAX_M_F32}
 
 
 # ---------------------------------------------------------------------------
@@ -444,13 +523,15 @@ def kernel_phase(dev, rng):
                 f"dense bf16 {r['dense_bf16_matmul_ms']:.5f}, bound "
                 f"{b_ms:.5f} ({b_by})")
             timed.append(r)
+    timed_f32 = q4_f32_timing(dev, rng)
     row = next(r for r in timed if r["shape"].startswith("M=1024 K=384 "
                                                           "N=1152"))
     results["q4_matmul"] = dict(
         row, shape=row["shape"].replace("(QKV)", "(MiniLM QKV)"),
         max_abs_err=errs["bf16"], max_abs_err_f32=errs["f32"],
         tolerance=TOL["q4_matmul"]["bf16"], library_ms=None,
-        timed_shapes=timed, router=router_phase(dev, rng))
+        timed_shapes=timed, timed_shapes_f32=timed_f32,
+        router=router_phase(dev, rng))
 
     # the router's other branch: M > fused_max_m(dtype) rows take the
     # plain dequantize-then-matmul on the card, and launch no kernel
@@ -531,11 +612,77 @@ def kernel_phase(dev, rng):
         timed.append(r)
     results["fused_qkv_attention"] = dict(
         timed[0], max_abs_err=errs["bf16"], max_abs_err_f32=errs["f32"],
-        tolerance=TOL["fused_qkv_attention"]["bf16"], timed_shapes=timed)
+        tolerance=TOL["fused_qkv_attention"]["bf16"], timed_shapes=timed,
+        timed_shapes_f32=attention_f32_timing(dev, rng))
 
     results["fused_layer_norm"] = ln_kernel_phase(dev, rng)
     results["multi_head_attention"] = mha_kernel_phase(dev, rng)
     return results
+
+
+def attention_f32_timing(dev, rng):
+    """The fused attention's f32 instance at the main path's three
+    shapes: the kernel by graph replay and eager, its plain version, and
+    SDPA in f32 on the same operands (library_ms), each beside its bound.
+    The kernel's and the plain version's max|Δ| against the same attention
+    in f64, over the query rows that have a live key (a fully masked row
+    is uniform only where -1e9 swamps the scores, as it does in f32)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from bert_tpu_torch.ops import fused_attention as A
+
+    rows = []
+    for (b, s, h, dh, pairwise, what) in (
+            (16, 64, 12, 32, True, "MiniLM packed rows"),
+            (8, 128, 12, 32, False, "MiniLM 8x128 bucket"),
+            (1, 512, 12, 32, False, "MiniLM 1x512 bucket")):
+        d = h * dh
+        qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * d)).astype(
+            np.float32)).to(dev)
+        bias = attention_bias(rng, b, s, pairwise)
+        bias_t = torch.from_numpy(bias).to(dev)
+        scale = 1.0 / dh ** 0.5
+        kw = dict(n_head=h, d_head=dh, scale=scale)
+        q5 = qkv.view(b, s, h, 3, dh).permute(0, 2, 3, 1, 4)
+        mask4 = bias_t[:, None] if pairwise else bias_t[:, None, None, :]
+        live = torch.from_numpy((bias == 0).any(-1) if pairwise else
+                                np.repeat((bias == 0).any(-1)[:, None], s,
+                                          1)).to(dev)
+        q64 = qkv.double().view(b, s, h, 3, dh).permute(0, 2, 3, 1, 4)
+        p64 = torch.softmax(torch.matmul(
+            q64[:, :, 0], q64[:, :, 1].transpose(-1, -2)) * scale
+            + mask4.double(), dim=-1)
+        exact = torch.matmul(p64, q64[:, :, 2]).permute(0, 2, 1, 3).reshape(
+            b, s, d)
+        f64_err = {
+            name: float((fn().double() - exact)[live].abs().max())
+            for name, fn in (
+                ("kernel", lambda: A.fused_qkv_attention(qkv, bias_t, **kw)),
+                ("plain", lambda: A.attention_plain(qkv, bias_t, **kw)))}
+        nbytes = b * s * 4 * d * 4 + bias_t.numel() * 4
+        b_ms, b_by, simt_ms = split_bound(nbytes, 4.0 * b * h * s * s * dh)
+        form = "pairwise" if pairwise else "key-side"
+        r = dict(shape=f"B={b} T={s} H={h} dh={dh} {form} f32 ({what})",
+                 ms=time_ms(lambda: A.fused_qkv_attention(qkv, bias_t, **kw)),
+                 eager_ms=eager_ms(lambda: A.fused_qkv_attention(
+                     qkv, bias_t, **kw)),
+                 plain_ms=time_ms(lambda: A.attention_plain(qkv, bias_t,
+                                                            **kw)),
+                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                     q5[:, :, 0], q5[:, :, 1], q5[:, :, 2], attn_mask=mask4,
+                     scale=scale)),
+                 bound_ms=b_ms, bound_by=b_by, cuda_core_bound_ms=simt_ms,
+                 kernel_f64_err=f64_err["kernel"],
+                 plain_f64_err=f64_err["plain"])
+        log(f"  {r['shape']}: kernel {r['ms']:.5f} ms (eager "
+            f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f}, sdpa f32 "
+            f"{r['library_ms']:.5f}, bound {b_ms:.5f} ({b_by}; CUDA cores "
+            f"{simt_ms:.5f}); max|Δ| vs f64 (live rows): kernel "
+            f"{f64_err['kernel']:.3e}, plain {f64_err['plain']:.3e}")
+        rows.append(r)
+    return rows
 
 
 def ln_kernel_phase(dev, rng):
@@ -730,7 +877,7 @@ def mha_kernel_phase(dev, rng):
     shapes = [(4, 12, 512, 32, False), (2, 16, 512, 64, False),
               (8, 12, 512, 26, False), (1, 12, 2048, 26, False),
               (16, 12, 64, 26, True)]
-    timed, row = [], None
+    timed, timed_f32, row = [], [], None
     for (b, h, t, dh, pairwise) in shapes:
         q32, k32, v32 = (rng.standard_normal((b, h, t, dh)).astype(np.float32)
                          for _ in range(3))
@@ -752,6 +899,10 @@ def mha_kernel_phase(dev, rng):
             err = check(q, k, v, bias_t, scale,
                         f"B,H,T,dh={b},{h},{t},{dh} {form} {dn}")
             if dn != "bf16":
+                if (b, h, t, dh, pairwise) == (1, 12, 2048, 26, False):
+                    r = mha_timing(q, k, v, bias_t, scale, pairwise)
+                    r["max_abs_err"] = err
+                    timed_f32.append(r)
                 continue
             r = mha_timing(q, k, v, bias_t, scale, pairwise)
             r["max_abs_err"] = err
@@ -787,11 +938,11 @@ def mha_kernel_phase(dev, rng):
                 q, k, v = operands(2, 2, 100, dh, dt)
                 err = check(q, k, v, bias_t, 1.0 / dh ** 0.5,
                             f"B,H,T,dh=2,2,100,{dh} {form} {dn} (wide head)")
-                if (dh, pairwise, dn) == (256, False, "bf16"):
+                if (dh, pairwise) == (256, False):
                     r = mha_timing(q, k, v, bias_t, 1.0 / dh ** 0.5, False)
                     r["max_abs_err"] = err
                     r["shape"] += " (wide-head instance)"
-                    timed.append(r)
+                    (timed if dn == "bf16" else timed_f32).append(r)
         torch.cuda.synchronize()
 
     # the warmup grid's largest shape: 64 rows of the 2,048 bucket
@@ -815,17 +966,19 @@ def mha_kernel_phase(dev, rng):
     row["max_abs_err"] = errs["bf16"]
     row["max_abs_err_f32"] = errs["f32"]
     row["shapes"] = timed
+    row["shapes_f32"] = timed_f32
     return row
 
 
 def mha_timing(q, k, v, bias_t, scale, pairwise, large=False):
-    """One bf16 shape of kernel 4 timed: the kernel (graph replay, and its
-    eager time), the plain version, SDPA on the same operands and, where
-    d_head % 8 != 0, SDPA on operands zero-padded to the next multiple of 8
-    beforehand. ``large``: the yardsticks (whose [T, T] intermediates take
-    tens of GB) are timed eagerly over 2 calls, which their milliseconds
-    make exact enough, and a yardstick that runs out of memory is recorded
-    as not measured (None)."""
+    """One shape of kernel 4 timed (bf16, or f32: the bound then that of
+    split_bound): the kernel (graph replay, and its eager time), the plain
+    version, SDPA on the same operands and, where d_head % 8 != 0, SDPA on
+    operands zero-padded to the next multiple of 8 beforehand. ``large``:
+    the yardsticks (whose [T, T] intermediates take tens of GB) are timed
+    eagerly over 2 calls, which their milliseconds make exact enough, and
+    a yardstick that runs out of memory is recorded as not measured
+    (None)."""
     import torch
     import torch.nn.functional as F
 
@@ -835,7 +988,10 @@ def mha_timing(q, k, v, bias_t, scale, pairwise, large=False):
     bias4 = (bias_t[:, None] if pairwise
              else bias_t[:, None, None, :]).to(q.dtype)
     nbytes = 4 * q.numel() * q.element_size() + bias_t.numel() * 4
-    b_ms, b_by = bound(nbytes, 4.0 * b * h * t * t * dh, "bf16")
+    flops = 4.0 * b * h * t * t * dh
+    dn = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    b_ms, b_by, simt_ms = ((*bound(nbytes, flops, "bf16"), None)
+                           if dn == "bf16" else split_bound(nbytes, flops))
     dp = -(-dh // 8) * 8
     padded = ([F.pad(x, (0, dp - dh)) for x in (q, k, v)] if dp != dh
               else None)
@@ -851,8 +1007,8 @@ def mha_timing(q, k, v, bias_t, scale, pairwise, large=False):
 
     form = "pairwise" if pairwise else "key-side"
     r = dict(
-        shape=f"B={b} H={h} T={t} dh={dh} {form} bf16",
-        tolerance=TOL["multi_head_attention"]["bf16"],
+        shape=f"B={b} H={h} T={t} dh={dh} {form} {dn}",
+        tolerance=TOL["multi_head_attention"][dn],
         ms=time_ms(lambda: M.multi_head_attention(q, k, v, bias_t,
                                                   scale=scale)),
         eager_ms=eager_ms(lambda: M.multi_head_attention(
@@ -864,13 +1020,16 @@ def mha_timing(q, k, v, bias_t, scale, pairwise, large=False):
             lambda: F.scaled_dot_product_attention(
                 *padded, attn_mask=bias4, scale=scale)),
         bound_ms=b_ms, bound_by=b_by)
+    if simt_ms is not None:
+        r["cuda_core_bound_ms"] = simt_ms
 
     def fmt(x):
         return "not measured" if x is None else f"{x:.5f}"
     log(f"  {r['shape']}: kernel {r['ms']:.5f} ms (eager "
         f"{r['eager_ms']:.5f}), plain {fmt(r['plain_ms'])}, sdpa "
         f"{fmt(r['library_ms'])}, sdpa padded to dh {dp} "
-        f"{fmt(r['library_padded_ms'])}, bound {b_ms:.5f} ({b_by})")
+        f"{fmt(r['library_padded_ms'])}, bound {b_ms:.5f} ({b_by}"
+        + ("" if simt_ms is None else f"; CUDA cores {simt_ms:.5f}") + ")")
     return r
 
 
@@ -1060,6 +1219,8 @@ def main_path(dev, rng, counters):
     log(f"CPU f32 reference in {time.perf_counter() - t0:.2f} s")
     gpu32 = BertTorch.from_file(path, device="cuda",
                                 compute_dtype=torch.float32)
+    gpu32.encode_batch(requests[0])  # its first request
+    f32 = f32_request(gpu32, requests[0], counters)
     e32 = gpu32.encode_batch(requests[0])
     cos32 = np.sum(e32 * ref, axis=-1)
     err32 = float(np.abs(e32 - ref).max())
@@ -1071,8 +1232,48 @@ def main_path(dev, rng, counters):
         f"max|Δ| {float(np.abs(first - ref).max()):.3e}")
     require(bool(np.all(cos16 > 0.999)), "card bf16 cos <= 0.999")
     main = {"path": path, "model": model, "requests": requests,
-            "outs": outs}
+            "outs": outs, "f32_request": f32}
     return launches, n_sent / dt, split, prof, main
+
+
+def f32_request(model, request, counters) -> dict:
+    """One request on the card in f32 (the agreement gate's engine, and
+    what a user who wants exact embeddings gets), with every launch count
+    set to 0 just before and read just after: the f32 q4_matmul and fused
+    attention instances must both launch (d_head 32, and every M of the
+    request is under FUSED_MAX_M_F32), the per-(batch, head) attention not.
+    Then one more request profiled: device busy, kernels, and the two f32
+    kernels' shares of the device time."""
+    import torch
+
+    for c in counters:
+        c.launches = 0
+    model.encode_batch(request)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"main path f32: one request, kernel launches {launches}")
+    require(launches["q4_matmul"] > 0
+            and launches["fused_qkv_attention"] > 0,
+            "the f32 main path did not launch the f32 q4_matmul and fused "
+            "attention kernels")
+    require(launches["multi_head_attention"] == 0,
+            "multi_head_attention launched on the f32 main path")
+    prof = profile_request(model, request, "main path f32", extra=(
+        ("q4_matmul_f32", (("q4_matmul", "(float const*"),)),
+        ("fused_attention_f32", ("fused_attention_f32_kernel",))))
+    if prof is not None:
+        busy = prof["device_busy_us"]
+        log(f"main path f32: q4_matmul {prof['q4_matmul_f32_us']:.1f} us "
+            f"({100 * prof['q4_matmul_f32_us'] / busy:.1f}%), fused "
+            f"attention {prof['fused_attention_f32_us']:.1f} us "
+            f"({100 * prof['fused_attention_f32_us'] / busy:.1f}%) of "
+            f"{busy:.1f} us device busy ({gpu_line()})")
+        require(prof["q4_matmul_f32_launches"] == launches["q4_matmul"]
+                and prof["fused_attention_f32_launches"]
+                == launches["fused_qkv_attention"],
+                "the f32 request's profile does not show the counted "
+                "launches of the f32 kernels")
+    return {"launches": launches, "profile": prof}
 
 
 def api_phase(main: dict, rate: float, prof, counters) -> dict:
@@ -1521,7 +1722,16 @@ def hf_server_path(rng, counters):
     require(bool(np.all(cos > 0.999)), "hf_server: a reply's cos <= 0.999")
     gpu32 = BertTorch.from_file(work, device="cuda",
                                 compute_dtype=torch.float32)
+    gpu32.eval_tokens(toks)  # its first request
+    for c in counters:
+        c.launches = 0
     e32 = gpu32.eval_tokens(toks)
+    torch.cuda.synchronize()
+    launches32 = {c.__name__: c.launches for c in counters}
+    log(f"hf_server f32: one request, kernel launches {launches32}")
+    require(launches32["multi_head_attention"] > 0,
+            "hf_server: the f32 request did not launch the per-(batch, "
+            "head) attention")
     cos32 = np.sum(e32 * ref_batch, axis=-1)
     err32 = float(np.abs(e32 - ref_batch).max())
     log(f"hf_server: card f32 vs CPU f32: min cos {cos32.min():.7f}, "
@@ -2169,7 +2379,7 @@ def int8_path(dev, rng, counters):
                 # template argument, true
                 ("ln_codes", (("ln_rows_kernel", ", true>("),
                               ("ln_block_kernel", ", true>("))),
-                ("q4_matmul", ("q4_matmul_bf16_kernel",)))
+                ("q4_matmul", (("q4_matmul", "(__nv_bfloat16 const*"),)))
     prof = profile_request(model, counted[0], "int8 path", extra=families)
 
     # the same requests with the int8 regime off
@@ -3079,14 +3289,16 @@ def main() -> int:
             **{k: v for k, v in r.items()
                if k.endswith("_ms") and k not in
                ("ms", "plain_ms", "bound_ms", "library_ms")},
-            **{k: r[k] for k in ("max_abs_err_f32", "timed_shapes", "router")
+            **{k: r[k] for k in ("max_abs_err_f32", "timed_shapes",
+                                 "timed_shapes_f32", "shapes_f32", "router")
                if k in r},
             **({"shapes": r["shapes"], "path": "hf_server",
                 "hf_server_launches": hf_launches,
                 "hf_request_split": hf_split} if "shapes" in r
                else {"path": "int8", "int8_path": int8_info}
                if name in int8_results else {"path": "main"}),
-            **({"main_request_split": main_split_rows}
+            **({"main_request_split": main_split_rows,
+                "main_f32_request": main["f32_request"]}
                if name in ("q4_matmul", "fused_qkv_attention") else {}),
             **({"main_request_profile": main_prof,
                 "hf_server_request_profile": hf_prof}
@@ -3098,6 +3310,12 @@ def main() -> int:
             f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f}, library "
             f"{lib}, bound {r['bound_ms']:.5f} ({r['bound_by']}), "
             f"{launches[name]} launches on its path")
+    for name in ("q4_matmul", "fused_qkv_attention"):
+        for r in results[name]["timed_shapes_f32"]:
+            lib = r.get("library_ms", r.get("dense_f32_matmul_ms"))
+            log(f"{name:20s} {r['shape']}: kernel {r['ms']:.5f} ms (eager "
+                f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f}, library "
+                f"{lib:.5f}, bound {r['bound_ms']:.5f} ({r['bound_by']})")
     log(f"warm encode_batch: {rate:.1f} sentences/s on {card}")
     log(f"warm hf_server BATCH frames: {hf_rate:.1f} sentences/s on {card}")
     log(f"warm bert-base int8 path: {int8_info['rate']:.1f} sentences/s "

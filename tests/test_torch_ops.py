@@ -44,7 +44,7 @@ from bert_tpu_torch.ops.layer_norm import (
 )
 from bert_tpu_torch.ops.q4_matmul import (
     _check_alignment as _check_q4_alignment,
-    bf16_alignment,
+    load_alignment,
     fused_max_m,
     q4_matmul,
     q4_matmul_plain,
@@ -144,7 +144,7 @@ def test_q4_router_keeps_every_path_shape_on_the_kernel(dtype):
     (200, {"x": 16, "packed": 4, "scales": 16, "mins": 16}),
     (201, {"x": 16, "packed": 1, "scales": 4, "mins": 4})])
 def test_q4_bf16_alignment_follows_the_row_stride(n, want):
-    assert bf16_alignment(n) == want
+    assert load_alignment(n) == want
     k = 64
     buf = torch.zeros(k // 2 * n + 16, dtype=torch.uint8)
     scales = torch.zeros(k // 32 * n + 4)
