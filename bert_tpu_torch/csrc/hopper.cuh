@@ -1,5 +1,5 @@
 // Warp-level tensor-core and asynchronous-copy primitives shared by the
-// kernels (sm_90a): 16-byte and 4-byte cp.async into shared memory with
+// kernels (sm_90a): 16-, 8- and 4-byte cp.async into shared memory with
 // zero fill, ldmatrix (plain and transposed), the bf16 mma.sync.m16n8k16
 // with f32 accumulation, and the three-way bf16 split by which the f32
 // instances run f32 products on the bf16 tensor cores.
@@ -40,6 +40,14 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(pred ? 4 : 0));
+}
+
+// And for 8 bytes (8-byte aligned).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -10,19 +10,23 @@ to ``_mha_jnp``; on the card the port has no plain path, so the kernel
 takes both.
 
 What bounds the kernel is operations: the scores grow with T², and
-normalising p before it is rounded walks the keys twice. The bf16 instance
+normalising p before it is rounded walks the keys twice. Every instance
 runs both products (q·kᵀ twice, p·v once) on the tensor cores
-(``mma.sync``) over 64-key tiles copied by ``cp.async``, so what is left is
-instruction issue on the CUDA cores, the softmax around each score and
-the tiles' copies; the source's note gives the numbers. Its tiles are copied by 16 bytes where dh % 8 == 0, by 4 where dh
-is even (rubert-tiny2's 26), element by element for odd dh; a bf16 operand
-not aligned for its path raises (:func:`_check_alignment`). The f32
-instance stays on the CUDA cores (TF32 is off), four threads a row at head
-dims above 64. Head dims above 128 (no configuration of the repo has them)
-take one more instance in both types, on the CUDA cores, a thread per
-query row, with q·kᵀ summed over the head dim chunk by chunk and the
-context split into 32-column chunks: right, not fast, and it reads
-element by element, so it needs no alignment beyond the type's.
+(``mma.sync``) over 64-key tiles copied by ``cp.async``. bf16 takes one
+bf16 product; f32 takes bert_tpu's ``Precision.HIGHEST`` as the TPU's
+matrix unit does, six bf16 products of operands split three ways
+(``testing.matmul_bf16x6`` writes the same arithmetic out in PyTorch),
+each key tile's products summed in a fresh accumulator and added in IEEE
+f32. So what is left is the issue of the softmax around each score, of
+the tiles' copies and, in f32, of the split. Head dims to 128 take one
+instance each for DH 32, 64 and 128; head dims above 128 (no
+configuration of the repo has them) take one more in both types, q·kᵀ
+summed over the head dim in 64-lane chunks and the context in blocks of
+128 columns. The source's note gives the numbers. Rows are copied in the
+widest unit their byte stride allows: bf16 by 16 bytes where dh % 8 ==
+0, by 4 where dh is even (rubert-tiny2's 26), element by element for odd
+dh; f32 by 16 where dh % 4 == 0, by 8 where dh is even, by 4 otherwise.
+An operand not aligned for its path raises (:func:`_check_alignment`).
 
 :func:`_mha_plain` is ``_mha_jnp`` in torch, and the kernel rounds as both
 do: f32 scores multiplied by ``scale``, then the bias added; an f32
@@ -36,8 +40,6 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-
-TC_MAX_D_HEAD = 128  # the widest tensor-core instance (csrc/attention.cu)
 
 
 def _bias4(mask_bias: torch.Tensor) -> torch.Tensor:
@@ -59,18 +61,21 @@ def _mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_alignment(q, k, v, mask_bias) -> None:
-    """The bf16 kernel copies rows of dh elements by 16 bytes (dh % 8 == 0)
-    or by 4 (dh even), and reads the bias by 8 bytes where T is even: raise
-    where an operand is not aligned for the path its shape takes; never
-    fall back."""
+    """The kernel copies rows of dh elements in the widest unit their byte
+    stride allows (f32: 16, 8 or 4 bytes; bf16: 16, 4 or 2), and reads the
+    bias by 8 bytes where T is even: raise where q, k, v or the bias is not
+    aligned for the path its shape takes; never fall back."""
     dh, t = q.shape[-1], q.shape[-2]
-    need = 16 if dh % 8 == 0 else 4 if dh % 2 == 0 else 2
+    if q.dtype == torch.float32:
+        need = 16 if dh % 4 == 0 else 8 if dh % 2 == 0 else 4
+    else:
+        need = 16 if dh % 8 == 0 else 4 if dh % 2 == 0 else 2
     for name, x, n in (("q", q, need), ("k", k, need), ("v", v, need),
                        ("mask_bias", mask_bias, 8 if t % 2 == 0 else 4)):
         if x.data_ptr() % n:
             raise ValueError(f"multi_head_attention: {name} at "
                              f"0x{x.data_ptr():x} is not {n}-byte aligned "
-                             f"(head dim {dh}, T {t})")
+                             f"({q.dtype}, head dim {dh}, T {t})")
 
 
 def _launch(q, k, v, mask_bias, scale):
@@ -95,8 +100,7 @@ def _launch(q, k, v, mask_bias, scale):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    if q.dtype == torch.bfloat16 and dh <= TC_MAX_D_HEAD:
-        _check_alignment(q, k, v, mask_bias)
+    _check_alignment(q, k, v, mask_bias)
     fn = "mha_f32" if q.dtype == torch.float32 else "mha_bf16"
     lib = _kernels.library("attention")
     with torch.cuda.device(q.device):

@@ -20,15 +20,17 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    and 4,096 and in its f32-input form (timed beside F.layer_norm and
    beside cast + kernel); holds the per-(batch, head) attention at ragged
    T (1-2,047), at head dims 1-256 and at the warmup grid's largest shape
-   (64x2048), and times it beside SDPA on the same and on zero-padded
-   operands. The f32 instances are timed too: q4_matmul at the main path's
-   eight shapes beside its plain version and cuBLAS f32 on the
-   dequantized W, the fused attention at its three shapes beside SDPA in
-   f32, the per-(batch, head) attention at rubert-tiny2's 2,048 bucket and
-   the wide-head instance's 2x2x100 dh 256 (each with its max|Δ| against
-   an f64 product where it is redesigned); the router's sweep reports the
-   threshold its measurement gives in each dtype. A kernel whose ptxas
-   report shows a spill fails the build step;
+   (64x2048) and at 4x8x512 with d_head 256, and times it beside SDPA on
+   the same and on zero-padded operands. The f32 instances are timed too:
+   q4_matmul at the main path's eight shapes beside its plain version and
+   cuBLAS f32 on the dequantized W, the fused attention at its three
+   shapes beside SDPA in f32, the per-(batch, head) attention at
+   rubert-tiny2's 2,048 bucket and the wide-head instance's 2x2x100 and
+   4x8x512 at d_head 256 (each with the kernel's and the plain version's
+   max|Δ| against an f64 product; the per-(batch, head) attention's bf16
+   rows too); the router's sweep reports the threshold its measurement
+   gives in each dtype. A kernel whose ptxas report shows a spill fails
+   the build step;
 3. main path: writes a MiniLM-L6 Q4_0 ggml file from seed 0, loads it with
    ``BertTorch.from_file(path)`` (the card, bf16) and answers a few
    mixed-length ``encode_batch`` requests — packed short sentences,
@@ -66,7 +68,11 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    the per-(batch, head) attention and the LayerNorm kernels launched and
    the fused attention and Q4 kernels did not; holds every reply against
    a CPU f32 model on the same directory (cos > 0.999) and a card f32
-   model against it (cos > 0.9999, max|Δ| ≤ 5e-3);
+   model against it (cos > 0.9999, max|Δ| ≤ 5e-3), with the counts set
+   to 0 just before its request and read just after (the per-(batch,
+   head) attention must launch); the same f32 request once more profiled
+   (device busy, idle share, kernels, the f32 per-(batch, head)
+   attention's share, its launches the counted request's);
 5. int8_path: holds the W8A8 kernels (the activation quantization and the
    int8 matmul) to their plain versions bit for bit, in f32 and bf16, at
    bert-base's and MiniLM's four matmul shapes at M = 8,192 and at edge
@@ -834,12 +840,16 @@ def mha_kernel_phase(dev, rng):
     (1, 37, 100, 2,047) against the 64-key tiles and head dims 1-128 (every
     copy path and instance), each in both bias forms with fully masked
     rows; head dims 136, 192 and 256 (the instance above 128), the same
-    way, one of them timed; and the warmup grid's largest shape,
+    way, 2x2x100 at 256 timed, and 4x8x512 at 256 held and timed in both
+    types; and the warmup grid's largest shape,
     64x12x2048 at d_head 26, timed. Beside each timed bf16 shape: SDPA on
     the same operands (library_ms) and, where d_head % 8 != 0, SDPA on q,
     k, v zero-padded to the next multiple of 8 beforehand
-    (library_padded_ms), which reaches SDPA's fused kernels. The path's
-    2,048 bucket is the kernel's row in the JSON line."""
+    (library_padded_ms), which reaches SDPA's fused kernels. The f32
+    instance is timed at the 2,048 bucket and at both wide shapes, and
+    every timed shape but the largest carries the kernel's and the plain
+    version's max|Δ| against the same attention in f64. The path's 2,048
+    bucket is the kernel's row in the JSON line."""
     import numpy as np
     import torch
 
@@ -927,7 +937,7 @@ def mha_kernel_phase(dev, rng):
                       f"B,H,T,dh={b},{h},{t},{dh} {form} {dn} (edge)")
         torch.cuda.synchronize()
 
-    # head dims above 128: the CUDA-core instance, both bias forms (each
+    # head dims above 128: the wide-head instance, both bias forms (each
     # with fully masked rows), one shape timed
     for dh in (136, 192, 256):
         for pairwise in (False, True):
@@ -943,6 +953,20 @@ def mha_kernel_phase(dev, rng):
                     r["max_abs_err"] = err
                     r["shape"] += " (wide-head instance)"
                     (timed if dn == "bf16" else timed_f32).append(r)
+        torch.cuda.synchronize()
+    # and one where the card does real work: 4x8x512 at d_head 256
+    b, h, t, dh = 4, 8, 512, 256
+    mask = (rng.random((b, t)) > 0.2).astype(np.float32)
+    mask[:, 0] = 1.0
+    bias_t = torch.from_numpy(((mask - 1.0) * 1e9).astype(np.float32)).to(dev)
+    for dn, dt in dtypes:
+        q, k, v = operands(b, h, t, dh, dt)
+        err = check(q, k, v, bias_t, dh ** -0.5,
+                    f"B,H,T,dh={b},{h},{t},{dh} key-side {dn} (wide head)")
+        r = mha_timing(q, k, v, bias_t, dh ** -0.5, False)
+        r["max_abs_err"] = err
+        r["shape"] += " (wide-head instance)"
+        (timed if dn == "bf16" else timed_f32).append(r)
         torch.cuda.synchronize()
 
     # the warmup grid's largest shape: 64 rows of the 2,048 bucket
@@ -978,7 +1002,10 @@ def mha_timing(q, k, v, bias_t, scale, pairwise, large=False):
     the yardsticks (whose [T, T] intermediates take tens of GB) are timed
     eagerly over 2 calls, which their milliseconds make exact enough, and
     a yardstick that runs out of memory is recorded as not measured
-    (None)."""
+    (None). Other shapes also carry the kernel's and the plain version's
+    max|Δ| against the same attention in f64, over the query rows that
+    have a live key (a fully masked row is uniform only where -1e9 swamps
+    the scores, as it does in f32)."""
     import torch
     import torch.nn.functional as F
 
@@ -1022,6 +1049,22 @@ def mha_timing(q, k, v, bias_t, scale, pairwise, large=False):
         bound_ms=b_ms, bound_by=b_by)
     if simt_ms is not None:
         r["cuda_core_bound_ms"] = simt_ms
+    f64 = ""
+    if not large:
+        exact = torch.matmul(torch.softmax(
+            torch.matmul(q.double(), k.double().transpose(-1, -2)) * scale
+            + bias4.double(), dim=-1), v.double())
+        live = (bias_t == 0).any(-1)  # [B] key-side, [B, T] pairwise
+        live = (live[:, None, None] if not pairwise else live[:, None, :])
+        live = live.expand(b, h, t)
+        for name, out in (("kernel", M.multi_head_attention(
+                q, k, v, bias_t, scale=scale)),
+                ("plain", M._mha_plain(q, k, v, bias_t, scale))):
+            r[f"{name}_f64_err"] = float(
+                (out.double() - exact)[live].abs().max())
+        f64 = (f"; max|Δ| vs f64 (live rows): kernel "
+               f"{r['kernel_f64_err']:.3e}, plain {r['plain_f64_err']:.3e}")
+        del exact
 
     def fmt(x):
         return "not measured" if x is None else f"{x:.5f}"
@@ -1029,7 +1072,8 @@ def mha_timing(q, k, v, bias_t, scale, pairwise, large=False):
         f"{r['eager_ms']:.5f}), plain {fmt(r['plain_ms'])}, sdpa "
         f"{fmt(r['library_ms'])}, sdpa padded to dh {dp} "
         f"{fmt(r['library_padded_ms'])}, bound {b_ms:.5f} ({b_by}"
-        + ("" if simt_ms is None else f"; CUDA cores {simt_ms:.5f}") + ")")
+        + ("" if simt_ms is None else f"; CUDA cores {simt_ms:.5f}") + ")"
+        + f64)
     return r
 
 
@@ -1738,7 +1782,41 @@ def hf_server_path(rng, counters):
         f"max|Δ| {err32:.3e}")
     require(bool(np.all(cos32 > 0.9999)), "hf_server: card f32 cos <= 0.9999")
     require(err32 <= 5e-3, "hf_server: card f32 max|Δ| > 5e-3")
-    return launches, rate, split, prof
+    prof32 = hf_f32_profile(gpu32, texts, launches32)
+    return launches, rate, split, prof, {"launches": launches32,
+                                         "cos_min": float(cos32.min()),
+                                         "max_abs_err": err32,
+                                         "profile": prof32}
+
+
+def hf_f32_profile(model, texts, counted) -> dict:
+    """hf_server's f32 engine (what a user who wants exact f32 embeddings
+    of long Russian documents gets) on the same request, profiled as the
+    main path's f32 request is: device busy, idle share, kernels, and the
+    per-(batch, head) attention's f32 kernel's share of the device time;
+    its launches must be the counted request's."""
+    import torch
+
+    from bert_tpu_torch.ops.attention import multi_head_attention
+
+    torch.cuda.synchronize()
+    before = multi_head_attention.launches
+    prof = profile_request(model, texts, "hf_server f32", extra=(
+        ("mha_f32", ("mha_f32_kernel",)),))
+    require(multi_head_attention.launches - before
+            == counted["multi_head_attention"],
+            "hf_server f32: the profiled request did not launch the "
+            "per-(batch, head) attention as the counted one did")
+    if prof is not None:
+        busy = prof["device_busy_us"]
+        log(f"hf_server f32: per-(b, h) attention {prof['mha_f32_us']:.1f} "
+            f"us ({100 * prof['mha_f32_us'] / busy:.1f}%) / "
+            f"{prof['mha_f32_launches']} launches of {busy:.1f} us device "
+            f"busy ({gpu_line()})")
+        require(prof["mha_f32_launches"] == counted["multi_head_attention"],
+                "hf_server f32: the profile does not show the counted "
+                "launches of the f32 per-(batch, head) attention")
+    return prof
 
 
 def attention_split(buckets, cfg, rng):
@@ -3258,7 +3336,7 @@ def main() -> int:
     int8_counters = [int8_matmul, int8_matmul_gelu, quantize_activations_i8,
                      fused_layer_norm_codes]
     api = api_phase(main, rate, main_prof, counters + int8_counters)
-    hf_launches, hf_rate, hf_split, hf_prof = hf_server_path(
+    hf_launches, hf_rate, hf_split, hf_prof, hf_f32 = hf_server_path(
         np.random.default_rng(19), counters)
     int8_results, int8_info = int8_path(
         dev, np.random.default_rng(20), counters + int8_counters)
@@ -3294,7 +3372,8 @@ def main() -> int:
                if k in r},
             **({"shapes": r["shapes"], "path": "hf_server",
                 "hf_server_launches": hf_launches,
-                "hf_request_split": hf_split} if "shapes" in r
+                "hf_request_split": hf_split,
+                "hf_server_f32_request": hf_f32} if "shapes" in r
                else {"path": "int8", "int8_path": int8_info}
                if name in int8_results else {"path": "main"}),
             **({"main_request_split": main_split_rows,

@@ -4,12 +4,15 @@
 held against both JAX versions on the same numpy inputs: ``_mha_jnp``, what
 the JAX model runs on a CPU, and the Pallas ``_mha_kernel`` run in
 interpret mode, as tests/test_kernels.py runs it. Shapes include d_head 26
-(rubert-tiny2), 80 and 160, which only this route takes. The CUDA kernel itself is held
+(rubert-tiny2), 80, and 137, 160 and 256 (the kernel's wide-head instance,
+an odd one among them), which only this route takes. The CUDA kernel itself is held
 against the plain version on the card by chip_smoke.py; CUDA has no
 interpret mode.
 
 Tolerances: f32 against ``_mha_jnp`` 1e-6 (the same f32 arithmetic, summed
-in another order); f32 against interpret mode atol 1e-5, rtol 1e-4, as
+in another order), at head dims above 160 1e-6·√(d_head / 160) (each score
+sums d_head products, and two f32 sums of n terms in different orders
+drift apart as √n: d_head 256 measured 1.01e-6); f32 against interpret mode atol 1e-5, rtol 1e-4, as
 tests/test_kernels.py:74 holds the Pallas kernel to ``_mha_jnp``; bf16
 2e-2 against both (p and the output each round once to bf16, 4e-3 for an
 O(1) value, and the frameworks round the f32 softmax differently before
@@ -25,7 +28,8 @@ import torch
 import jax.numpy as jnp
 
 from bert_tpu.ops.attention import _mha_jnp, _mha_pallas
-from bert_tpu_torch.ops.attention import _mha_plain, multi_head_attention
+from bert_tpu_torch.ops.attention import (_check_alignment, _mha_plain,
+                                          multi_head_attention)
 
 # One intra-op thread: the suite runs several test files at once, and
 # torch's default pool (one thread per core, in every worker) starves
@@ -36,9 +40,19 @@ DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
 TOL_JNP = {"f32": (1e-6, 1e-6), "bf16": (2e-2, 2e-2)}
 TOL_INTERPRET = {"f32": (1e-5, 1e-4), "bf16": (2e-2, 2e-2)}
-# d_head 32, 26 (rubert-tiny2), 80 (the kernel's DH = 128 instance) and 160
-# (its instance for head dims above 128)
-SHAPES = [(2, 4, 64, 32), (2, 3, 96, 26), (2, 2, 40, 80), (2, 2, 40, 160)]
+# d_head 32, 26 (rubert-tiny2), 80 (the kernel's DH = 128 instance), and
+# 160, 256 and 137 (its instance for head dims above 128: three and four
+# 64-lane chunks, and an odd head dim, which bf16 copies element-wise)
+SHAPES = [(2, 4, 64, 32), (2, 3, 96, 26), (2, 2, 40, 80), (2, 2, 40, 160),
+          (2, 2, 40, 256), (2, 2, 40, 137)]
+
+
+def _tol_jnp(dname, dh):
+    """TOL_JNP, the f32 one grown as √(d_head / 160) above 160."""
+    atol, rtol = TOL_JNP[dname]
+    if dname == "f32" and dh > 160:
+        atol = rtol = atol * (dh / 160) ** 0.5
+    return atol, rtol
 
 
 def _inputs(rng, b, h, t, dh, pairwise=False):
@@ -73,7 +87,8 @@ def _f32(x) -> np.ndarray:
 
 @pytest.mark.parametrize("dname", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", SHAPES,
-                         ids=["dh32", "dh26", "dh80", "dh160"])
+                         ids=["dh32", "dh26", "dh80", "dh160", "dh256",
+                              "dh137"])
 def test_mha_matches_jnp_and_interpret_mode(shape, dname):
     rng = np.random.default_rng(sum(shape))
     (qt, kt, vt, bt), (qj, kj, vj, bj) = _both(_inputs(rng, *shape), dname)
@@ -81,7 +96,7 @@ def test_mha_matches_jnp_and_interpret_mode(shape, dname):
     got = multi_head_attention(qt, kt, vt, bt, scale=scale)
     assert got.shape == shape and got.dtype == qt.dtype
     assert torch.equal(got, _mha_plain(qt, kt, vt, bt, scale))  # CPU → plain
-    atol, rtol = TOL_JNP[dname]
+    atol, rtol = _tol_jnp(dname, shape[-1])
     np.testing.assert_allclose(_f32(got), _f32(_mha_jnp(qj, kj, vj, bj,
                                                         scale)),
                                atol=atol, rtol=rtol)
@@ -169,6 +184,43 @@ def test_reciprocal_division_is_ieee():
         exact = _rn32(Fraction(float(q[i]))
                       + Fraction(float(res[i])) * Fraction(float(r[i])))
         assert exact == want[i], (e[i], l[i])
+
+
+# (dtype, head dim, the copy unit in bytes): f32 rows by 16 bytes where
+# dh % 4 == 0, by 8 where dh is even, by 4 otherwise; bf16 by 16 where
+# dh % 8 == 0, by 4 where dh is even, element by element otherwise
+ALIGNMENT = [("f32", 32, 16), ("f32", 26, 8), ("f32", 13, 4),
+             ("f32", 256, 16), ("f32", 137, 4), ("bf16", 32, 16),
+             ("bf16", 26, 4), ("bf16", 13, 2), ("bf16", 136, 16),
+             ("bf16", 130, 4)]
+
+
+@pytest.mark.parametrize("dname, dh, unit", ALIGNMENT,
+                         ids=[f"{d}-dh{h}" for d, h, _ in ALIGNMENT])
+def test_check_alignment_follows_the_copy_unit(dname, dh, unit):
+    """The wrapper raises before a launch where q, k or v is not aligned
+    to its copy unit, and where the bias is not aligned to 8 (T even) or
+    4 bytes; views offset by one element are what it must catch."""
+    dt = DTYPES[dname][0]
+    b, h, t = 1, 2, 6
+    n = b * h * t * dh
+    buf = torch.zeros(2 * n + 8, dtype=dt)
+    ok = buf[:n].view(b, h, t, dh)
+    off = buf[n + 1:2 * n + 1].view(b, h, t, dh)  # one element later
+    bias = torch.zeros(b * t + 2)
+    ok_bias = bias[:b * t].view(b, t)
+    _check_alignment(ok, ok, ok, ok_bias)
+    for args, name in (((off, ok, ok, ok_bias), "q"),
+                       ((ok, off, ok, ok_bias), "k"),
+                       ((ok, ok, off, ok_bias), "v")):
+        if off.data_ptr() % unit:
+            with pytest.raises(ValueError, match=f"{name} at .* not {unit}-"):
+                _check_alignment(*args)
+        else:  # an element is the unit: any view is aligned
+            _check_alignment(*args)
+    assert (off.data_ptr() % unit != 0) == (unit > off.element_size())
+    with pytest.raises(ValueError, match="mask_bias at .* not 8-byte"):
+        _check_alignment(ok, ok, ok, bias[1:1 + b * t].view(b, t))
 
 
 def test_other_devices_raise_and_wide_heads_compute():

@@ -1,21 +1,29 @@
 """The f32 kernels' split arithmetic on the CPU, against bert_tpu's f32.
 
-The f32 instances of ``csrc/q4_matmul.cu`` and ``csrc/fused_attention.cu``
-take bert_tpu's ``Precision.HIGHEST`` (bert_tpu/ops/common.py:14-25) as the
-TPU's matrix unit does: each f32 operand split into three bf16 parts
-(``testing.split_bf16x3``), six bf16 × bf16 products summed in f32
-(``testing.matmul_bf16x6``). CUDA has no interpret mode, so the kernels
-themselves are held to their plain versions on the card by chip_smoke.py;
-here the same arithmetic, written out in PyTorch, is held to bert_tpu's
-f32 results on the same numpy inputs.
+The f32 instances of ``csrc/q4_matmul.cu``, ``csrc/fused_attention.cu`` and
+``csrc/attention.cu`` take bert_tpu's ``Precision.HIGHEST``
+(bert_tpu/ops/common.py:14-25) as the TPU's matrix unit does: each f32
+operand split into three bf16 parts (``testing.split_bf16x3``), six bf16 ×
+bf16 products summed in f32 (``testing.matmul_bf16x6``). CUDA has no
+interpret mode, so the kernels themselves are held to their plain
+versions on the card by chip_smoke.py; here the same arithmetic, written
+out in PyTorch, is held to bert_tpu's f32 results on the same numpy
+inputs.
 
 Tolerances: (b) 1e-5·(1 + |ref|) against ``_q4_matmul_jnp`` (true f32 on
 the CPU; both sides are f32-grade and differ by their roundings, about
 1e-6 here); (c) 1e-5 against the attention bert_tpu's model runs off the
-TPU (``_mha_jnp``) and against its fused Pallas kernel in interpret mode.
+TPU (``_mha_jnp``) and against its fused Pallas kernel in interpret mode;
+(e) the per-(batch, head) attention's arithmetic (head dims 1-256; q·kᵀ
+in six products, then the scale, then the bias, p normalised in f32, p·v
+in six products) 1e-5 against ``_mha_jnp`` and, key-side, against the
+Pallas ``_mha_kernel`` in interpret mode.
 Weights are drawn at scale 0.1, where (d)'s three-product variant (bf16x3)
 misses (b)'s tolerance several times over: the test fails a kernel that
-drops terms.
+drops terms. For the attention, (e)'s inputs (q and k of std 1) leave
+the three-product variant within a factor of two of 1e-5 (0.4-1.8 times
+it); at q and k of std 2 (logits of std ~4) it misses by more than four
+times, and (d) holds it there.
 """
 
 import numpy as np
@@ -24,7 +32,7 @@ import torch
 
 import jax.numpy as jnp
 
-from bert_tpu.ops.attention import _mha_jnp
+from bert_tpu.ops.attention import _mha_jnp, _mha_pallas
 from bert_tpu.ops.fused_attention import fused_qkv_attention as j_fused_attn
 from bert_tpu.ops.q4_matmul import _q4_matmul_jnp
 from bert_tpu.quant import quantize_tensor_tpu
@@ -177,11 +185,75 @@ def test_attention_bf16x6_matches_jax(dh, pairwise, t):
     np.testing.assert_allclose(got[live], pallas[live], atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("ftype", [2, 3], ids=["q4_0", "q4_1"])
-def test_three_products_miss_the_tolerance(ftype):
+def _mha_bf16x6(q, k, v, bias, scale, passes=BF16X6_PASSES):
+    """The per-(batch, head) attention's f32 arithmetic (csrc/attention.cu,
+    namespaces x6 and wide): s = (q·kᵀ in six products) · scale + bias,
+    p = softmax(s) in f32, context = p·v in six products."""
+    s = matmul_bf16x6(q, k.transpose(-1, -2), passes)
+    s = s * torch.tensor(scale, dtype=torch.float32)
+    s = s + (bias[:, None] if bias.dim() == 3 else bias[:, None, None, :])
+    return matmul_bf16x6(torch.softmax(s, dim=-1), v, passes)
+
+
+def _mha_inputs(rng, b, h, t, dh, pairwise, qk_std=1.0):
+    """q, k, v [B, H, T, dh] and a bias with fully padded rows (as
+    ``_attention_inputs``: pairwise, row 0's last quarter of queries sees
+    no key; key-side, row 1 all padding)."""
+    q, k, v = (rng.standard_normal((b, h, t, dh)).astype(np.float32)
+               for _ in range(3))
+    _, bias = _attention_inputs(rng, b, t, 1, 1, pairwise)
+    return q * np.float32(qk_std), k * np.float32(qk_std), v, bias
+
+
+def _mha_both(q, k, v, bias, scale, passes=BF16X6_PASSES):
+    """(``_mha_bf16x6`` as a tensor, ``_mha_jnp`` as an array)"""
+    return (_mha_bf16x6(*(torch.from_numpy(a) for a in (q, k, v, bias)),
+                        scale, passes),
+            np.asarray(_mha_jnp(*(jnp.asarray(a) for a in (q, k, v, bias)),
+                                scale)))
+
+
+@pytest.mark.parametrize("t", [37, 100, 512])
+@pytest.mark.parametrize("pairwise", [False, True],
+                         ids=["key_side", "pairwise"])
+@pytest.mark.parametrize("dh", [1, 13, 26, 64, 128, 136, 256])
+def test_mha_bf16x6_matches_mha_jnp(dh, pairwise, t):
+    """(e) Both dots in six products against bert_tpu's f32 per-(batch,
+    head) attention, fully padded rows included."""
+    rng = np.random.default_rng(1000 + 10 * dh + t + pairwise)
+    q, k, v, bias = _mha_inputs(rng, 2, 2, t, dh, pairwise)
+    got, ref = _mha_both(q, k, v, bias, 1.0 / dh ** 0.5)
+    np.testing.assert_allclose(got.numpy(), ref, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("dh", [26, 136])
+def test_mha_bf16x6_matches_pallas_interpret(dh):
+    """(e) Key-side, against the Pallas ``_mha_kernel`` in interpret mode
+    (it has no pairwise form), the fully padded batch row included."""
+    rng = np.random.default_rng(2000 + dh)
+    q, k, v, bias = _mha_inputs(rng, 2, 2, 100, dh, False)
+    scale = 1.0 / dh ** 0.5
+    got = _mha_bf16x6(*(torch.from_numpy(a) for a in (q, k, v, bias)),
+                      scale).numpy()
+    ref = np.asarray(_mha_pallas(*(jnp.asarray(a) for a in (q, k, v, bias)),
+                                 scale, interpret=True))
+    np.testing.assert_allclose(got, ref, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("case", ["q4_0", "q4_1", "attention"])
+def test_three_products_miss_the_tolerance(case):
     """(d) bf16x3 (hi·hi, hi·mid, mid·hi: the three largest passes) is not
     f32-grade: at K = 1,536 it misses (b)'s tolerance by more than twice,
-    where the six products pass the same inputs."""
-    x, w, ref = _q4_case(ftype, 1536, 37, 201)
-    assert _worst(matmul_bf16x6(x, w), ref) <= 1.0
-    assert _worst(matmul_bf16x6(x, w, passes=BF16X6_PASSES[3:]), ref) > 2.0
+    and the per-(batch, head) attention at d_head 26, T 512 with q and k
+    of std 2 misses (e)'s, where the six products pass the same inputs."""
+    if case == "attention":
+        rng = np.random.default_rng(3000)
+        q, k, v, bias = _mha_inputs(rng, 2, 2, 512, 26, False, qk_std=2.0)
+        six, three = (_worst(*_mha_both(q, k, v, bias, 26 ** -0.5, p))
+                      for p in (BF16X6_PASSES, BF16X6_PASSES[3:]))
+    else:
+        x, w, ref = _q4_case({"q4_0": 2, "q4_1": 3}[case], 1536, 37, 201)
+        six, three = (_worst(matmul_bf16x6(x, w, passes=p), ref)
+                      for p in (BF16X6_PASSES, BF16X6_PASSES[3:]))
+    assert six <= 1.0
+    assert three > 2.0
