@@ -21,6 +21,16 @@ dispatched before any result is gathered, and each result is copied
 device→host without blocking into pinned memory as soon as its batch is
 queued.
 
+Each batch shape runs as one program, as bert_tpu jit-compiles each
+(rows, T) shape once (``_graphs.py``): on the card a CUDA graph per
+(rows, T, kind, regime) — kind bucketed or packed, regime the Q4/dense
+tree or the int8 one — captured at the first sight of the shape (or by
+``warmup``) and replayed for every later batch of that shape, so a batch
+costs the host a few calls instead of one per op. The packed rows' valid
+slots are gathered by a program of their own whose index is padded to a
+multiple of 256, as bert_tpu pads it. On the CPU the same programs run
+eagerly.
+
 ``use_kernels`` is bert_tpu's ``use_pallas`` (model.py): None launches
 the kernels on the card; False runs every batch, int8 ones included,
 through the plain PyTorch versions on any device; True is refused off the
@@ -28,21 +38,22 @@ card, at construction.
 
 ``from_file`` takes a ggml-bin file, an HF checkpoint directory or a
 ``.npz`` weight cache (``save_cache`` writes one). ``encode_iter`` /
-``eval_tokens_iter`` stream a corpus with bounded memory. ``warmup`` runs
-each (rows, T) shape once before the first request, or only the shapes a
-previous run recorded in its manifest; on the card that builds the kernels
-and warms cuBLAS and the caching allocator. There is no compile to cache:
-the kernel ``.so`` cache of ``_kernels.py`` stands in for bert_tpu's XLA
-compilation cache. ``int8_eval=True`` adds bert_tpu's opt-in W8A8 regime:
-batches of at least ``int8_threshold`` padded tokens run on a per-column
-int8 weight tree (ops/int8_matmul.py).
+``eval_tokens_iter`` stream a corpus with bounded memory. ``warmup``
+captures each (rows, T) shape's program before the first request, or
+only the shapes a previous run recorded in its manifest; on the card that
+also builds the kernels. The process's CUDA graphs and the kernel ``.so``
+cache of ``_kernels.py`` stand in for bert_tpu's XLA compilation cache;
+graphs do not outlive the process. ``int8_eval=True`` adds bert_tpu's
+opt-in W8A8 regime: batches of at least ``int8_threshold`` padded tokens
+run on a per-column int8 weight tree (ops/int8_matmul.py).
 
 Multi-device execution (``mesh=`` or ``dp=``/``tp=``, as BertTPU takes
 them): one process per rank (parallel/multihost.py), every rank calling
 the same method with the same inputs. Each batch is planned in multiples
 of dp; a rank runs its rows through its Megatron shard of the weights
 (tensor-parallel over ``model``), and the rows are all-gathered over
-``data``, so every rank gets the whole result.
+``data``, so every rank gets the whole result. A mesh engine runs its
+batches eagerly, op by op: its collectives are not captured (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence
@@ -57,6 +69,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ._graphs import Programs
 from .batching import (
     default_seq_buckets,
     pick_bucket,
@@ -213,6 +226,11 @@ class BertTorch:
                 {"embeddings": state["embeddings"],
                  "layers": {**state["layers"], **int8_layers}},
                 self.config, tp_group).eval()
+        # one program per batch shape; a mesh engine runs eagerly
+        self._programs = None if mesh is not None else Programs(self.device)
+        # a batch stages, replays and queues its copy to the host before
+        # another thread's batch may touch the programs' static buffers
+        self._lock = threading.Lock()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.load_phases["to_device"] = round(time.perf_counter() - t0, 3)
@@ -360,8 +378,9 @@ class BertTorch:
                         [token_lists[i] for i in idxs], seq_b,
                         batch_size=batch_b
                     )
-                    emb = self._forward(ids, mask)[: len(idxs)]
-                    host, done = self._copy_to_host(self._wire(emb))
+                    with self._lock:
+                        host, done = self._copy_to_host(
+                            self._forward(ids, mask)[: len(idxs)])
                     self.timers.record_bucket(batch_b, seq_b)
                     pending.append((np.asarray(idxs), host, done))
         return pending
@@ -383,41 +402,76 @@ class BertTorch:
             sub = PackPlan(pls, end - start, plan.seq_len, plan.max_segments)
             n_rows = min(_size_bucket(sub.n_rows, self._min_rows), row_cap)
             ids, seg, pos, flat = pack_batch(tl, sub, n_rows=n_rows)
-            emb3 = self._forward_packed(ids, seg, pos)
-            # valid slots only: [B, S, D] → [n_sent, D]
-            rows = emb3.reshape(-1, emb3.shape[-1])[
-                self._to_device(flat.astype(np.int64))]
-            host, done = self._copy_to_host(self._wire(rows))
+            with self._lock:
+                host, done = self._copy_to_host(
+                    self._forward_packed(ids, seg, pos, flat))
             self.timers.record_bucket(n_rows, self._pack_seq, kind="packed")
             orig = np.asarray([idxs[p.index] for p in pls])
             pending.append((orig, host, done))
         return pending
 
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        """Bucketed batch [B, T] (B a multiple of dp) → [B, D] f32 on
-        this rank's device: its rows through its shard, all-gathered over
-        ``data``. The regime follows the whole batch's padded tokens."""
-        r = local_rows(self.mesh, ids.shape[0])
+        """Bucketed batch [B, T] (B a multiple of dp) → [B, D] in the wire
+        dtype on this rank's device: its program's output (bert_tpu's
+        ``encode``), or on a mesh this rank's rows through its shard,
+        all-gathered over ``data``. The regime follows the whole batch's
+        padded tokens."""
+        model = self._model_for(ids.size)
         # ids are widened on the host: a cast on the card is one more launch
-        emb = bert_forward(
-            self._model_for(ids.size),
-            self._to_device(ids[r].astype(np.int64)),
-            self._to_device(mask[r]), compute_dtype=self.compute_dtype,
-            use_kernels=self.use_kernels, pooling=self.pooling)
-        return gather_rows(emb, self._dp_group)
+        ids = ids.astype(np.int64)
+
+        def encode(ids, mask):
+            return bert_forward(
+                model, ids, mask, compute_dtype=self.compute_dtype,
+                use_kernels=self.use_kernels, pooling=self.pooling)
+        if self._programs is None:
+            r = local_rows(self.mesh, ids.shape[0])
+            return self._wire(gather_rows(encode(
+                self._to_device(ids[r]), self._to_device(mask[r])),
+                self._dp_group))
+        arrays = {"ids": ids, "mask": mask}
+        key = (*ids.shape, "bucketed", self._regime(model))
+        return self._programs.get(
+            key, lambda **a: self._wire(encode(**a)), arrays)(**arrays)
 
     def _forward_packed(self, ids: np.ndarray, seg: np.ndarray,
-                        pos: np.ndarray) -> torch.Tensor:
-        """Packed rows [B, pack_seq] → [B, S, D], as :meth:`_forward`."""
-        r = local_rows(self.mesh, ids.shape[0])
-        emb3 = bert_forward_packed(
-            self._model_for(ids.size),
-            self._to_device(ids[r].astype(np.int64)), self._to_device(seg[r]),
-            self._to_device(pos[r].astype(np.int64)),
-            n_segments=self._pack_segments,
-            compute_dtype=self.compute_dtype, use_kernels=self.use_kernels,
-            pooling=self.pooling)
-        return gather_rows(emb3, self._dp_group)
+                        pos: np.ndarray, flat: np.ndarray) -> torch.Tensor:
+        """Packed rows [B, pack_seq] → the valid slots' rows [n_sent, D]
+        in the wire dtype, ``flat`` indexing them in the flattened [B·S]
+        per-segment output: the packed program's output (bert_tpu's
+        ``encode_packed``), gathered by a second program whose index is
+        padded to a multiple of 256 (``gather_segments``); on a mesh, as
+        :meth:`_forward`, then gathered eagerly."""
+        model = self._model_for(ids.size)
+        ids, pos = ids.astype(np.int64), pos.astype(np.int64)
+        flat = flat.astype(np.int64)
+        d = self.config.n_embd
+
+        def encode_packed(ids, seg, pos):
+            return bert_forward_packed(
+                model, ids, seg, pos, n_segments=self._pack_segments,
+                compute_dtype=self.compute_dtype,
+                use_kernels=self.use_kernels, pooling=self.pooling)
+        if self._programs is None:
+            r = local_rows(self.mesh, ids.shape[0])
+            emb3 = gather_rows(encode_packed(
+                self._to_device(ids[r]), self._to_device(seg[r]),
+                self._to_device(pos[r])), self._dp_group)
+            return self._wire(emb3.reshape(-1, d)[self._to_device(flat)])
+        arrays = {"ids": ids, "seg": seg, "pos": pos}
+        key = (*ids.shape, "packed", self._regime(model))
+        packed = self._programs.get(key, encode_packed, arrays)
+        packed(**arrays)
+
+        def gather_segments(flat):
+            # reads the packed program's output as its last call left it
+            return self._wire(packed.output.reshape(-1, d)[flat])
+        n = flat.size
+        flat_pad = np.zeros(max(_round_up(n, 256), 256), dtype=np.int64)
+        flat_pad[:n] = flat
+        gather = self._programs.get((*key, flat_pad.size), gather_segments,
+                                    {"flat": flat_pad})
+        return gather(flat=flat_pad)[:n]
 
     def _model_for(self, n_tokens: int) -> BertModel:
         """The model for a batch of ``n_tokens`` padded tokens (rows × T):
@@ -425,6 +479,9 @@ class BertTorch:
         if self.model_int8 is not None and n_tokens >= self._int8_threshold:
             return self.model_int8
         return self.model
+
+    def _regime(self, model: BertModel) -> str:
+        return "int8" if model is self.model_int8 else "q4/dense"
 
     def _gather_pending(self, pending: list, out: np.ndarray) -> None:
         """Wait for each batch's host copy and place its rows in ``out``."""
@@ -507,22 +564,26 @@ class BertTorch:
     # -- warmup --------------------------------------------------------------
     @torch.inference_mode()
     def _warm_shape(self, rows: int, seq: int, kind: str) -> None:
-        """Run one (rows, seq) shape on zeros, through its host copy."""
+        """Capture (on the CPU: run) one (rows, seq) shape's program on
+        zeros, through its host copy."""
         ids = np.zeros((rows, seq), dtype=np.int64)
-        if kind == "packed":
-            emb = self._forward_packed(ids, ids.astype(np.int32), ids)
-        else:
-            emb = self._forward(ids, np.ones((rows, seq), dtype=np.float32))
-        _, done = self._copy_to_host(self._wire(emb))
+        with self._lock:
+            if kind == "packed":
+                emb = self._forward_packed(ids, ids.astype(np.int32), ids,
+                                           np.zeros(1, dtype=np.int64))
+            else:
+                emb = self._forward(ids, np.ones((rows, seq),
+                                                 dtype=np.float32))
+            _, done = self._copy_to_host(emb)
         if done is not None:
             done.synchronize()
 
     def warmup(self, batch_sizes: Optional[Sequence[int]] = None,
                max_rows: Optional[int] = None,
                manifest: Optional[Any] = None) -> None:
-        """Run every shape a server will meet once, before its first
-        request. On the card this builds the kernels and warms cuBLAS and
-        the caching allocator (there is no compile to cache).
+        """Capture the program of every shape a server will meet, before
+        its first request, as bert_tpu compiles them; on the card this
+        also builds the kernels. A shape first met later is captured then.
 
         With ``manifest`` (a path written by :meth:`save_warmup_manifest`,
         or its ``shapes`` list), warms exactly the shapes a previous run

@@ -95,6 +95,23 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    request, and holds int8 against Q4 on the card (cos > 0.999) and the
    card's f32 int8 against the CPU's f32 int8 (cos > 0.9999, max|Δ| ≤
    5e-3);
+   Every single-device engine of steps 3-5 runs each batch shape as one
+   captured program (a CUDA graph, bert_tpu_torch/_graphs.py), and each
+   warms its shapes before its counted requests: the main path by a warm
+   pass over its requests (and ``warmup()`` of a fresh engine is timed
+   with its peak memory), hf_server by ``warmup()`` and one warm BATCH
+   frame, the int8 path by two warm requests. The graphs phase of the
+   main path in bf16 and f32, of ``use_kernels=False``, of hf_server in
+   bf16 and f32 and of the int8 path on and off fails if a program was
+   captured inside the timed requests or a profile, if the forward
+   programs are not the shapes ``stats()`` recorded, each with the regime
+   the engine picks, if a program replayed on its static inputs differs
+   by any bit from its function called eagerly on them, if the profiled
+   request's kernels differ, name by name and count by count, from the
+   same request run eagerly with the programs set aside (the parent's
+   way), or if the profile's launches of a kernel differ from its
+   counter's; it logs each path's request wall, dispatch phase, device
+   busy, idle share and sentences/s;
 6. train path: writes a MiniLM-L6 f32 ggml file from seed 0 whose vocab
    holds the words of benchmarks/data/sts_en.tsv, and fine-tunes it with
    ``python -m bert_tpu_torch.finetune``'s ``main`` on the card (20 steps
@@ -131,6 +148,7 @@ device it exits non-zero before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1166,9 +1184,221 @@ def profile_request(model, request, path: str, extra=()):
         log(f"  {e.self_device_time_total:10.1f} us {e.count:5d}x  "
             f"{e.key[:100]}")
     return {"wall_us": wall_us, "device_busy_us": busy_us,
+            "by_name": {e.key: e.count for e in kernels},
             "kernels": n_kernels, "layer_norm_us": ln_us,
             "layer_norm_launches": ln_n, "bf16_cast_us": cast_us,
             "bf16_casts": cast_n, **sums}
+
+
+# ---------------------------------------------------------------------------
+# graphs: one captured program per batch shape
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def programs_set_aside(model):
+    """The engine with its programs set aside: every op launched from
+    Python, as the engine ran before it captured (and as a mesh engine
+    runs). For the eager side of a comparison only."""
+    saved, model._programs = model._programs, None
+    try:
+        yield
+    finally:
+        model._programs = saved
+
+
+AB_ROUNDS = 5  # rounds of the same request, replayed then eager
+
+
+def n_programs(model) -> int:
+    return len(model._programs.table)
+
+
+def timed_start(model) -> dict:
+    """A timed window's start: the engine's program count and its phase
+    totals (tokenize, dispatch, gather; seconds, unrounded)."""
+    return {"programs_before": n_programs(model),
+            "phases_before": dict(model.timers.totals)}
+
+
+def timed_end(model, timed: dict, latency_s, sentences: int) -> dict:
+    before = timed.pop("phases_before")
+    timed.update(latency_s=latency_s, sentences=sentences, phases_s={
+        k: v - before.get(k, 0.0) for k, v in model.timers.totals.items()})
+    return timed
+
+
+def graphs_phase(model, label: str, request, prof, timed: dict,
+                 exact: bool = True) -> dict:
+    """The graphs phase of one engine, after its warm and timed requests
+    (``timed``, from :func:`timed_start` and :func:`timed_end`: the timed
+    requests' latencies, sentences and phase seconds, and the program
+    count before them):
+
+    (a) no capture inside the timed requests: the program count did not
+        move, and the forward programs' (rows, T, kind) are the shapes the
+        engine's ``stats()`` recorded (``exact``), or hold them (a grid
+        warmup captured more), each with the regime ``_model_for`` picks;
+    (b) every program, replayed on its static inputs, equals its function
+        called eagerly on the same inputs, bit for bit;
+    (c) the profiled request ``prof`` (the programs replayed) ran the same
+        kernels, name by name and count by count, as the same request run
+        eagerly with the programs set aside, which is how the parent ran
+        it; and no program was captured by either profile.
+
+    Logs the request wall, the engine's phases a request (tokenize,
+    dispatch, gather), device busy, idle share and sentences/s beside the
+    card's name and power limit."""
+    import torch
+
+    progs = model._programs.table
+    require(n_programs(model) == timed["programs_before"],
+            f"graphs, {label}: {n_programs(model) - timed['programs_before']}"
+            " programs captured inside the timed requests")
+    fwd = {k for k in progs if len(k) == 4}
+    kinds = {(r, t, "packed" if kind == "packed" else "")
+             for r, t, kind, _ in fwd}
+    seen = set(model.timers.bucket_counts)
+    require(kinds == seen if exact else kinds >= seen,
+            f"graphs, {label}: forward programs {sorted(kinds)}, stats() "
+            f"shapes {sorted(seen)}")
+    for r, t, kind, regime in fwd:
+        require(regime == model._regime(model._model_for(r * t)),
+                f"graphs, {label}: program {(r, t, kind)} has regime "
+                f"{regime}")
+    require(len(fwd) == len(kinds), f"graphs, {label}: a shape has two "
+            "regimes")
+    gathers = [k for k in progs if len(k) == 5]
+    require(all(k[:4] in fwd and k[4] % 256 == 0 for k in gathers),
+            f"graphs, {label}: gather programs {gathers}")
+
+    if prof is not None:
+        kernels_agree_with_counters(model, label, request, prof)
+
+    worst, differ = 0.0, []
+    with torch.inference_mode():
+        for key, prog in progs.items():
+            prog.replay()
+            got = prog.output.float().clone()
+            want = prog.fn(**prog.inputs).float()
+            d = float((got - want).abs().max()) if got.numel() else 0.0
+            worst = max(worst, d)
+            if d:
+                differ.append((key, d))
+        torch.cuda.synchronize()
+    log(f"graphs, {label}: {len(progs)} programs ({len(fwd)} forward, "
+        f"{len(gathers)} gathers), each replayed on its static inputs vs "
+        f"its function called eagerly: max|Δ| {worst:.3e}"
+        + (f"; differing: {differ}" if differ else ", bit for bit"))
+    require(not differ, f"graphs, {label}: a replay differs from its "
+            f"function run eagerly: {differ}")
+
+    with programs_set_aside(model):
+        eager = profile_request(model, request, f"{label}, eager (programs "
+                                "set aside)")
+    # the same request replayed and eager (the parent's way), in turns
+    walls = {"replayed": [], "eager": []}
+    phases = {"replayed": {}, "eager": {}}
+    for _ in range(AB_ROUNDS):
+        for way in ("replayed", "eager"):
+            with (programs_set_aside(model) if way == "eager"
+                  else contextlib.nullcontext()):
+                before = dict(model.timers.totals)
+                t0 = time.perf_counter()
+                model.encode_batch(request)
+                walls[way].append(time.perf_counter() - t0)
+                for k, v in model.timers.totals.items():
+                    phases[way][k] = (phases[way].get(k, 0.0) + (
+                        v - before.get(k, 0.0)) / AB_ROUNDS * 1e3)
+    require(n_programs(model) == timed["programs_before"],
+            f"graphs, {label}: a profiled request captured a program")
+    lat = timed["latency_s"]
+    out = {"programs": len(progs), "forward_programs": len(fwd),
+           "gathers": len(gathers), "replay_max_abs_err": worst,
+           "request_wall_ms": statistics.median(lat) * 1e3,
+           "phase_ms_per_request": {k: v / len(lat) * 1e3 for k, v in
+                                    timed["phases_s"].items()},
+           "sentences_per_s": timed["sentences"] / sum(lat),
+           "same_request_ms": {w: statistics.median(v) * 1e3
+                               for w, v in walls.items()},
+           "same_request_phase_ms": phases}
+    if prof is not None and eager is not None:
+        def names(p):
+            # the profiler names a memset node of a graph "Memset
+            # (Unknown)", the same memset launched eagerly "Memset (Device)"
+            out = {}
+            for k, n in p["by_name"].items():
+                k = "Memset" if k.startswith("Memset (") else k
+                out[k] = out.get(k, 0) + n
+            return out
+        ran, want = names(prof), names(eager)
+        diff = {k: (ran.get(k, 0), want.get(k, 0)) for k in {*ran, *want}
+                if ran.get(k, 0) != want.get(k, 0)}
+        require(not diff, f"graphs, {label}: the replayed request's kernels "
+                f"differ from the eager request's (replayed, eager): {diff}")
+        out.update({
+            "kernels": prof["kernels"], "eager_kernels": eager["kernels"],
+            "device_busy_us": prof["device_busy_us"],
+            "eager_device_busy_us": eager["device_busy_us"],
+            "idle_share": 1 - prof["device_busy_us"] / prof["wall_us"],
+            "eager_idle_share": 1 - eager["device_busy_us"]
+            / eager["wall_us"]})
+    log(f"graphs, {label}: request wall {out['request_wall_ms']:.3f} ms "
+        f"(median); phases a request, ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    sorted(out["phase_ms_per_request"].items()))
+        + f"; {out['sentences_per_s']:.1f} sentences/s; profiled: "
+        + ("device time not measured" if "kernels" not in out else
+           f"{out['kernels']} kernels, device busy "
+           f"{out['device_busy_us']:.1f} us, idle "
+           f"{100 * out['idle_share']:.1f}% (eager, same request: "
+           f"{out['eager_kernels']} kernels, "
+           f"{out['eager_device_busy_us']:.1f} us, idle "
+           f"{100 * out['eager_idle_share']:.1f}%)") + f" ({gpu_line()})")
+    log(f"graphs, {label}: the profiled request {AB_ROUNDS} times in turns, "
+        "replayed / eager: wall "
+        f"{out['same_request_ms']['replayed']:.3f} / "
+        f"{out['same_request_ms']['eager']:.3f} ms (median); phases ms: "
+        + ", ".join(f"{k} {phases['replayed'][k]:.3f} / "
+                    f"{phases['eager'].get(k, 0.0):.3f}"
+                    for k in sorted(phases["replayed"]))
+        + f" ({gpu_line()})")
+    return out
+
+
+# each counter's kernels in a profile: a name holds all of a tuple's parts
+PROFILE_NAMES = {
+    "q4_matmul": (("q4_matmul_kernel",),),
+    "fused_layer_norm": (("ln_rows_kernel", ", false>("),
+                         ("ln_block_kernel", ", false>(")),
+    "fused_layer_norm_codes": (("ln_rows_kernel", ", true>("),
+                               ("ln_block_kernel", ", true>(")),
+    "fused_qkv_attention": (("fused_attention_",),),
+    "multi_head_attention": (("mha_", "_kernel<"),),
+    # forms (a) and (b), and form (c) (int8_matmul_gelu), are one kernel
+    "int8_matmul": (("int8_matmul_kernel",),),
+    "quantize_activations_i8": (("quantize_rows_kernel",),
+                                ("quantize_wide_kernel",)),
+}
+
+
+def kernels_agree_with_counters(model, label: str, request, prof) -> None:
+    """The profiled request's launches of each kernel (the programs
+    replayed) against the launch counters of the same request run once
+    more: a replay adds what its capture counted, so the two agree."""
+    from bert_tpu_torch._graphs import COUNTERS
+
+    before = {c.__name__: c.launches for c in COUNTERS}
+    model.encode_batch(request)
+    counted = {c.__name__: c.launches - before[c.__name__]
+               for c in COUNTERS}
+    counted["int8_matmul"] += counted.pop("int8_matmul_gelu")
+    seen = {name: sum(n for k, n in prof["by_name"].items()
+                      if any(all(p in k for p in parts) for parts in alts))
+            for name, alts in PROFILE_NAMES.items()}
+    log(f"graphs, {label}: one request's launches by the counters "
+        f"{counted}, in the profile {seen}")
+    require(seen == counted, f"graphs, {label}: the profile's launches "
+            f"{seen} are not the counters' {counted}")
 
 
 def main_path(dev, rng, counters):
@@ -1209,10 +1439,19 @@ def main_path(dev, rng, counters):
             and sum(n <= 64 for n in lengths) >= 2,
             "request corpus does not take both routes and the 512 bucket")
 
-    first = model.encode_batch(requests[0])  # first call: loads the kernels
+    # the warm pass: the first call loads the kernels, and each shape's
+    # first batch captures its program
+    t0 = time.perf_counter()
+    first = model.encode_batch(requests[0])
+    for r in requests[1:]:
+        model.encode_batch(r)
     torch.cuda.synchronize()
+    log(f"main path: warm pass over the {len(requests)} requests (every "
+        f"shape's capture) in {time.perf_counter() - t0:.3f} s, "
+        f"{n_programs(model)} programs ({gpu_line()})")
 
     batches0 = dict(model.timers.bucket_counts)
+    timed = timed_start(model)
     for c in counters:
         c.launches = 0
     outs, lat = [], []
@@ -1221,6 +1460,7 @@ def main_path(dev, rng, counters):
         outs.append(model.encode_batch(r))  # returns after the host copy
         lat.append(time.perf_counter() - t0)
     launches = {c.__name__: c.launches for c in counters}
+    timed_end(model, timed, lat, sum(len(r) for r in requests))
     # d_head 32 takes the fused kernel: the per-(b, h) one must stay idle
     require(launches.pop("multi_head_attention") == 0,
             "multi_head_attention launched on the MiniLM main path")
@@ -1246,6 +1486,9 @@ def main_path(dev, rng, counters):
            model.timers.bucket_counts.items() if n > before.get(k, 0)}
     split = main_split(one, model, rng)
     roofline_request(cfg, one, statistics.median(lat), prof)
+    graphs = {"main path": graphs_phase(model, "main path", requests[0],
+                                        prof, timed),
+              "warmup": warmup_cost(path)}
 
     for req, emb in zip(requests + [requests[0]], outs + [first]):
         require(emb.shape == (len(req), cfg.n_embd), f"bad shape {emb.shape}")
@@ -1276,8 +1519,56 @@ def main_path(dev, rng, counters):
         f"max|Δ| {float(np.abs(first - ref).max()):.3e}")
     require(bool(np.all(cos16 > 0.999)), "card bf16 cos <= 0.999")
     main = {"path": path, "model": model, "requests": requests,
-            "outs": outs, "f32_request": f32}
+            "outs": outs, "f32_request": f32, "graphs": graphs}
     return launches, n_sent / dt, split, prof, main
+
+
+def warmup_cost(path: str) -> dict:
+    """``warmup()`` of a fresh engine on the main path's file, as a server
+    runs it before its first request (the default grid: every bucket at
+    1, 8 and max_batch rows, every packed row bucket): its seconds, the
+    programs it captured and the memory it took (:func:`timed_warmup`)."""
+    from bert_tpu_torch import BertTorch
+
+    model = BertTorch.from_file(path)
+    out = timed_warmup(model, model.warmup)
+    log(f"main path: warmup() of a fresh engine (the default grid) in "
+        f"{out['seconds']:.3f} s, {out['programs']} programs captured; "
+        + warmup_memory(out) + f" ({gpu_line()})")
+    return out
+
+
+def timed_warmup(model, warmup) -> dict:
+    """``warmup()``'s seconds and programs, and the memory it took: the
+    peak allocated above what was allocated before it, and what stays
+    allocated (the programs' static buffers) and reserved (the caching
+    allocator's segments, the programs' pool among them) after it."""
+    import torch
+
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warmup()
+    torch.cuda.synchronize()
+    mib = 2 ** 20
+    return {"seconds": time.perf_counter() - t0,
+            "programs": n_programs(model),
+            "allocated_before_mib": allocated / mib,
+            "peak_above_mib":
+                (torch.cuda.max_memory_allocated() - allocated) / mib,
+            "allocated_after_mib":
+                (torch.cuda.memory_allocated() - allocated) / mib,
+            "reserved_after_mib":
+                (torch.cuda.memory_reserved() - reserved) / mib}
+
+
+def warmup_memory(w: dict) -> str:
+    return (f"peak allocated {w['peak_above_mib']:.1f} MiB above the "
+            f"{w['allocated_before_mib']:.1f} MiB allocated before it; after "
+            f"it {w['allocated_after_mib']:.1f} MiB more allocated, "
+            f"{w['reserved_after_mib']:.1f} MiB more reserved")
 
 
 def f32_request(model, request, counters) -> dict:
@@ -1290,10 +1581,12 @@ def f32_request(model, request, counters) -> dict:
     kernels' shares of the device time."""
     import torch
 
+    timed = timed_start(model)
     for c in counters:
         c.launches = 0
+    t0 = time.perf_counter()
     model.encode_batch(request)
-    torch.cuda.synchronize()
+    timed_end(model, timed, [time.perf_counter() - t0], len(request))
     launches = {c.__name__: c.launches for c in counters}
     log(f"main path f32: one request, kernel launches {launches}")
     require(launches["q4_matmul"] > 0
@@ -1317,7 +1610,9 @@ def f32_request(model, request, counters) -> dict:
                 == launches["fused_qkv_attention"],
                 "the f32 request's profile does not show the counted "
                 "launches of the f32 kernels")
-    return {"launches": launches, "profile": prof}
+    return {"launches": launches, "profile": prof,
+            "graphs": graphs_phase(model, "main path f32", request, prof,
+                                   timed)}
 
 
 def api_phase(main: dict, rate: float, prof, counters) -> dict:
@@ -1346,8 +1641,10 @@ def api_phase(main: dict, rate: float, prof, counters) -> dict:
     plain = BertTorch.from_file(main["path"], use_kernels=False)
     require(plain.device.type == "cuda" and plain.use_kernels is False,
             "use_kernels=False did not build a card engine")
-    plain.encode_batch(requests[0])  # first call: cuBLAS, the allocator
+    for r in requests:  # the warm pass: cuBLAS, every shape's capture
+        plain.encode_batch(r)
     torch.cuda.synchronize()
+    timed = timed_start(plain)
     for c in counters:
         c.launches = 0
     got, lat = [], []
@@ -1356,6 +1653,7 @@ def api_phase(main: dict, rate: float, prof, counters) -> dict:
         got.append(plain.encode_batch(r))
         lat.append(time.perf_counter() - t0)
     launches = {c.__name__: c.launches for c in counters}
+    timed_end(plain, timed, lat, sum(len(r) for r in requests))
     log(f"use_kernels=False: {len(requests)} requests, kernel launches "
         f"{launches}")
     require(all(n == 0 for n in launches.values()),
@@ -1384,7 +1682,9 @@ def api_phase(main: dict, rate: float, prof, counters) -> dict:
         "launches": launches, "min_cos": float(cos.min()),
         "sentences_per_s": n_sent / sum(lat),
         "device_busy_us": busy[1], "default_device_busy_us": busy[0],
-        "default_request_launches": default_counts}}
+        "default_request_launches": default_counts,
+        "graphs": graphs_phase(plain, "use_kernels=False", requests[0],
+                               plain_prof, timed)}}
     out["tokenize"] = tokenize_timing(model, requests[0])
     out["read_ggml"] = read_ggml_modes(main["path"])
     return out
@@ -1674,11 +1974,11 @@ def hf_server_path(rng, counters):
             and model.pooling == "cls" and model.n_max_tokens == 2048,
             "hf_server: the directory did not load as rubert-tiny2")
     max_batch = 64
-    t0 = time.perf_counter()
-    model.warmup(batch_sizes=[1, 8, max_batch], max_rows=max_batch)
-    torch.cuda.synchronize()
+    warm = timed_warmup(model, lambda: model.warmup(
+        batch_sizes=[1, 8, max_batch], max_rows=max_batch))
     log(f"hf_server: warmup (every bucket at 1/8/{max_batch} rows, every "
-        f"packed row bucket) in {time.perf_counter() - t0:.2f} s")
+        f"packed row bucket) in {warm['seconds']:.3f} s, {warm['programs']} "
+        f"programs captured; " + warmup_memory(warm) + f" ({gpu_line()})")
 
     texts = hf_request(rng)
     toks = model.tokenizer.tokenize_batch(texts, model.n_max_tokens)
@@ -1711,11 +2011,14 @@ def hf_server_path(rng, counters):
             replies["text"] = list(pool.map(text_client, client_texts))
         cl = WireClient(st.port)
         replies["eval"] = cl.eval(toks[42])
+        cl.batch(toks)  # the warm frame: shapes the grid does not hold
+        timed = timed_start(model)
         lat = []
         for _ in range(n_frames):
             t0 = time.perf_counter()
             replies["batch"] = cl.batch(toks)
             lat.append(time.perf_counter() - t0)
+        timed_end(model, timed, lat, n_frames * len(toks))
         version, n_embd, n_max = struct.unpack(
             "<iii", cl.framed(cl.META, 12))
         served, batches, n_lat, p50, p95, p99 = struct.unpack(
@@ -1734,7 +2037,7 @@ def hf_server_path(rng, counters):
     log(f"hf_server kernel launches: {launches}")
     require((n_embd, n_max) == (312, 2048), "hf_server: META reply wrong")
     require(served == sum(map(len, client_texts)) + 1
-            + n_frames * len(toks), f"hf_server: STATS2 served {served}")
+            + (1 + n_frames) * len(toks), f"hf_server: STATS2 served {served}")
     require(launches["multi_head_attention"] > 0
             and launches["fused_layer_norm"] > 0,
             "hf_server: the per-(b, h) attention or LayerNorm kernel was "
@@ -1748,6 +2051,9 @@ def hf_server_path(rng, counters):
     one = {k: n - before.get(k, 0) for k, n in
            model.timers.bucket_counts.items() if n > before.get(k, 0)}
     split = attention_split(one, model.config, rng)
+    graphs = {"hf_server warmup": warm,
+              "hf_server": graphs_phase(model, "hf_server", texts, prof,
+                                        timed, exact=False)}
 
     # every reply against the plain path on the CPU (f32), same directory
     t0 = time.perf_counter()
@@ -1766,11 +2072,13 @@ def hf_server_path(rng, counters):
     require(bool(np.all(cos > 0.999)), "hf_server: a reply's cos <= 0.999")
     gpu32 = BertTorch.from_file(work, device="cuda",
                                 compute_dtype=torch.float32)
-    gpu32.eval_tokens(toks)  # its first request
+    gpu32.eval_tokens(toks)  # its first request: every shape's capture
+    timed = timed_start(gpu32)
     for c in counters:
         c.launches = 0
+    t0 = time.perf_counter()
     e32 = gpu32.eval_tokens(toks)
-    torch.cuda.synchronize()
+    timed_end(gpu32, timed, [time.perf_counter() - t0], len(toks))
     launches32 = {c.__name__: c.launches for c in counters}
     log(f"hf_server f32: one request, kernel launches {launches32}")
     require(launches32["multi_head_attention"] > 0,
@@ -1783,10 +2091,12 @@ def hf_server_path(rng, counters):
     require(bool(np.all(cos32 > 0.9999)), "hf_server: card f32 cos <= 0.9999")
     require(err32 <= 5e-3, "hf_server: card f32 max|Δ| > 5e-3")
     prof32 = hf_f32_profile(gpu32, texts, launches32)
+    graphs["hf_server f32"] = graphs_phase(gpu32, "hf_server f32", texts,
+                                           prof32, timed)
     return launches, rate, split, prof, {"launches": launches32,
                                          "cos_min": float(cos32.min()),
                                          "max_abs_err": err32,
-                                         "profile": prof32}
+                                         "profile": prof32}, graphs
 
 
 def hf_f32_profile(model, texts, counted) -> dict:
@@ -2395,18 +2705,20 @@ def int8_path(dev, rng, counters):
     torch.cuda.synchronize()
 
     def run(engine):
+        timed = timed_start(engine)
         outs, lat = [], []
         for r in counted:
             t0 = time.perf_counter()
             outs.append(engine.encode_batch(r))
             lat.append(time.perf_counter() - t0)
         n_sent = sum(len(r) for r in counted)
-        return outs, n_sent / sum(lat), lat
+        timed_end(engine, timed, lat, n_sent)
+        return outs, n_sent / sum(lat), lat, timed
 
     batches0 = dict(model.timers.bucket_counts)
     for c in counters:
         c.launches = 0
-    outs, rate, lat = run(model)
+    outs, rate, lat, timed = run(model)
     launches = {c.__name__: c.launches for c in counters}
     ran = {k: n - batches0.get(k, 0)
            for k, n in model.timers.bucket_counts.items()
@@ -2468,7 +2780,7 @@ def int8_path(dev, rng, counters):
     for r in warm:
         q4.encode_batch(r)
     torch.cuda.synchronize()
-    q4_outs, q4_rate, q4_lat = run(q4)
+    q4_outs, q4_rate, q4_lat, q4_timed = run(q4)
     log(f"int8 path, int8_eval=False: {q4_rate:.1f} sentences/s; request "
         f"latency median {statistics.median(q4_lat) * 1e3:.3f} ms, max "
         f"{max(q4_lat) * 1e3:.3f} ms (int8_eval=True: {rate:.1f} "
@@ -2476,6 +2788,11 @@ def int8_path(dev, rng, counters):
         f"{gpu_line()})")
     q4_prof = profile_request(q4, counted[0], "int8 path, int8_eval=False",
                               extra=families)
+    graphs = {"int8 path": graphs_phase(model, "int8 path", counted[0],
+                                        prof, timed),
+              "int8 path, int8_eval=False": graphs_phase(
+                  q4, "int8 path, int8_eval=False", counted[0], q4_prof,
+                  q4_timed)}
 
     if prof is not None and q4_prof is not None:
         log(f"int8 path, one request profiled: int8_eval on "
@@ -2554,7 +2871,7 @@ def int8_path(dev, rng, counters):
                  "latency_median_ms": statistics.median(lat) * 1e3,
                  "q4_latency_median_ms": statistics.median(q4_lat) * 1e3,
                  "profile": prof, "q4_profile": q4_prof,
-                 "phase_s": t_all, "write_s": t_write}
+                 "phase_s": t_all, "write_s": t_write, "graphs": graphs}
     return results, path_info
 
 
@@ -2894,7 +3211,7 @@ def train_path(counters):
     served = BertTorch.from_file(out)  # the card, bf16
     require(served.device.type == "cuda", "train: from_file did not default "
             "to cuda")
-    served.encode_batch(texts[:8])
+    served.encode_batch(texts)  # every shape's capture
     batches0 = dict(served.timers.bucket_counts)
     for c in counters:
         c.launches = 0
@@ -3336,8 +3653,8 @@ def main() -> int:
     int8_counters = [int8_matmul, int8_matmul_gelu, quantize_activations_i8,
                      fused_layer_norm_codes]
     api = api_phase(main, rate, main_prof, counters + int8_counters)
-    hf_launches, hf_rate, hf_split, hf_prof, hf_f32 = hf_server_path(
-        np.random.default_rng(19), counters)
+    hf_launches, hf_rate, hf_split, hf_prof, hf_f32, hf_graphs = \
+        hf_server_path(np.random.default_rng(19), counters)
     int8_results, int8_info = int8_path(
         dev, np.random.default_rng(20), counters + int8_counters)
     results.update(int8_results)
@@ -3404,6 +3721,11 @@ def main() -> int:
         f"pairs/s, {100 * train['f32_peak_share']:.2f}% of the f32 peak, "
         f"loss {train['loss_first']:.4f} -> {train['loss_last']:.4f} on "
         f"{card}")
+    graphs = {**main["graphs"],
+              "main path f32": main["f32_request"]["graphs"],
+              "use_kernels=False": api["use_kernels_false"]["graphs"],
+              **hf_graphs, **int8_info["graphs"]}
+    log(f"graphs: {json.dumps(graphs)}")
     log(f"sharded phase: {json.dumps(sharded)}")
     log(f"API switches: {json.dumps(api)}")
     log(card)

@@ -70,8 +70,9 @@ torch.set_num_threads(1)
 
 # names of bert_tpu that mean something only under JAX or on a TPU
 JAX_ONLY = {
-    "cache": "XLA's persistent compile cache; the kernel .so cache of "
-             "_kernels.py stands in for it",
+    "cache": "XLA's persistent compile cache; the process's CUDA graphs "
+             "(_graphs.py) and the kernel .so cache of _kernels.py stand "
+             "in for it, and graphs cannot outlive a process",
     "ops.mosaic_probe": "probes what the Mosaic compiler takes on a TPU; "
                         "the CUDA kernels take every shape",
     "ops.common.f32_precision": "the precision flag of an f32 jnp.dot on "
@@ -101,7 +102,8 @@ JAX_ONLY = {
                                                      "holds its groups",
     "parallel.mesh.make_mesh(devices)": "jax device objects; a rank's "
                                         "device follows from its rank",
-    "train.make_train_step(jit)": "jax.jit; torch runs eagerly",
+    "train.make_train_step(jit)": "jax.jit; the train step is not "
+                                  "captured yet (ROADMAP.md A13)",
 }
 
 # names of bert_tpu the port takes under another name: (the port's name,
