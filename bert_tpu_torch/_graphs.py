@@ -1,4 +1,5 @@
-"""The engine's compiled programs: one CUDA graph per batch shape.
+"""The engine's and the trainer's compiled programs: one CUDA graph per
+batch shape.
 
 bert_tpu jit-compiles its forward once per (rows, T) shape and weight tree
 (``jax.jit(encode)``, ``jax.jit(encode_packed)`` and
@@ -33,6 +34,13 @@ host, or replays a program that reads it) on the same stream before the
 next replay, and threads that share a table take turns (the engine's
 lock) from staging a batch to queueing its copy.
 
+A :class:`TrainProgram` is the trainer's counterpart of bert_tpu's
+jitted train step (``jax.jit(train_step)``, bert_tpu/train.py:128): its
+function is a whole step, forward, backward and optimizer update, whose
+every call is a real step. Its first runs eagerly, its second is captured
+and replayed, and the graph is bound to the parameters and optimizer
+state it was captured on (the class says how).
+
 The kernel wrappers count their launches in Python (``<wrapper>.launches``),
 and a replay runs no Python. :func:`capture_counted` therefore takes back
 what the capture counted and :meth:`Program.replay` adds it again, so a
@@ -42,7 +50,8 @@ counts, the capture does not, and each replay counts once.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Hashable, List, Optional, Sequence
+from typing import (Callable, Dict, Hashable, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -124,12 +133,27 @@ class Program:
         self.replay()
         return self.output
 
+    def current(self) -> bool:
+        """Whether the tensors the program works on are still the ones it
+        was made for (a forward program's inputs are its own: always)."""
+        return True
+
     def _capture(self) -> None:
+        self._warm()
+        self._record()
+
+    def _warm(self) -> None:
+        """Run the function eagerly on a side stream (what a capture may
+        not do happens here) and wait for it."""
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            self.fn(**self.inputs)
+            self.output = self.fn(**self.inputs)
         torch.cuda.current_stream(self.device).wait_stream(side)
+
+    def _record(self) -> None:
+        """Capture the function into this program's graph (it runs
+        nothing); the replays run it."""
         graph = torch.cuda.CUDAGraph()
 
         def capture():
@@ -158,13 +182,94 @@ class Programs:
         self.table: Dict[Hashable, Program] = {}
 
     def get(self, key: Hashable, fn: Callable[..., torch.Tensor],
-            arrays: Dict[str, np.ndarray]) -> Program:
-        """The program of ``key``, made for ``fn`` with static inputs
-        shaped and typed as ``arrays`` the first time the key is asked
-        for (captured at its first call)."""
+            arrays: Dict[str, np.ndarray],
+            program: Callable[..., Program] = Program) -> Program:
+        """The program of ``key``: ``program(fn, static inputs, pool)``,
+        its static inputs shaped and typed as ``arrays``, made the first
+        time the key is asked for (captured at its first calls), and made
+        anew where the key's program is no longer :meth:`Program.current`."""
         prog = self.table.get(key)
-        if prog is None:
+        if prog is None or not prog.current():
             inputs = {name: torch.tensor(a, device=self.device)  # a copy
                       for name, a in arrays.items()}
-            prog = self.table[key] = Program(fn, inputs, self.pool)
+            prog = self.table[key] = program(fn, inputs, self.pool)
         return prog
+
+
+class TrainProgram(Program):
+    """One train step of static inputs, as a CUDA graph on the card:
+    bert_tpu's ``jax.jit(train_step)`` (bert_tpu/train.py:128).
+
+    ``fn(**inputs)`` runs one step of ``model``'s parameters and their
+    optimizer ``opt`` from gradients set to None (forward, backward,
+    ``opt.step()``) and returns its metrics. Every call is a real step;
+    none is thrown away. On the card
+
+    1. the first call sets the gradients to None and runs ``fn`` eagerly
+       on a side stream: that loads cuBLAS's handles (this thread's and
+       autograd's), autograd's accumulators and the optimizer's state;
+    2. the second sets the gradients to None and captures ``fn``: the
+       backward allocates the gradients from the graph's pool, and those
+       are the program's gradients from then on (it keeps them); then it
+       replays;
+    3. every later call replays, and sets no gradient to None.
+
+    The graph reads and writes the parameters, the optimizer's moments
+    and its step counts (a capturable optimizer keeps them on the card)
+    where they were at the capture: :meth:`current` says whether they
+    still are. After a replay each parameter's ``.grad`` is the program's
+    gradient. A step's metrics are overwritten by the next replay. On the
+    CPU every call sets the gradients to None and runs ``fn`` eagerly.
+    The program keeps ``model`` and ``opt`` alive, so a table keyed by
+    their ids never meets another state under the same key."""
+
+    def __init__(self, fn: Callable[..., Tuple[torch.Tensor, ...]],
+                 inputs: Dict[str, torch.Tensor], pool=None, *, model,
+                 opt: torch.optim.Optimizer, counters: Sequence = COUNTERS):
+        super().__init__(fn, inputs, pool, counters)
+        self.model = model
+        self.params = list(model.parameters())
+        self.opt = opt
+        self.steps = 0
+        self.bound: Optional[List[torch.Tensor]] = None
+        self.grads: Optional[List[torch.Tensor]] = None
+
+    def binding(self) -> List[torch.Tensor]:
+        """What a replay works on in place: each parameter and each
+        tensor of its optimizer state."""
+        out = list(self.params)
+        for p in self.params:
+            st = self.opt.state.get(p, {})
+            out += [st[k] for k in sorted(st)]
+        return out
+
+    def current(self) -> bool:
+        """Whether the state's tensors are still the captured ones (True
+        before the capture). The program keeps the captured tensors, so
+        no other tensor can take their memory."""
+        if self.bound is None:
+            return True
+        now = self.binding()
+        return len(now) == len(self.bound) and all(
+            a.data_ptr() == b.data_ptr() for a, b in zip(now, self.bound))
+
+    def __call__(self, **arrays: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        self.stage(arrays)
+        card = self.device.type == "cuda"
+        if card and self.steps:
+            if self.graph is None:
+                self.opt.zero_grad(set_to_none=True)
+                self._record()
+                self.grads = [p.grad for p in self.params]
+                self.bound = self.binding()
+            self.replay()
+            for p, g in zip(self.params, self.grads):
+                p.grad = g
+        else:
+            self.opt.zero_grad(set_to_none=True)
+            if card:
+                self._warm()
+            else:  # nothing is captured
+                self.output = self.fn(**self.inputs)
+        self.steps += 1
+        return self.output

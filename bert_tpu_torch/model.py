@@ -315,8 +315,11 @@ def _run_layers(layers, x: Union[torch.Tensor, Folded],
             layer = functools.partial(layer, fold=True,
                                       last=i == len(layers) - 1)
         if remat:
+            # the layers draw no random numbers (no dropout, as in
+            # bert_tpu), so no generator state is kept for the recompute:
+            # reading it inside a CUDA graph capture would be refused
             x = checkpoint(layer, x, mask_bias, use_kernels,
-                           use_reentrant=False)
+                           use_reentrant=False, preserve_rng_state=False)
         else:
             x = layer(x, mask_bias, use_kernels)
     return x

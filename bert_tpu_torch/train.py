@@ -22,6 +22,15 @@ training never runs a Pallas kernel either (its ``use_pallas=False``).
 The tuned weights are served through the kernels. Only dense weights
 train; quantize after fine-tuning.
 
+bert_tpu jits its step: one compiled program per batch shape, so a step
+costs the host one dispatch. :func:`make_train_step` (``jit=True``, the
+default) keeps one :class:`~bert_tpu_torch._graphs.TrainProgram` per
+batch shape and state: on the card the whole step (both forwards, the
+InfoNCE loss, the remat backward, the global gradient norm and the AdamW
+update) is one CUDA graph, replayed with one host call. On the card the
+optimizer is capturable (its step counts and bias corrections stay on the
+device), for the eager step too, so that both run the same arithmetic.
+
 :func:`make_sharded_train_step` is bert_tpu's GSPMD step in
 ``torch.distributed``'s idiom: each rank holds its Megatron shard of the
 parameters and both AdamW moments (parallel/sharding.py), runs its
@@ -31,6 +40,7 @@ whole batch; gradients are summed over ``data``.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
@@ -38,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ._graphs import Programs, TrainProgram
 from .model import TrainableBertModel, bert_forward
 from .parallel.collectives import all_reduce_, broadcast_, gather_rows
 from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, axis_group, axis_size,
@@ -74,7 +85,8 @@ class AdamW:
     """What ``optax.adamw(learning_rate, weight_decay=...,
     mask=_decay_mask)`` is in bert_tpu: :meth:`init` builds the torch
     optimizer over a model's parameters, the masked-off ones in a group
-    with no weight decay."""
+    with no weight decay. Frozen, as bert_tpu's learning rate is a
+    constant: a captured step bakes it in."""
 
     learning_rate: float = 2e-5
     weight_decay: float = 0.01
@@ -86,10 +98,17 @@ class AdamW:
         for group, sub in tree.items():
             for key, p in sub.items():
                 (decay if mask[group][key] else no_decay).append(p)
-        return torch.optim.AdamW(
+        # capturable on the card: a CUDA graph may hold the step; eager
+        # steps take the same arithmetic, so the warning that a capturable
+        # optimizer runs uncaptured is not wanted
+        capturable = model.embeddings["word"].device.type == "cuda"
+        opt = torch.optim.AdamW(
             [{"params": decay, "weight_decay": self.weight_decay},
              {"params": no_decay, "weight_decay": 0.0}],
-            lr=self.learning_rate, betas=BETAS, eps=EPS)
+            lr=self.learning_rate, betas=BETAS, eps=EPS,
+            capturable=capturable)
+        opt._warned_capturable_if_run_uncaptured = True
+        return opt
 
     def built(self, opt: torch.optim.AdamW) -> bool:
         """Whether ``opt`` was built by :meth:`init` of this spec."""
@@ -123,8 +142,11 @@ def place_adam_state(opt: torch.optim.AdamW, params: TrainableBertModel,
                      count: int) -> None:
     """Put AdamW moments into ``opt``: ``mu`` / ``nu`` are trees keyed as
     ``params.tree()`` (arrays or tensors), ``count`` the number of steps
-    taken (optax's ``count``; torch keeps one per parameter). The moments
-    are placed as given, never re-initialized."""
+    taken (optax's ``count``; torch keeps one per parameter, on the
+    parameter's device when the optimizer is capturable, else on the
+    CPU). The moments are placed as given, never re-initialized."""
+    capturable = {id(p): g["capturable"] for g in opt.param_groups
+                  for p in g["params"]}
     for group, sub in params.tree().items():
         for key, p in sub.items():
             m, v = (_tensor(t[group][key]) for t in (mu, nu))
@@ -133,7 +155,9 @@ def place_adam_state(opt: torch.optim.AdamW, params: TrainableBertModel,
                                  f"{tuple(v.shape)} for a parameter "
                                  f"{tuple(p.shape)}")
             opt.state[p] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
+                "step": torch.tensor(
+                    float(count), dtype=torch.float32,
+                    device=p.device if capturable[id(p)] else "cpu"),
                 "exp_avg": m.to(p.device, p.dtype, copy=True),
                 "exp_avg_sq": v.to(p.device, p.dtype, copy=True)}
 
@@ -153,6 +177,16 @@ def _global_norm(tensors) -> torch.Tensor:
                           for t in tensors))
 
 
+def _host_batch(batch: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The batch as host arrays of the step's input types, ids int64 and
+    masks f32: converted on the host, since a converting copy on the card
+    launches a kernel."""
+    return {k: np.ascontiguousarray(
+        v.cpu().numpy() if isinstance(v, torch.Tensor) else v,
+        dtype=np.int64 if k.startswith("ids") else np.float32)
+        for k, v in batch.items()}
+
+
 def make_train_step(
     config: BertConfig,
     optimizer: AdamW,
@@ -161,21 +195,39 @@ def make_train_step(
     compute_dtype: torch.dtype = torch.float32,
     use_kernels: Optional[bool] = False,
     remat: bool = True,
+    jit: bool = True,
     pooling: str = "mean",
 ):
-    """(state, batch) → (state, metrics) step.
+    """(state, batch) → (state, metrics) step, captured by default.
 
     batch = {ids_a, mask_a, ids_b, mask_b} ([B, T] arrays or tensors):
     positive sentence pairs. metrics = {"loss", "grad_norm"} (0-d
-    tensors), the norm taken over all gradients before the update.
-    Per-layer rematerialization is on by default: the backward recomputes
-    each layer's activations instead of keeping them, so activation
-    residency is O(1) in depth. ``optimizer`` is the spec the state's
-    AdamW was built by; a state built by another raises, since a torch
-    optimizer carries its own hyperparameters. The step runs on the
+    tensors of their own), the norm taken over all gradients before the
+    update. Per-layer rematerialization is on by default: the backward
+    recomputes each layer's activations instead of keeping them, so
+    activation residency is O(1) in depth. ``optimizer`` is the spec the
+    state's AdamW was built by; a state built by another raises, since a
+    torch optimizer carries its own hyperparameters. The step runs on the
     device of the state's parameters. ``use_kernels`` must stay False:
     the kernels have no backward (bert_tpu's step takes
     ``use_pallas=False`` too).
+
+    ``jit=True`` (bert_tpu's default) runs the step of each (batch shape,
+    model, optimizer) as one :class:`~bert_tpu_torch._graphs.TrainProgram`:
+    on the card its first step runs eagerly, its second is captured into
+    a CUDA graph and replayed, and every later one stages the batch and
+    replays, one host call for both forwards, the loss, the backward, the
+    gradient norm and the AdamW update. The graph is bound to the state's
+    parameters, moments and step counts: a state whose tensors are not
+    those (moments placed anew by ``load_train_state``, say) gets a
+    program of its own. The learning rate is baked into the graph, as
+    the :class:`AdamW` spec is frozen and bert_tpu's learning rate is a
+    constant. A capture or replay that fails raises. On the CPU the same
+    staging and keying run, and the step runs eagerly. The step's
+    ``programs`` maps each device to its program table, which keeps the
+    states it was given alive. ``jit=False`` returns the eager step,
+    every op launched from Python (bert_tpu's raw python step, for
+    callers that apply their own program).
     """
     if use_kernels is not False:
         raise ValueError("make_train_step: use_kernels must be False — the "
@@ -194,28 +246,59 @@ def make_train_step(
             for s in ("a", "b"))
         return info_nce_loss(emb_a, emb_b, temperature)
 
-    def train_step(state: TrainState, batch: Dict[str, Any]
-                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        model, opt = state.params, state.opt_state
-        if not optimizer.built(opt):
-            raise ValueError("train state's optimizer was not built by "
-                             f"{optimizer}")
-        dev = model.embeddings["word"].device
-        b = {k: _tensor(v).to(dev, torch.int64 if k.startswith("ids")
-                              else torch.float32)
-             for k, v in batch.items()}
+    def run_step(model: TrainableBertModel, opt: torch.optim.AdamW,
+                 **batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One step from gradients set to None: (loss, grad_norm)."""
         params = list(model.parameters())
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(model, b)
+        loss = loss_fn(model, batch)
         loss.backward()
         for p in params:  # optax updates every leaf, a zero gradient too
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         gnorm = _global_norm(p.grad for p in params)
         opt.step()
-        return (TrainState(params=model, opt_state=opt, step=state.step + 1),
-                {"loss": loss.detach(), "grad_norm": gnorm})
+        return loss.detach(), gnorm
 
+    def checked(state: TrainState):
+        if not optimizer.built(state.opt_state):
+            raise ValueError("train state's optimizer was not built by "
+                             f"{optimizer}")
+        return state.params, state.opt_state
+
+    if not jit:
+        def eager_step(state: TrainState, batch: Dict[str, Any]
+                       ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+            model, opt = checked(state)
+            dev = model.embeddings["word"].device
+            b = {k: torch.from_numpy(a).to(dev)
+                 for k, a in _host_batch(batch).items()}
+            opt.zero_grad(set_to_none=True)
+            loss, gnorm = run_step(model, opt, **b)
+            return (TrainState(params=model, opt_state=opt,
+                               step=state.step + 1),
+                    {"loss": loss, "grad_norm": gnorm})
+        return eager_step
+
+    tables: Dict[torch.device, Programs] = {}
+
+    def train_step(state: TrainState, batch: Dict[str, Any]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        model, opt = checked(state)
+        arrays = _host_batch(batch)
+        dev = model.embeddings["word"].device
+        table = tables.get(dev)
+        if table is None:
+            table = tables[dev] = Programs(dev)
+        key = (arrays["ids_a"].shape, arrays["ids_b"].shape, id(model),
+               id(opt))
+        loss, gnorm = table.get(
+            key, functools.partial(run_step, model, opt), arrays,
+            functools.partial(TrainProgram, model=model, opt=opt))(**arrays)
+        # the static outputs are overwritten by the next replay
+        return (TrainState(params=model, opt_state=opt, step=state.step + 1),
+                {"loss": loss.clone(), "grad_norm": gnorm.clone()})
+
+    train_step.programs = tables
     return train_step
 
 

@@ -2884,6 +2884,7 @@ def int8_path(dev, rng, counters):
 # default, 2e-5, is for pretrained weights.
 TRAIN_LR = 1e-4
 TRAIN_STEPS = 20
+AGREE_STEPS = 5  # steps of the captured step against the eager one
 
 
 def sts_pairs_path() -> str:
@@ -2934,7 +2935,9 @@ def new_train_state(loaded, dev, lr: float):
 def card_vs_cpu_steps(loaded, lr: float, n_steps: int = 3, batch: int = 8,
                       seq: int = 64) -> dict:
     """``n_steps`` make_train_step steps (f32, remat) on the CPU and then on
-    the card, from the same weights and batches. Each step: loss within
+    the card, from the same weights and batches; on the card the captured
+    step (step 1 eager, step 2 captured and replayed, step 3 replayed).
+    Each step: loss within
     1e-4 and grad_norm within 1e-3 of the CPU's (relative: the card sums
     in other orders, and the embedding backward accumulates with atomics);
     each leaf's AdamW first moment within 1e-3 of its largest; parameters
@@ -3020,13 +3023,131 @@ def card_vs_cpu_steps(loaded, lr: float, n_steps: int = 3, batch: int = 8,
     return worst
 
 
+@contextlib.contextmanager
+def train_program_spy():
+    """Count the captures and replays of every TrainProgram while the
+    block runs, and time each capture (the card synchronized around it):
+    what shows that a step ran captured."""
+    import torch
+
+    from bert_tpu_torch import _graphs
+
+    seen = {"captures": 0, "replays": 0, "capture_ms": []}
+    record, replay = _graphs.TrainProgram._record, _graphs.Program.replay
+
+    def timed_record(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        record(self)
+        torch.cuda.synchronize()
+        seen["captures"] += 1
+        seen["capture_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def counted_replay(self):
+        seen["replays"] += 1
+        replay(self)
+    _graphs.TrainProgram._record = timed_record
+    _graphs.TrainProgram.replay = counted_replay
+    try:
+        yield seen
+    finally:  # back to the methods TrainProgram has of its own
+        if record is _graphs.Program._record:
+            del _graphs.TrainProgram._record
+        else:
+            _graphs.TrainProgram._record = record
+        del _graphs.TrainProgram.replay
+
+
+def _train_tensors(state) -> dict:
+    """leaf name → (parameter, first moment, second moment) on the card."""
+    return {f"{g}/{k}": (p.detach(), *(state.opt_state.state[p][n]
+                                       for n in ("exp_avg", "exp_avg_sq")))
+            for g, sub in state.params.tree().items() for k, p in sub.items()}
+
+
+AGREE_PAIRS = {"captured vs eager": (0, 1), "eager vs eager": (1, 2),
+               "captured vs eager 2": (0, 2)}
+
+
+def captured_vs_eager(loaded, lr: float, batches) -> dict:
+    """The captured step against the eager one on the card: three states
+    from the same weights, one stepped by make_train_step(jit=True) and two
+    by jit=False, in lockstep over ``batches``. After each step every
+    quantity (loss, grad_norm, each leaf's parameters and both moments) is
+    compared in the three pairs of AGREE_PAIRS. The rule: captured vs eager
+    stays within eager vs eager's max|Δ| of the same quantity, so where
+    eager vs eager is bit for bit captured vs eager must be too; and the
+    captured parameters hold testing.noise_rule against the eager ones
+    (qkv_b's key lanes exempt)."""
+    import numpy as np
+    import torch
+
+    from bert_tpu_torch.testing import key_bias_lanes, noise_rule
+    from bert_tpu_torch.train import make_train_step
+
+    dev = torch.device("cuda")
+    runs = []
+    for jit in (True, False, False):
+        opt, state = new_train_state(loaded, dev, lr)
+        runs.append([state, make_train_step(loaded.config, opt, jit=jit)])
+    worst = {name: {} for name in AGREE_PAIRS}
+    noisy, keys = {}, key_bias_lanes(loaded.config)
+    for s, b in enumerate(batches, 1):
+        metrics = []
+        for r in runs:
+            r[0], m = r[1](r[0], b)
+            metrics.append(m)
+        trees = [_train_tensors(r[0]) for r in runs]
+        for name, (i, j) in AGREE_PAIRS.items():
+            w = worst[name]
+            for q in ("loss", "grad_norm"):
+                d = float((metrics[i][q] - metrics[j][q]).abs())
+                w[q] = max(w.get(q, 0.0), d)
+            for leaf in trees[0]:
+                for part, x, y in zip(("", "mu ", "nu "), trees[i][leaf],
+                                      trees[j][leaf]):
+                    d = float((x - y).abs().max())
+                    w[part + leaf] = max(w.get(part + leaf, 0.0), d)
+        for leaf, (p, mu, _) in trees[0].items():
+            q, mu_eager, _ = trees[1][leaf]
+            got = p.cpu().numpy()
+            noisy.setdefault(leaf, np.zeros(got.shape, bool))
+            try:
+                noise_rule(got, q.cpu().numpy(), mu.cpu().numpy(),
+                           mu_eager.cpu().numpy(), noisy[leaf], lr, s, leaf,
+                           exempt=keys if leaf.endswith("qkv_b") else None)
+            except AssertionError as e:
+                raise SmokeFailure(f"train, captured vs eager: step {s} "
+                                   f"{e}") from None
+    del runs
+    out = {}
+    for name, w in worst.items():
+        differ = sorted(q for q, d in w.items() if d)
+        out[name] = {"quantities": len(w), "differing": differ,
+                     "max_abs": max(w.values()),
+                     "loss_max_abs": w["loss"],
+                     "grad_norm_max_abs": w["grad_norm"]}
+        log(f"train: {name}, {len(batches)} steps in lockstep: "
+            f"{len(w) - len(differ)} of {len(w)} quantities (loss, grad_norm,"
+            f" each leaf's parameters and both moments, every step) equal; "
+            f"max|Δ| {out[name]['max_abs']:.3e}"
+            + (f"; differing: {differ}" if differ else ", bit for bit"))
+    ce, ee = worst["captured vs eager"], worst["eager vs eager"]
+    over = {q: (ce[q], ee[q]) for q in ce if ce[q] > ee[q]}
+    require(not over, "train: captured vs eager beyond eager vs eager "
+            f"(captured, eager): {over}")
+    return out
+
+
 def measure_steps(loaded, dev, lr: float, batches, compute_dtype,
-                  remat: bool) -> dict:
+                  remat: bool, jit: bool) -> dict:
     """make_train_step on the card over ``batches`` from a fresh state:
     each step's host-clock time (the step and the read of its loss, which
     waits for the card) and its peak of allocated device memory above what
     was resident before the state was built (earlier phases' leftovers),
-    so parameters, moments, gradients and activations."""
+    so parameters, moments, gradients, activations and, captured, the
+    graph's pool; and the memory reserved after the last step above what
+    was reserved before (the capture's pool stays reserved)."""
     import gc
 
     import torch
@@ -3036,9 +3157,10 @@ def measure_steps(loaded, dev, lr: float, batches, compute_dtype,
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
+    base_reserved = torch.cuda.memory_reserved()
     opt, state = new_train_state(loaded, dev, lr)
     step = make_train_step(loaded.config, opt, compute_dtype=compute_dtype,
-                           remat=remat)
+                           remat=remat, jit=jit)
     ms, peak, losses = [], [], []
     for b in batches:
         torch.cuda.synchronize()
@@ -3048,42 +3170,192 @@ def measure_steps(loaded, dev, lr: float, batches, compute_dtype,
         losses.append(float(m["loss"]))
         ms.append((time.perf_counter() - t0) * 1e3)
         peak.append(torch.cuda.max_memory_allocated() - base)
+    reserved = torch.cuda.memory_reserved() - base_reserved
     del opt, state, step
     gc.collect()
     torch.cuda.empty_cache()
     return {"ms": ms, "peak_bytes": peak, "losses": losses,
-            "resident_before_bytes": base}
+            "resident_before_bytes": base, "reserved_after_bytes": reserved}
+
+
+def steps_in_turns(loaded, lr: float, batches) -> dict:
+    """ms/step of the captured and the eager step on the card, in turns (a
+    captured step, then an eager one, each on the same batch), from two
+    fresh states: the host clock around the step and the read of its
+    loss. Medians of steps 3-N (the captured state's step 1 runs eagerly,
+    its step 2 captures and replays), and the capture's own time."""
+    import torch
+
+    from bert_tpu_torch.train import make_train_step
+
+    dev = torch.device("cuda")
+    ways = {}
+    for jit in (True, False):
+        opt, state = new_train_state(loaded, dev, lr)
+        ways[jit] = [state, make_train_step(loaded.config, opt, jit=jit), []]
+    with train_program_spy() as seen:
+        for b in batches:
+            for w in ways.values():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                w[0], m = w[1](w[0], b)
+                float(m["loss"])
+                w[2].append((time.perf_counter() - t0) * 1e3)
+    require(seen["captures"] == 1 and seen["replays"] == len(batches) - 1,
+            f"train: in turns, the captured step took {seen['captures']} "
+            f"captures and {seen['replays']} replays in {len(batches)} "
+            "steps")
+    out = {"captured_ms": statistics.median(ways[True][2][2:]),
+           "eager_ms": statistics.median(ways[False][2][2:]),
+           "capture_ms": seen["capture_ms"][0],
+           "captured_steps_ms": ways[True][2],
+           "eager_steps_ms": ways[False][2]}
+    log(f"train: {len(batches)} f32 remat steps in turns, captured / eager: "
+        f"{out['captured_ms']:.3f} / {out['eager_ms']:.3f} ms a step (median"
+        f" of steps 3-{len(batches)}); captured step 1 (eager) "
+        f"{ways[True][2][0]:.3f} ms, step 2 (capture and replay) "
+        f"{ways[True][2][1]:.3f} ms, the capture alone "
+        f"{out['capture_ms']:.3f} ms ({gpu_line()})")
+    return out
+
+
+def _profiled(run) -> dict:
+    """torch.profiler over the second of two calls of ``run()``, each
+    followed by a synchronize: the wall, each kernel's device time and
+    count by name (the optimizer's step annotation spans its kernels: not
+    one itself), and the host's calls that launch work (graph launches,
+    kernel launches, async copies). The first call runs in a warm-up
+    cycle, traced and thrown away: the first kernels of a trace can go
+    unrecorded (on the card, some of a step's first forward kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if str(e.device_type).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    host = {e.key: e.count for e in events
+            if e.key.startswith(("cudaGraphLaunch", "cuGraphLaunch"))
+            or "Launch" in e.key and "Kernel" in e.key
+            or e.key.startswith("cudaMemcpy")}
+    return {"wall_us": wall_us,
+            "device_busy_us": sum(e.self_device_time_total for e in kernels),
+            "kernels": sum(e.count for e in kernels),
+            "by_name": {e.key: e.count for e in kernels},
+            "host_calls": host,
+            "graph_launches": sum(n for k, n in host.items()
+                                  if "GraphLaunch" in k),
+            "kernel_launches_from_python": sum(
+                n for k, n in host.items() if "Kernel" in k),
+            "events": kernels}
+
+
+def _kernel_names(p: dict, copies_outside: int = 0) -> dict:
+    """Kernels by name, a graph node's names merged with its eager twin's:
+    a replay runs a device-to-device copy as a kernel (``memcpy32_post``,
+    ``memcpy128``, ...) and a memset as a kernel (``memset32``) or a node
+    the profiler calls "Memset (Unknown)". Copies to and from the host
+    are left out (the replayed step stages its batch; both read the loss),
+    and so are ``copies_outside`` device-to-device copies made outside the
+    graph (the replayed step's copies of its metrics)."""
+    out = {}
+    for k, n in p["by_name"].items():
+        if k.startswith(("Memcpy HtoD", "Memcpy DtoH")):
+            continue
+        if k.startswith("Memcpy DtoD") or re.match(r"memcpy\d", k):
+            k = "Memcpy DtoD"
+        elif k.startswith("Memset (") or re.match(r"memset\d", k):
+            k = "Memset"
+        out[k] = out.get(k, 0) + n
+    if copies_outside:
+        out["Memcpy DtoD"] -= copies_outside
+    return out
 
 
 def profile_train_step(loaded, dev, lr: float, batches) -> dict:
-    """torch.profiler over one warm f32 remat step: device time by family
-    of kernel against the step's wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    """torch.profiler (:func:`_profiled`: step 3 a warm-up, step 4
+    profiled) over a captured f32 remat state's replays (step 2
+    captured), over the same program's step function run eagerly on the
+    same static inputs (the graph set aside), and over an eager state
+    (jit=False, the parent's way). The replay must run the
+    eager function's kernels, name by name and count by count, from one
+    graph launch and no kernel launched from Python: the train phase
+    cannot pass on a step that ran eagerly. Logs device busy, idle share
+    and kernel counts of the three, and the replay by family of kernel."""
     from bert_tpu_torch.train import make_train_step
 
     opt, state = new_train_state(loaded, dev, lr)
     step = make_train_step(loaded.config, opt)
-    state, m = step(state, batches[0])
+    for b in batches[:2]:
+        state, m = step(state, b)
     float(m["loss"])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = step(state, batches[1])
+    box = [state]
+
+    def replayed():
+        box[0], m = step(box[0], batches[2])
         float(m["loss"])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # the optimizer's step annotation spans its kernels: not one itself
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")
-               and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith("Optimizer.")]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if busy_us <= 0:
+    with train_program_spy() as seen:
+        replay = _profiled(replayed)
+    require(seen["replays"] == 2 and not seen["captures"],
+            f"train profile: the profiled steps took {seen}")
+    ((prog,),) = (t.table.values() for t in step.programs.values())
+
+    def eager_twin():
+        prog.opt.zero_grad(set_to_none=True)
+        loss, _ = prog.fn(**prog.inputs)
+        float(loss)
+    twin = _profiled(eager_twin)
+    eopt, estate = new_train_state(loaded, dev, lr)
+    estep = make_train_step(loaded.config, eopt, jit=False)
+    for b in batches[:2]:
+        estate, m = estep(estate, b)
+    float(m["loss"])
+    ebox = [estate]
+
+    def eager():
+        ebox[0], m = estep(ebox[0], batches[2])
+        float(m["loss"])
+    old = _profiled(eager)
+    ran, want = _kernel_names(replay, copies_outside=2), _kernel_names(twin)
+    diff = {k: (ran.get(k, 0), want.get(k, 0)) for k in {*ran, *want}
+            if ran.get(k, 0) != want.get(k, 0)}
+    b = batches[2]["ids_a"]
+    for label, p in (("replayed (captured step 4)", replay),
+                     ("its function run eagerly", twin),
+                     ("eager step (jit=False, step 4)", old)):
+        if p["device_busy_us"] > 0:
+            log(f"train profile, {label}, f32 remat, batch {b.shape[0]}, seq"
+                f" {b.shape[1]}: wall {p['wall_us']:.1f} us, device busy "
+                f"{p['device_busy_us']:.1f} us (idle "
+                f"{100 - 100 * p['device_busy_us'] / p['wall_us']:.1f}%) in "
+                f"{p['kernels']} kernels; host calls {p['host_calls']} "
+                f"({gpu_line()})")
+    if replay["device_busy_us"] <= 0:
         log("train profile: device time not measured (the profiler saw no "
             "CUDA kernel time)")
         return {}
+    require(not diff, "train profile: the replayed step's kernels differ "
+            f"from its function run eagerly (replayed, eager): {diff}")
+    require(replay["graph_launches"] == 1
+            and replay["kernel_launches_from_python"] == 0,
+            "train profile: the profiled step was not one graph launch: "
+            f"{replay['host_calls']}")
+    log(f"train profile: the replay's {sum(ran.values())} kernels and "
+        "device copies are its function's run eagerly, name by name and "
+        "count by count; one graph launch against "
+        f"{twin['kernel_launches_from_python']} kernel launches from Python")
     families = (("cuBLAS GEMMs", ("gemm", "xmma", "cutlass", "splitK")),
                 ("embedding backward (sort + scatter)",
                  ("indexing_backward", "index_put", "adix", "scatter",
@@ -3093,34 +3365,45 @@ def profile_train_step(loaded, dev, lr: float, batches) -> dict:
                 ("reductions", ("reduce_kernel",)),
                 ("elementwise", ("elementwise_kernel",)))
     sums = {name: [0.0, 0] for name, _ in families + (("other", ()),)}
-    for e in kernels:
+    for e in replay["events"]:
         fam = next((name for name, keys in families
                     if any(k in e.key for k in keys)), "other")
         sums[fam][0] += e.self_device_time_total
         sums[fam][1] += e.count
-    n = sum(e.count for e in kernels)
-    log(f"train profile of one f32 remat step (batch {len(batches[1]['ids_a'])}"
-        f", seq {batches[1]['ids_a'].shape[1]}): wall {wall_us:.1f} us, "
-        f"device busy {busy_us:.1f} us = {100 * busy_us / wall_us:.1f}% in "
-        f"{n} kernels ({gpu_line()})")
+    busy = replay["device_busy_us"]
     for name, (us, c) in sums.items():
-        log(f"  {name}: {us:.1f} us ({100 * us / busy_us:.1f}%) / {c} "
+        log(f"  {name}: {us:.1f} us ({100 * us / busy:.1f}%) / {c} "
             "launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+    for e in sorted(replay["events"],
+                    key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.self_device_time_total:10.1f} us {e.count:5d}x  "
             f"{e.key[:100]}")
-    return {"wall_us": wall_us, "device_busy_us": busy_us, "kernels": n,
-            **{f"{k}_us": v[0] for k, v in sums.items()}}
+    out = {}
+    for label, p in (("", replay), ("eager_function_", twin),
+                     ("eager_step_", old)):
+        out.update({f"{label}wall_us": p["wall_us"],
+                    f"{label}device_busy_us": p["device_busy_us"],
+                    f"{label}idle_share": 1 - p["device_busy_us"]
+                    / p["wall_us"],
+                    f"{label}kernels": p["kernels"],
+                    f"{label}kernel_launches_from_python":
+                        p["kernel_launches_from_python"]})
+    out.update({f"{k}_us": v[0] for k, v in sums.items()})
+    return out
 
 
 def train_path(counters):
     """Contrastive fine-tuning at all-MiniLM-L6-v2's full width: a dense
     f32 seed-0 ggml file over a vocab that holds the STS pairs' words;
-    ``finetune.main`` on the card with every kernel counter at 0 (training
-    runs the plain versions: none may launch); the first steps on the card
-    against the CPU; step time, memory with and without remat, a bf16 step
-    and a profile; then the tuned .npz served on the card through the
-    LayerNorm and fused attention kernels, against the CPU."""
+    ``finetune.main`` on the card, captured (one capture, a replay every
+    step after the second), with every kernel counter at 0 (training runs
+    the plain versions: none may launch); the captured step against the
+    eager one (AGREE_STEPS steps, and eager against eager); the first steps
+    on the card against the CPU; step time captured and eager in turns,
+    the capture's time, memory with and without remat both ways, a bf16
+    step and profiles of a replay and of the eager step; then the tuned
+    .npz served on the card through the LayerNorm and fused attention
+    kernels, against the CPU."""
     import numpy as np
     import torch
 
@@ -3158,13 +3441,18 @@ def train_path(counters):
     # the entry point on the card: no kernel may launch while it trains
     for c in counters:
         c.launches = 0
-    r = finetune.main(["-m", path, "--steps", str(TRAIN_STEPS), "--batch",
-                       str(batch), "--seq", str(seq), "--lr", str(TRAIN_LR),
-                       "--out", out])
+    with train_program_spy() as seen:
+        r = finetune.main(["-m", path, "--steps", str(TRAIN_STEPS),
+                           "--batch", str(batch), "--seq", str(seq), "--lr",
+                           str(TRAIN_LR), "--out", out])
     launches = {c.__name__: c.launches for c in counters}
-    log(f"train: kernel launches during finetune.main: {launches}")
+    log(f"train: kernel launches during finetune.main: {launches}; "
+        f"{seen['captures']} capture ({seen['capture_ms'][0]:.3f} ms) and "
+        f"{seen['replays']} replays in {TRAIN_STEPS} steps")
     require(not any(launches.values()),
             f"train: kernels launched in the train steps: {launches}")
+    require(seen["captures"] == 1 and seen["replays"] == TRAIN_STEPS - 1,
+            f"train: finetune.main did not run captured: {seen}")
     require(bool(np.isfinite(r["losses"]).all()
                  and np.isfinite(r["grad_norms"]).all()),
             "train: a non-finite loss or grad_norm")
@@ -3177,32 +3465,39 @@ def train_path(counters):
     tokens = 2 * batch * seq  # padded, both sides of each pair
     flops = 8 * n_matmul * tokens  # 6·N·tokens + 2·N·tokens of recompute
     share = flops / (step_ms * 1e-3) / PEAK_FLOPS["f32"]
-    log(f"train: finetune.main on the card, f32, remat, lr {TRAIN_LR}: loss "
-        f"{r['first_loss']:.4f} -> {r['last_loss']:.4f} in {TRAIN_STEPS} "
-        f"steps; {step_ms:.3f} ms/step (median of steps 3-{TRAIN_STEPS}), "
+    log(f"train: finetune.main on the card, f32, remat, captured, lr "
+        f"{TRAIN_LR}: loss {r['first_loss']:.4f} -> {r['last_loss']:.4f} in "
+        f"{TRAIN_STEPS} steps; steps 1 / 2 {r['step_ms'][0]:.3f} / "
+        f"{r['step_ms'][1]:.3f} ms (eager / capture and replay); "
+        f"{step_ms:.3f} ms/step (median of steps 3-{TRAIN_STEPS}), "
         f"{batch / step_ms * 1e3:.1f} pairs/s, {tokens / step_ms * 1e3:.0f} "
         f"padded tokens/s; 8·N·tokens = {flops / 1e9:.1f} GFLOP a step (N = "
         f"{n_matmul} matmul weights) = {100 * share:.2f}% of the f32 peak "
         f"(67 TFLOP/s) ({card})")
 
+    agree = captured_vs_eager(loaded, TRAIN_LR, batches[:AGREE_STEPS])
     worst = card_vs_cpu_steps(loaded, TRAIN_LR)
+    turns = steps_in_turns(loaded, TRAIN_LR, batches)
 
     dev = torch.device("cuda")
     runs = {}
     for name, dtype, remat in (("f32 remat", torch.float32, True),
                                ("f32 no remat", torch.float32, False),
                                ("bf16 remat", torch.bfloat16, True)):
-        runs[name] = measure_steps(loaded, dev, TRAIN_LR, batches[:4], dtype,
-                                   remat)
-        m = runs[name]
-        log(f"train: {name}: {statistics.median(m['ms'][1:]):.3f} ms/step "
-            f"(median of steps 2-4), peak allocated "
-            f"{m['peak_bytes'][-1] / 2**20:.1f} MiB (step 4, above the "
-            f"{m['resident_before_bytes'] / 2**20:.1f} MiB resident before "
-            "it), losses "
-            f"{' '.join(f'{x:.4f}' for x in m['losses'])} ({card})")
-        require(bool(np.isfinite(m["losses"]).all()),
-                f"train: {name}: a non-finite loss")
+        for jit in (True, False):
+            label = f"{name}, {'captured' if jit else 'eager'}"
+            runs[label] = m = measure_steps(loaded, dev, TRAIN_LR,
+                                            batches[:5], dtype, remat, jit)
+            log(f"train: {label}: {statistics.median(m['ms'][2:]):.3f} "
+                f"ms/step (median of steps 3-5), peak allocated "
+                f"{max(m['peak_bytes']) / 2**20:.1f} MiB (the most of the 5 "
+                f"steps, above the {m['resident_before_bytes'] / 2**20:.1f} "
+                "MiB resident before the state; a replay allocates nothing: "
+                "its memory is the pool's), reserved after "
+                f"+{m['reserved_after_bytes'] / 2**20:.1f} MiB, losses "
+                f"{' '.join(f'{x:.4f}' for x in m['losses'])} ({card})")
+            require(bool(np.isfinite(m["losses"]).all()),
+                    f"train: {label}: a non-finite loss")
     prof = profile_train_step(loaded, dev, TRAIN_LR, batches)
 
     # the tuned weights, served through the kernels
@@ -3242,13 +3537,21 @@ def train_path(counters):
     require(bool(np.all(cos16 > 0.999)), "train: card bf16 cos <= 0.999")
     t_all = time.perf_counter() - t_phase
     log(f"train: the phase took {t_all:.2f} s")
-    return {"loss_first": r["first_loss"], "loss_last": r["last_loss"],
-            "ms_per_step": step_ms, "pairs_per_s": batch / step_ms * 1e3,
-            "f32_peak_share": share, "card_vs_cpu": worst,
-            "steps": {k: {"ms": statistics.median(v["ms"][1:]),
-                          "peak_bytes": v["peak_bytes"][-1]}
-                      for k, v in runs.items()},
-            "profile": prof, "phase_s": t_all}
+    summary = {"loss_first": r["first_loss"], "loss_last": r["last_loss"],
+               "ms_per_step": step_ms, "pairs_per_s": batch / step_ms * 1e3,
+               "f32_peak_share": share,
+               "finetune_capture_ms": seen["capture_ms"][0],
+               "captured_vs_eager": agree, "in_turns": {
+                   k: turns[k] for k in ("captured_ms", "eager_ms",
+                                         "capture_ms")},
+               "steps": {k: {"ms": statistics.median(v["ms"][2:]),
+                             "peak_bytes": max(v["peak_bytes"]),
+                             "reserved_after_bytes": v["reserved_after_bytes"]}
+                         for k, v in runs.items()},
+               "profile": prof, "phase_s": t_all}
+    log(f"train: {json.dumps(summary)}")
+    summary["card_vs_cpu"] = worst
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -3716,8 +4019,10 @@ def main() -> int:
     log(f"warm hf_server BATCH frames: {hf_rate:.1f} sentences/s on {card}")
     log(f"warm bert-base int8 path: {int8_info['rate']:.1f} sentences/s "
         f"(int8_eval=False: {int8_info['q4_rate']:.1f}) on {card}")
-    log(f"train path (MiniLM-L6, batch 32, seq 64, f32, remat): "
-        f"{train['ms_per_step']:.3f} ms/step, {train['pairs_per_s']:.1f} "
+    log(f"train path (MiniLM-L6, batch 32, seq 64, f32, remat, captured): "
+        f"{train['ms_per_step']:.3f} ms/step (in turns captured / eager "
+        f"{train['in_turns']['captured_ms']:.3f} / "
+        f"{train['in_turns']['eager_ms']:.3f}), {train['pairs_per_s']:.1f} "
         f"pairs/s, {100 * train['f32_peak_share']:.2f}% of the f32 peak, "
         f"loss {train['loss_first']:.4f} -> {train['loss_last']:.4f} on "
         f"{card}")

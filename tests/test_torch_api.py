@@ -102,8 +102,6 @@ JAX_ONLY = {
                                                      "holds its groups",
     "parallel.mesh.make_mesh(devices)": "jax device objects; a rank's "
                                         "device follows from its rank",
-    "train.make_train_step(jit)": "jax.jit; the train step is not "
-                                  "captured yet (ROADMAP.md A13)",
 }
 
 # names of bert_tpu the port takes under another name: (the port's name,
