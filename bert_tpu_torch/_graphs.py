@@ -34,6 +34,12 @@ host, or replays a program that reads it) on the same stream before the
 next replay, and threads that share a table take turns (the engine's
 lock) from staging a batch to queueing its copy.
 
+A :class:`SegmentedProgram` is a mesh rank's program: bert_tpu's
+``sharded_jit(encode)`` (bert_tpu/engine.py:234-261), whose collectives
+cannot sit inside a graph that gloo runs (it stages them through the
+host). Its capture ends a graph at each collective and begins the next,
+and its replay runs graph, collective, graph, ... (the class says how).
+
 A :class:`TrainProgram` is the trainer's counterpart of bert_tpu's
 jitted train step (``jax.jit(train_step)``, bert_tpu/train.py:128): its
 function is a whole step, forward, backward and optimizer update, whose
@@ -50,11 +56,15 @@ counts, the capture does not, and each replay counts once.
 
 from __future__ import annotations
 
+import itertools
+import time
+import zlib
 from typing import (Callable, Dict, Hashable, List, Optional, Sequence,
                     Tuple)
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .ops.attention import multi_head_attention
 from .ops.fused_attention import fused_qkv_attention
@@ -62,6 +72,7 @@ from .ops.int8_matmul import (int8_matmul, int8_matmul_gelu,
                               quantize_activations_i8)
 from .ops.layer_norm import fused_layer_norm, fused_layer_norm_codes
 from .ops.q4_matmul import q4_matmul
+from .parallel.collectives import Collective, recording
 
 # every kernel wrapper's launch counter
 COUNTERS = (q4_matmul, fused_layer_norm, fused_layer_norm_codes,
@@ -194,6 +205,208 @@ class Programs:
                       for name, a in arrays.items()}
             prog = self.table[key] = program(fn, inputs, self.pool)
         return prog
+
+
+class _Segments:
+    """The recorder of a :class:`SegmentedProgram`'s capture pass
+    (``collectives.recording``). On the card (``card``) each
+    collective ends the graph being captured, is recorded and not run (the
+    captured kernels have not run: its tensor holds nothing yet), and the
+    next graph begins in the same pool; elsewhere each collective runs and
+    is recorded."""
+
+    def __init__(self, pool=None, card: bool = False):
+        self.pool, self.card = pool, card
+        self.graphs: list = []
+        self.ops: List[Collective] = []
+        self._open = None
+
+    def begin(self) -> None:
+        self._open = torch.cuda.CUDAGraph()
+        self._open.capture_begin(pool=self.pool,
+                                 capture_error_mode="thread_local")
+
+    def end(self) -> None:
+        graph, self._open = self._open, None
+        graph.capture_end()
+        self.graphs.append(graph)
+
+    def abandon(self) -> None:
+        """End a capture that raised (its graph is not kept)."""
+        graph, self._open = self._open, None
+        if graph is not None:
+            try:
+                graph.capture_end()
+            except RuntimeError:  # the capture was invalidated
+                pass
+
+    def _boundary(self, make: Callable[[], Collective]) -> Collective:
+        if not self.card:
+            op = make()
+            op.run()
+        else:
+            self.end()
+            op = make()  # an all-gather's output lies outside the pool
+            self.begin()
+        self.ops.append(op)
+        return op
+
+    def all_reduce(self, t: torch.Tensor, group) -> torch.Tensor:
+        return self._boundary(
+            lambda: Collective("all_reduce", group, t)).tensor
+
+    def all_gather(self, t: torch.Tensor, dim: int, group) -> torch.Tensor:
+        return self._boundary(lambda: Collective.gather(t, dim, group)).out
+
+
+def agree(failed: bool, plan: Optional[Sequence[Collective]] = None,
+          n_graphs: int = 0) -> None:
+    """One all-reduce over every rank. Where any rank ``failed``, raises
+    on every other rank (the failed rank raises its own error); with
+    ``plan``, raises on every rank where the ranks' graph counts or
+    collectives differ."""
+    code = zlib.crc32(repr([op.signature() for op in plan or ()]).encode())
+    dev = ("cpu" if dist.get_backend() == "gloo"
+           else torch.device("cuda", torch.cuda.current_device()))
+    t = torch.tensor([int(failed), n_graphs, code, -n_graphs, -code],
+                     dtype=torch.int64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)  # max, and -min
+    failed_any, hi_n, hi_code, lo_n, lo_code = t.tolist()
+    if failed:  # the caller raises its own error
+        return
+    if failed_any:
+        raise RuntimeError("a sharded program failed on another rank")
+    if plan is not None and (hi_n != -lo_n or hi_code != -lo_code):
+        raise RuntimeError(
+            f"a sharded program differs across ranks: {n_graphs} graphs "
+            f"here, {-lo_n}-{hi_n} on the ranks; collectives "
+            f"{[op.signature() for op in plan]}")
+
+
+class SegmentedProgram(Program):
+    """One mesh rank's function of static inputs, then an all-gather of
+    its output's rows over ``gather`` (the ``data`` group; None: none),
+    as CUDA graphs between the collectives on the card.
+
+    The function's collectives (``collectives.all_reduce_`` and
+    ``all_gather_dim``) split it into segments. On the card the first
+    call
+
+    1. runs the function eagerly on a side stream, its collectives with
+       it (:meth:`Program._warm`; every rank does);
+    2. captures it in one pass: each collective ends the graph being
+       captured and begins the next in the pool, and is recorded, not
+       run; the tensors it works on are static from then on (an
+       all-reduce sums a product's fresh output in place; an all-gather's
+       output is allocated between the graphs, outside the pool);
+    3. checks, with one all-reduce over every rank, that no rank's capture
+       raised and that every rank has the same graphs and collectives,
+       else raises on every rank;
+    4. replays: graph 1, collective 1, graph 2, ..., and last the
+       all-gather over ``data`` into :attr:`output`, a buffer the program
+       owns.
+
+    Every later call stages and replays. A replay that raises on a rank
+    takes part in its remaining collectives with zeros and raises after
+    one all-reduce of a failure flag, which raises on its peers too.
+
+    On the CPU nothing is captured: the function runs eagerly, and the
+    first call records its collectives (:attr:`plan`) and checks them
+    across ranks as the card does. :attr:`collective_s` sums the host
+    seconds that the replays' collectives and checks took."""
+
+    def __init__(self, fn: Callable[..., torch.Tensor],
+                 inputs: Dict[str, torch.Tensor], pool=None,
+                 counters: Sequence = COUNTERS, *, gather=None):
+        super().__init__(fn, inputs, pool, counters)
+        self.gather = gather
+        self.graphs: list = []
+        # the collectives in order, the all-gather over data last
+        self.plan: Optional[List[Collective]] = None
+        self.collective_s = 0.0
+
+    def _plan(self, rec: _Segments, out: torch.Tensor) -> List[Collective]:
+        if self.gather is None:
+            self.output = out
+            return rec.ops
+        final = Collective.gather(out, 0, self.gather)
+        self.output = final.out
+        return rec.ops + [final]
+
+    def __call__(self, **arrays: np.ndarray) -> torch.Tensor:
+        self.stage(arrays)
+        if self.device.type != "cuda":
+            self._run_eagerly()
+        else:
+            if self.plan is None:
+                self._capture()
+            self.replay()
+        return self.output
+
+    def _run_eagerly(self) -> None:
+        rec = _Segments()
+        with recording(rec):
+            out = self.fn(**self.inputs)
+        plan = self._plan(rec, out)
+        if self.gather is not None:
+            plan[-1].run()
+        if self.plan is None:
+            agree(False, plan, 1)
+            self.plan = plan
+
+    def _record(self) -> None:
+        """Capture the function's segments (it runs nothing), then check
+        them across ranks."""
+        torch.cuda.synchronize(self.device)  # the warm run's collectives
+        rec = _Segments(self.pool, card=True)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        got: dict = {}
+
+        def capture():
+            with torch.cuda.stream(side):
+                try:
+                    rec.begin()
+                    with recording(rec):
+                        out = self.fn(**self.inputs)
+                    rec.end()
+                    got["out"] = out
+                except Exception as e:  # raised below, on every rank
+                    rec.abandon()
+                    got["error"] = e
+        self.launches = capture_counted(self.counters, capture)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        error = got.get("error")
+        plan = [] if error else self._plan(rec, got["out"])
+        agree(error is not None, plan, len(rec.graphs))
+        if error is not None:
+            raise error
+        self.graphs, self.plan = rec.graphs, plan
+
+    def replay(self) -> None:
+        """Run graph, collective, graph, ... on the static inputs as they
+        are; the all-gather over ``data`` last."""
+        error = None
+        for graph, op in itertools.zip_longest(self.graphs, self.plan):
+            if graph is not None and error is None:
+                try:
+                    graph.replay()
+                except Exception as e:  # raised below, on every rank
+                    error = e
+            if op is not None:
+                t0 = time.perf_counter()
+                if error is None:
+                    op.run()
+                else:
+                    op.stand_in()
+                self.collective_s += time.perf_counter() - t0
+        if self.plan:
+            t0 = time.perf_counter()
+            agree(error is not None)
+            self.collective_s += time.perf_counter() - t0
+        if error is not None:
+            raise error
+        add_launches(self.counters, self.launches)
 
 
 class TrainProgram(Program):

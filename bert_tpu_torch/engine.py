@@ -52,12 +52,17 @@ them): one process per rank (parallel/multihost.py), every rank calling
 the same method with the same inputs. Each batch is planned in multiples
 of dp; a rank runs its rows through its Megatron shard of the weights
 (tensor-parallel over ``model``), and the rows are all-gathered over
-``data``, so every rank gets the whole result. A mesh engine runs its
-batches eagerly, op by op: its collectives are not captured (ROADMAP.md).
+``data``, so every rank gets the whole result. Each batch shape is one
+program on a mesh too (bert_tpu's ``sharded_jit(encode)``): on the card a
+chain of CUDA graphs, one per segment of the rank's forward between its
+collectives, which run from the host between the replays
+(``_graphs.SegmentedProgram``); each rank casts its rows to the wire dtype
+before they are gathered, as bert_tpu does.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
@@ -69,7 +74,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ._graphs import Programs
+from ._graphs import Program, Programs, SegmentedProgram
 from .batching import (
     default_seq_buckets,
     pick_bucket,
@@ -226,8 +231,12 @@ class BertTorch:
                 {"embeddings": state["embeddings"],
                  "layers": {**state["layers"], **int8_layers}},
                 self.config, tp_group).eval()
-        # one program per batch shape; a mesh engine runs eagerly
-        self._programs = None if mesh is not None else Programs(self.device)
+        # one program per batch shape; on a mesh its segments end at the
+        # collectives and its rows are gathered over data last. None sets
+        # the programs aside: every op is launched from Python
+        self._programs = Programs(self.device)
+        self._program = (Program if mesh is None else functools.partial(
+            SegmentedProgram, gather=self._dp_group))
         # a batch stages, replays and queues its copy to the host before
         # another thread's batch may touch the programs' static buffers
         self._lock = threading.Lock()
@@ -413,39 +422,40 @@ class BertTorch:
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
         """Bucketed batch [B, T] (B a multiple of dp) → [B, D] in the wire
         dtype on this rank's device: its program's output (bert_tpu's
-        ``encode``), or on a mesh this rank's rows through its shard,
-        all-gathered over ``data``. The regime follows the whole batch's
-        padded tokens."""
+        ``encode``); on a mesh this rank's rows through its shard, cast to
+        the wire dtype, then all-gathered over ``data``. The regime
+        follows the whole batch's padded tokens."""
         model = self._model_for(ids.size)
         # ids are widened on the host: a cast on the card is one more launch
         ids = ids.astype(np.int64)
+        r = local_rows(self.mesh, ids.shape[0])
 
         def encode(ids, mask):
-            return bert_forward(
+            return self._wire(bert_forward(
                 model, ids, mask, compute_dtype=self.compute_dtype,
-                use_kernels=self.use_kernels, pooling=self.pooling)
+                use_kernels=self.use_kernels, pooling=self.pooling))
         if self._programs is None:
-            r = local_rows(self.mesh, ids.shape[0])
-            return self._wire(gather_rows(encode(
-                self._to_device(ids[r]), self._to_device(mask[r])),
-                self._dp_group))
-        arrays = {"ids": ids, "mask": mask}
+            return gather_rows(encode(self._to_device(ids[r]),
+                                      self._to_device(mask[r])),
+                               self._dp_group)
+        arrays = {"ids": ids[r], "mask": mask[r]}
         key = (*ids.shape, "bucketed", self._regime(model))
-        return self._programs.get(
-            key, lambda **a: self._wire(encode(**a)), arrays)(**arrays)
+        return self._programs.get(key, encode, arrays,
+                                  self._program)(**arrays)
 
     def _forward_packed(self, ids: np.ndarray, seg: np.ndarray,
                         pos: np.ndarray, flat: np.ndarray) -> torch.Tensor:
         """Packed rows [B, pack_seq] → the valid slots' rows [n_sent, D]
         in the wire dtype, ``flat`` indexing them in the flattened [B·S]
         per-segment output: the packed program's output (bert_tpu's
-        ``encode_packed``), gathered by a second program whose index is
-        padded to a multiple of 256 (``gather_segments``); on a mesh, as
-        :meth:`_forward`, then gathered eagerly."""
+        ``encode_packed``; on a mesh this rank's rows, all-gathered over
+        ``data``), gathered by a second program whose index is padded to
+        a multiple of 256 (``gather_segments``)."""
         model = self._model_for(ids.size)
         ids, pos = ids.astype(np.int64), pos.astype(np.int64)
         flat = flat.astype(np.int64)
         d = self.config.n_embd
+        r = local_rows(self.mesh, ids.shape[0])
 
         def encode_packed(ids, seg, pos):
             return bert_forward_packed(
@@ -453,14 +463,14 @@ class BertTorch:
                 compute_dtype=self.compute_dtype,
                 use_kernels=self.use_kernels, pooling=self.pooling)
         if self._programs is None:
-            r = local_rows(self.mesh, ids.shape[0])
             emb3 = gather_rows(encode_packed(
                 self._to_device(ids[r]), self._to_device(seg[r]),
                 self._to_device(pos[r])), self._dp_group)
             return self._wire(emb3.reshape(-1, d)[self._to_device(flat)])
-        arrays = {"ids": ids, "seg": seg, "pos": pos}
+        arrays = {"ids": ids[r], "seg": seg[r], "pos": pos[r]}
         key = (*ids.shape, "packed", self._regime(model))
-        packed = self._programs.get(key, encode_packed, arrays)
+        packed = self._programs.get(key, encode_packed, arrays,
+                                    self._program)
         packed(**arrays)
 
         def gather_segments(flat):

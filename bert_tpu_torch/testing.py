@@ -349,9 +349,216 @@ def _server_job(loaded, dp, tp, token_lists, engine_kw):
     return second, (first is None, model.raised)
 
 
+def _plans(programs):
+    """Each segmented program's collectives, by key: (op, the group's
+    global ranks) in order."""
+    import torch.distributed as dist
+
+    return {key: [(op.op, dist.get_process_group_ranks(op.group))
+                  for op in prog.plan]
+            for key, prog in programs.table.items()
+            if getattr(prog, "plan", None) is not None}
+
+
+def _graphs_engine_job(loaded, dp, tp, token_lists, engine_kw, warmup):
+    """A mesh engine's programs on the CPU: the keys ``warmup(**warmup)``
+    made, the embeddings of ``token_lists`` twice (the second call replays
+    the first's programs), the same with the programs set aside, the
+    bucket counts and the programs' collectives (:func:`_plans`)."""
+    from .engine import BertTorch
+
+    eng = BertTorch(loaded, device="cpu", dp=dp, tp=tp, **engine_kw)
+    eng.warmup(**warmup)
+    warm = set(eng._programs.table)
+    eng = BertTorch(loaded, device="cpu", dp=dp, tp=tp, **engine_kw)
+    got = [eng.eval_tokens(token_lists) for _ in range(2)]
+    programs, eng._programs = eng._programs, None
+    eager = eng.eval_tokens(token_lists)
+    return {"warm_keys": warm, "programs": got, "eager": eager,
+            "buckets": eng.stats()["buckets"], "plans": _plans(programs)}
+
+
+def _graphs_encode_job(config, params_by_name, dp, tp, poolings, ids, mask):
+    """make_sharded_encode_fn's programs on a (dp, tp) CPU mesh: for each
+    host tree and pooling, the [B, D] result of two calls (the first's
+    result held across the second), the program keys, and the
+    programs' collectives."""
+    import torch
+
+    from .parallel.mesh import make_mesh
+    from .parallel.spmd import make_sharded_encode_fn, shard_params
+
+    mesh = make_mesh(dp * tp, tp=tp, device_type="cpu")
+    out = {}
+    for name, host in params_by_name.items():
+        shard = shard_params(mesh, host)
+        for pooling in poolings:
+            fn = make_sharded_encode_fn(mesh, config,
+                                        compute_dtype=torch.float32,
+                                        pooling=pooling, params_example=host)
+            first = fn(shard, ids, mask)
+            second = fn(shard, torch.from_numpy(ids), mask)
+            out[(name, pooling)] = {
+                "first": first.numpy(), "second": second.numpy(),
+                "keys": [k[:2] for k in fn.programs.table],
+                "plans": list(_plans(fn.programs).values())}
+    return out
+
+
+def _wire_job(loaded, dp, tp, ids, mask):
+    """This mesh's bucketed forward of [B, T] ``ids``/``mask`` in f32
+    compute, with each wire dtype: {wire: [B, D] numpy, as the wire
+    carries it}."""
+    import torch
+
+    from .engine import BertTorch
+
+    out = {}
+    for wire in ("f32", "f16", "int8"):
+        eng = BertTorch(loaded, device="cpu", dp=dp, tp=tp,
+                        compute_dtype=torch.float32, wire_dtype=wire)
+        with torch.inference_mode():
+            out[wire] = eng._forward(ids, mask).numpy()
+    return out
+
+
+class FakeCard:
+    """The card's objects for a :class:`~._graphs.SegmentedProgram` run
+    on the CPU: streams that do nothing, and graphs that log their capture
+    and replay to ``events`` and, while one captures, take the "kernels"
+    of :meth:`launch` instead of running them; a replay runs them."""
+
+    def __init__(self, events, fail_replay=False):
+        self.events, self.fail_replay = events, fail_replay
+        self.capturing = None
+        card = self
+
+        class Graph:
+            def __init__(self):
+                self.kernels = []
+
+            def capture_begin(self, pool=None, capture_error_mode="global"):
+                assert capture_error_mode == "thread_local"
+                card.capturing = self
+                card.events.append("begin")
+
+            def capture_end(self):
+                card.capturing = None
+                card.events.append("end")
+
+            def replay(self):
+                card.events.append("replay")
+                if card.fail_replay:
+                    raise RuntimeError("this replay fails")
+                for k in self.kernels:
+                    k()
+        self.Graph = Graph
+
+    def launch(self, kernel, counter):
+        """A kernel launched from Python: counted, then run, or taken by
+        the graph being captured."""
+        counter.launches += 1
+        if self.capturing is not None:
+            self.capturing.kernels.append(kernel)
+        else:
+            kernel()
+            self.events.append("kernel")
+
+    @contextlib.contextmanager
+    def installed(self):
+        """torch.cuda's graph and stream objects replaced by these, and
+        torch.distributed's collectives logged to ``events``."""
+        import torch
+        import torch.distributed as dist
+
+        stream = type("Stream", (), {"wait_stream": lambda s, o: None})()
+        fakes = {"Stream": lambda dev=None: stream,
+                 "current_stream": lambda dev=None: stream,
+                 "stream": lambda s: contextlib.nullcontext(),
+                 "synchronize": lambda dev=None: None,
+                 "CUDAGraph": self.Graph}
+        reduce_, gather = dist.all_reduce, dist.all_gather
+
+        def all_reduce(t, op=dist.ReduceOp.SUM, group=None, **kw):
+            self.events.append("all_reduce" if op == dist.ReduceOp.SUM
+                               else "check")
+            return reduce_(t, op=op, group=group, **kw)
+
+        def all_gather(parts, t, group=None, **kw):
+            self.events.append("all_gather")
+            return gather(parts, t, group=group, **kw)
+        saved = {k: getattr(torch.cuda, k) for k in fakes}
+        for k, v in fakes.items():
+            setattr(torch.cuda, k, v)
+        dist.all_reduce, dist.all_gather = all_reduce, all_gather
+        try:
+            yield self
+        finally:
+            for k, v in saved.items():
+                setattr(torch.cuda, k, v)
+            dist.all_reduce, dist.all_gather = reduce_, gather
+
+
+def _fake_card_job(fail_capture=None, fail_replay=None):
+    """A :class:`~._graphs.SegmentedProgram` taking the card's path on a
+    (1, world) CPU mesh with :class:`FakeCard`: a function of two
+    segments (a kernel, an all-reduce over ``model``, a kernel) whose
+    rows are gathered over every rank. Returns the events and results of
+    two calls, and the launch count after each; or, where rank
+    ``fail_capture`` raises inside the capture (or ``fail_replay``'s
+    graph replay raises at the second call), what each rank raised."""
+    import os
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    from ._graphs import SegmentedProgram
+    from .parallel.collectives import all_reduce_
+    from .parallel.mesh import MODEL_AXIS, axis_group, make_mesh
+
+    world = int(os.environ["WORLD_SIZE"])
+    mesh = make_mesh(world, tp=world, device_type="cpu")
+    rank = dist.get_rank()
+    events: list = []
+    card = FakeCard(events)
+    counter = types.SimpleNamespace(launches=0)
+
+    def fn(x):
+        if card.capturing is not None and rank == fail_capture:
+            raise RuntimeError("this capture fails")
+        a = torch.empty(3)
+        card.launch(lambda: a.copy_(x * (rank + 1)), counter)
+        all_reduce_(a, axis_group(mesh, MODEL_AXIS))
+        b = torch.empty(3)
+        card.launch(lambda: b.copy_(a * 2), counter)
+        return b
+    prog = SegmentedProgram(fn, {"x": torch.zeros(3)}, pool="pool",
+                            counters=[counter], gather=dist.group.WORLD)
+    prog.device = torch.device("cuda")  # take the card's path
+    out = {"calls": []}
+    with card.installed():
+        for i, x in enumerate(([1.0, 2.0, 3.0], [0.0, -1.0, 5.0])):
+            card.fail_replay = i == 1 and rank == fail_replay
+            try:
+                got = prog(x=np.asarray(x, np.float32)).numpy().copy()
+            except RuntimeError as e:
+                out["calls"].append({"raised": str(e),
+                                     "events": list(events)})
+                break
+            out["calls"].append({"out": got, "events": list(events),
+                                 "launches": counter.launches})
+            events.clear()
+    out["graphs"], out["plan"] = len(prog.graphs), [
+        op.op for op in prog.plan or ()]
+    return out
+
+
 _JOBS = {"encode": _encode_job, "engine": _engine_job, "train": _train_job,
          "row_parallel": _row_parallel_job, "multihost": _multihost_job,
-         "server": _server_job}
+         "server": _server_job, "graphs_engine": _graphs_engine_job,
+         "graphs_encode": _graphs_encode_job, "wire": _wire_job,
+         "fake_card": _fake_card_job}
 
 
 def rank_jobs(jobs):

@@ -136,9 +136,19 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    shapes, the LayerNorm, and the fused attention over H/tp heads (MiniLM)
    or the per-(batch, head) attention over 6 heads (rubert-tiny2), and
    unless each rank's result agrees with the single rank's (bf16 cos >
-   0.999; f32 cos > 0.9999, max|Δ| ≤ 5e-3); then 3 f32 fine-tune steps at
-   (2, 2) against one rank's (loss, grad_norm, noise_rule). Each rank's
-   device and wall time a request is logged as a time of the shared card;
+   0.999; f32 cos > 0.9999, max|Δ| ≤ 5e-3). Each batch shape is a
+   sharded program there (CUDA graphs between the collectives): the
+   first request captures, and each rank must capture nothing inside the
+   counted or profiled requests, give bit for bit its eager twin's results
+   (the same engine with its programs set aside), run the eager twin's
+   kernels name by name and count by count, with the counters agreeing
+   with the profile, and hold 2·L + 1 graphs a program at tp = 2 and 1 at
+   tp = 1, alike on every rank; make_sharded_encode_fn at (2, 2) must give
+   bit for bit its eager twin's rows. Then 3 f32 fine-tune steps at (2, 2)
+   (eager) against one rank's (loss, grad_norm, noise_rule). Each rank's
+   device and wall time a request, replayed and eager, the collectives'
+   share, the capture seconds and peak memory are logged as figures of
+   the shared card;
 8. prints one JSON line with each kernel's numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1197,8 +1207,8 @@ def profile_request(model, request, path: str, extra=()):
 @contextlib.contextmanager
 def programs_set_aside(model):
     """The engine with its programs set aside: every op launched from
-    Python, as the engine ran before it captured (and as a mesh engine
-    runs). For the eager side of a comparison only."""
+    Python, as the engine ran before it captured. For the eager side of
+    a comparison only."""
     saved, model._programs = model._programs, None
     try:
         yield
@@ -1322,17 +1332,7 @@ def graphs_phase(model, label: str, request, prof, timed: dict,
                                for w, v in walls.items()},
            "same_request_phase_ms": phases}
     if prof is not None and eager is not None:
-        def names(p):
-            # the profiler names a memset node of a graph "Memset
-            # (Unknown)", the same memset launched eagerly "Memset (Device)"
-            out = {}
-            for k, n in p["by_name"].items():
-                k = "Memset" if k.startswith("Memset (") else k
-                out[k] = out.get(k, 0) + n
-            return out
-        ran, want = names(prof), names(eager)
-        diff = {k: (ran.get(k, 0), want.get(k, 0)) for k in {*ran, *want}
-                if ran.get(k, 0) != want.get(k, 0)}
+        diff = kernels_differ(prof["by_name"], eager["by_name"])
         require(not diff, f"graphs, {label}: the replayed request's kernels "
                 f"differ from the eager request's (replayed, eager): {diff}")
         out.update({
@@ -1381,10 +1381,25 @@ PROFILE_NAMES = {
 }
 
 
-def kernels_agree_with_counters(model, label: str, request, prof) -> None:
-    """The profiled request's launches of each kernel (the programs
-    replayed) against the launch counters of the same request run once
-    more: a replay adds what its capture counted, so the two agree."""
+def kernels_differ(ran: dict, want: dict) -> dict:
+    """Kernel name → (count in ``ran``, count in ``want``) where two
+    profiles' kernels differ. The profiler names a memset node of a graph
+    "Memset (Unknown)", the same memset launched eagerly "Memset
+    (Device)": they are merged."""
+    def merged(by_name):
+        out = {}
+        for k, n in by_name.items():
+            k = "Memset" if k.startswith("Memset (") else k
+            out[k] = out.get(k, 0) + n
+        return out
+    ran, want = merged(ran), merged(want)
+    return {k: (ran.get(k, 0), want.get(k, 0)) for k in {*ran, *want}
+            if ran.get(k, 0) != want.get(k, 0)}
+
+
+def counted_launches(model, request) -> dict:
+    """Each counter's launches for one more ``request`` (int8_matmul's
+    form (c) under int8_matmul, one kernel)."""
     from bert_tpu_torch._graphs import COUNTERS
 
     before = {c.__name__: c.launches for c in COUNTERS}
@@ -1392,9 +1407,22 @@ def kernels_agree_with_counters(model, label: str, request, prof) -> None:
     counted = {c.__name__: c.launches - before[c.__name__]
                for c in COUNTERS}
     counted["int8_matmul"] += counted.pop("int8_matmul_gelu")
-    seen = {name: sum(n for k, n in prof["by_name"].items()
+    return counted
+
+
+def profiled_launches(by_name: dict) -> dict:
+    """Each counter's kernels in a profile's kernel counts."""
+    return {name: sum(n for k, n in by_name.items()
                       if any(all(p in k for p in parts) for parts in alts))
             for name, alts in PROFILE_NAMES.items()}
+
+
+def kernels_agree_with_counters(model, label: str, request, prof) -> None:
+    """The profiled request's launches of each kernel (the programs
+    replayed) against the launch counters of the same request run once
+    more: a replay adds what its capture counted, so the two agree."""
+    counted = counted_launches(model, request)
+    seen = profiled_launches(prof["by_name"])
     log(f"graphs, {label}: one request's launches by the counters "
         f"{counted}, in the profile {seen}")
     require(seen == counted, f"graphs, {label}: the profile's launches "
@@ -3600,33 +3628,71 @@ def _launch_spies():
     return seen
 
 
-def _device_us(fn):
-    """Device time of one ``fn()``: the CUDA kernels' self time that
-    torch.profiler sees, or None where it sees none."""
+def _rank_profile(fn):
+    """One ``fn()`` profiled: the CUDA kernels' self time that
+    torch.profiler sees (None where it sees none) and their counts by
+    name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:  # the profiler, not the request, failed
-        log(f"device time not measured: the profiler raised {e!r}")
-        return None
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if str(e.device_type).endswith("CUDA"))
-    return us or None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    us = sum(e.self_device_time_total for e in kernels)
+    return us or None, {e.key: e.count for e in kernels}
 
 
-def sharded_rank(encode_jobs, train=None):
+def _capture_seconds() -> list:
+    """Time every sharded program's capture in this process from here on
+    (its warm run, capture and check across ranks; the card synchronized
+    around it); returns the list the seconds go to."""
+    import torch
+
+    from bert_tpu_torch import _graphs
+
+    seconds = []
+    capture = _graphs.SegmentedProgram._capture
+
+    def timed(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        capture(self)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    _graphs.SegmentedProgram._capture = timed
+    return seconds
+
+
+def _segmented(model) -> dict:
+    """A mesh engine's sharded programs: key → its number of graphs."""
+    from bert_tpu_torch._graphs import SegmentedProgram
+
+    return {repr(k): len(p.graphs) for k, p in model._programs.table.items()
+            if isinstance(p, SegmentedProgram)}
+
+
+def _collective_s(model) -> float:
+    return sum(getattr(p, "collective_s", 0.0)
+               for p in model._programs.table.values())
+
+
+def sharded_rank(encode_jobs, train=None, encode_fn=None):
     """One rank of the sharded phase. Each encode job loads ``path`` with
     ``BertTorch.from_file(path, dp=, tp=)`` (bf16; the mesh and its gloo
-    group are formed from the launcher's environment), embeds the first
-    request once (the kernels load), then embeds every request with the
-    launch counts set to 0 just before and read just after; then one
-    request's device time and wall time, and the first request in f32.
+    group are formed from the launcher's environment) and embeds the first
+    request once (the kernels load and its shapes' programs are
+    captured; the launch spies see the shapes they run at), then embeds
+    every request with the launch counts set to 0 just before and read
+    just after (replays); then one profiled request, one more counted
+    request (the counters against the profile), the same requests and
+    one profiled request with the programs set aside (the eager twin),
+    the first request replayed and eager in turns, the cost of a check
+    across the ranks, and the first request in f32. ``encode_fn`` holds
+    make_sharded_encode_fn's program at (2, 2) to its eager twin.
     ``train`` runs make_sharded_train_step at (2, 2), f32, one step per
     batch, with the counts at 0 (training runs the plain versions)."""
     import numpy as np
@@ -3634,6 +3700,7 @@ def sharded_rank(encode_jobs, train=None):
     import torch.distributed as dist
 
     from bert_tpu_torch import BertTorch
+    from bert_tpu_torch._graphs import agree
     from bert_tpu_torch.ops.attention import multi_head_attention
     from bert_tpu_torch.ops.fused_attention import fused_qkv_attention
     from bert_tpu_torch.ops.layer_norm import fused_layer_norm
@@ -3642,37 +3709,120 @@ def sharded_rank(encode_jobs, train=None):
     counters = (q4_matmul, fused_layer_norm, fused_qkv_attention,
                 multi_head_attention)
     seen = _launch_spies()
+    captures = _capture_seconds()
     out = []
     for job in encode_jobs:
+        reqs = job["requests"]
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model = BertTorch.from_file(job["path"], dp=job["dp"], tp=job["tp"])
-        model.encode_batch(job["requests"][0])
-        torch.cuda.synchronize()
         t_load = time.perf_counter() - t0
-        for c in counters:
-            c.launches = 0
         for v in seen.values():
             v.clear()
+        n_captured = len(captures)
         t0 = time.perf_counter()
-        embs = [model.encode_batch(r) for r in job["requests"]]
-        wall = (time.perf_counter() - t0) / len(job["requests"])
+        model.encode_batch(reqs[0])
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        capture_s = captures[n_captured:]
+        programs = n_programs(model)
+        coll = _collective_s(model)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        embs = [model.encode_batch(r) for r in reqs]
+        wall = (time.perf_counter() - t0) / len(reqs)
+        coll = (_collective_s(model) - coll) / len(reqs)
         launches = {c.__name__: c.launches for c in counters}
         shapes = {k: sorted(v) for k, v in seen.items()}
-        dev_us = _device_us(lambda: model.encode_batch(job["requests"][0]))
+        dev_us, names = _rank_profile(lambda: model.encode_batch(reqs[0]))
+        counted = counted_launches(model, reqs[0])
+        programs_after = n_programs(model)
+        with programs_set_aside(model):
+            t0 = time.perf_counter()
+            eager = [model.encode_batch(r) for r in reqs]
+            eager_wall = (time.perf_counter() - t0) / len(reqs)
+            eager_us, eager_names = _rank_profile(
+                lambda: model.encode_batch(reqs[0]))
+        # the first request replayed and eager, in turns
+        turns = {"replayed": [], "eager": []}
+        for _ in range(AB_ROUNDS):
+            for way, walls in turns.items():
+                with (programs_set_aside(model) if way == "eager"
+                      else contextlib.nullcontext()):
+                    t0 = time.perf_counter()
+                    model.encode_batch(reqs[0])
+                    walls.append((time.perf_counter() - t0) * 1e3)
+        # what one check across the ranks (after every replay) costs
+        t0 = time.perf_counter()
+        for _ in range(20):
+            agree(False)
+        check_ms = (time.perf_counter() - t0) / 20 * 1e3
         f32 = BertTorch.from_file(job["path"], dp=job["dp"], tp=job["tp"],
                                   compute_dtype=torch.float32)
-        e32 = f32.encode_batch(job["requests"][0])
+        e32 = f32.encode_batch(reqs[0])
         c = model.config
         out.append({"dims": (c.n_embd, c.n_intermediate, c.n_head),
+                    "n_layer": c.n_layer,
                     "rank": dist.get_rank(), "device": str(model.device),
                     "backend": dist.get_backend(), "embs": embs, "e32": e32,
                     "launches": launches, "shapes": shapes,
                     "device_us": dev_us, "wall_ms": wall * 1e3,
+                    "collective_ms": coll * 1e3,
+                    "eager": eager, "eager_device_us": eager_us,
+                    "eager_wall_ms": eager_wall * 1e3,
+                    "in_turns_ms": {k: statistics.median(v)
+                                    for k, v in turns.items()},
+                    "check_ms": check_ms,
+                    "names": names, "eager_names": eager_names,
+                    "counted": counted,
+                    "profiled": profiled_launches(names),
+                    "programs": programs, "programs_after": programs_after,
+                    "segments": _segmented(model),
+                    "capture_s": capture_s, "first_request_s": t_first,
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "reserved_bytes": torch.cuda.memory_reserved(),
                     "load_s": t_load, "buckets": model.stats()["buckets"]})
         del model, f32
+    if encode_fn is not None:
+        out.append(_sharded_encode_fn(**encode_fn))
     if train is not None:
         out.append(_sharded_train(**train))
     return out
+
+
+def _sharded_encode_fn(path, ids, mask):
+    """make_sharded_encode_fn at (2, 2), bf16, on one batch, twice, and
+    its eager twin: this rank's rows through the same shard from Python,
+    then the row all-gather. Returns both results and the program's
+    number of graphs."""
+    import torch
+
+    from bert_tpu_torch.loader import load_model
+    from bert_tpu_torch.model import BertModel, bert_forward
+    from bert_tpu_torch.parallel.collectives import gather_rows
+    from bert_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                              axis_group, local_rows,
+                                              make_mesh)
+    from bert_tpu_torch.parallel.spmd import (make_sharded_encode_fn,
+                                              shard_params)
+
+    loaded = load_model(path)
+    mesh = make_mesh(4, tp=2)
+    shard = shard_params(mesh, loaded.params)
+    fn = make_sharded_encode_fn(mesh, loaded.config,
+                                params_example=loaded.params)
+    got = [fn(shard, ids, mask).cpu().numpy() for _ in range(2)]
+    model = BertModel(shard, loaded.config,
+                      axis_group(mesh, MODEL_AXIS)).eval()
+    rows = local_rows(mesh, ids.shape[0])
+    with torch.inference_mode():
+        emb = bert_forward(model, torch.from_numpy(ids[rows]).cuda(),
+                           torch.from_numpy(mask[rows]).cuda(),
+                           compute_dtype=torch.bfloat16)
+        eager = gather_rows(emb, axis_group(mesh, DATA_AXIS)).cpu().numpy()
+    return {"encode_fn": got, "eager": eager,
+            "segments": [len(p.graphs) for p in fn.programs.table.values()]}
 
 
 def _sharded_train(path, lr, batches):
@@ -3716,6 +3866,39 @@ def _sharded_train(path, lr, batches):
                                         for c in counters}}
 
 
+def sharded_programs_hold(what: str, r: dict, ranks: list, tp: int) -> None:
+    """The checks of one rank's sharded programs: none captured inside
+    the counted or the profiled requests; the replayed results bit for
+    bit the eager twin's; the profiled request's kernels the eager
+    twin's, name by name and count by count, and the counters' launches;
+    2·L + 1 graphs a program at tp = 2 and 1 at tp = 1, alike on every
+    rank."""
+    import numpy as np
+
+    rank = r["rank"]
+    require(r["programs_after"] == r["programs"],
+            f"{what}: rank {rank} captured "
+            f"{r['programs_after'] - r['programs']} programs inside the "
+            "counted or profiled requests")
+    require(all(np.array_equal(a, b) for a, b in zip(r["embs"],
+                                                     r["eager"])),
+            f"{what}: rank {rank}'s replayed results are not bit for bit "
+            "its eager twin's")
+    require(r["device_us"] is not None and r["eager_device_us"] is not None,
+            f"{what}: rank {rank}: the profiler saw no device time")
+    diff = kernels_differ(r["names"], r["eager_names"])
+    require(not diff, f"{what}: rank {rank}: the replayed request's kernels "
+            f"differ from the eager twin's (replayed, eager): {diff}")
+    require(r["profiled"] == r["counted"], f"{what}: rank {rank}: the "
+            f"profile's launches {r['profiled']} are not the counters' "
+            f"{r['counted']}")
+    want = 2 * r["n_layer"] + 1 if tp > 1 else 1
+    require(r["segments"] and set(r["segments"].values()) == {want}
+            and r["segments"] == ranks[0]["segments"],
+            f"{what}: rank {rank}'s programs have {r['segments']} graphs, "
+            f"not {want} each as on rank 0")
+
+
 def _cos(a, b):
     import numpy as np
 
@@ -3734,7 +3917,10 @@ def sharded_path():
     (rel 1e-3) and noise_rule, as the train phase holds the card to the
     CPU. Every rank must launch q4_matmul at the shard shapes, the
     LayerNorm and the fused attention over H/tp heads (MiniLM), the
-    per-(batch, head) attention over 6 heads (rubert-tiny2)."""
+    per-(batch, head) attention over 6 heads (rubert-tiny2), and its
+    sharded programs must hold (:func:`sharded_programs_hold`);
+    make_sharded_encode_fn at (2, 2) must be bit for bit its eager
+    twin."""
     import numpy as np
     import torch
 
@@ -3783,28 +3969,36 @@ def sharded_path():
 
     mini = lambda dp, tp: {"path": q4_path, "dp": dp, "tp": tp,  # noqa
                            "requests": requests, "model": "minilm"}
+    # one MiniLM batch for make_sharded_encode_fn: 8 rows of 128, ragged
+    ids = rng.integers(1000, 30000, (8, 128)).astype(np.int64)
+    mask = (np.arange(128)[None] < rng.integers(1, 129, (8, 1))).astype(
+        np.float32)
+    ids[mask == 0] = 0
     results = {}
     for world, meshes in SHARDED_MESHES.items():
         jobs = [mini(dp, tp) for dp, tp in meshes]
-        train = None
+        train = encode_fn = None
         if world == 2:
             jobs.append({"path": hf_dir, "dp": 1, "tp": 2,
                          "requests": hf_req, "model": "rubert"})
         else:
             train = {"path": f32_path, "lr": TRAIN_LR, "batches": batches}
+            encode_fn = {"path": q4_path, "ids": ids, "mask": mask}
         t0 = time.perf_counter()
-        ranks = spawn_ranks(world, sharded_rank, jobs, train, timeout=900)
+        ranks = spawn_ranks(world, sharded_rank, jobs, train, encode_fn,
+                            timeout=900)
         log(f"sharded: {world} ranks ran {len(jobs)} encode jobs"
-            f"{' and 3 train steps' if train else ''} in "
-            f"{time.perf_counter() - t0:.2f} s (spawn, load and run)")
+            f"{', make_sharded_encode_fn and 3 train steps' if train else ''}"
+            f" in {time.perf_counter() - t0:.2f} s (spawn, load and run)")
         for i, job in enumerate(jobs):
             results[(job["model"], job["dp"], job["tp"])] = (
                 job, [r[i] for r in ranks])
         if train:
-            results["train"] = [r[len(jobs)] for r in ranks]
+            results["encode_fn"] = [r[len(jobs)] for r in ranks]
+            results["train"] = [r[len(jobs) + 1] for r in ranks]
 
     summary = {}
-    for key in [k for k in results if k != "train"]:
+    for key in [k for k in results if k not in ("train", "encode_fn")]:
         _, ranks = results[key]
         name, dp, tp = key
         ref16, ref32 = refs[name]
@@ -3851,17 +4045,55 @@ def sharded_path():
             require(cos16 > 0.999, f"{what}: bf16 min cos {cos16:.6f}")
             require(cos32 > 0.9999 and err32 <= 5e-3,
                     f"{what}: f32 min cos {cos32:.7f}, max|Δ| {err32:.3e}")
-            dev = ("not measured" if r["device_us"] is None
-                   else f"{r['device_us']:.1f} us")
+            sharded_programs_hold(what, r, ranks, tp)
+            dev, eager_dev = (
+                "not measured" if us is None else f"{us:.1f} us"
+                for us in (r["device_us"], r["eager_device_us"]))
             log(f"{what} rank {r['rank']}: vs the single rank, bf16 min cos "
                 f"{cos16:.6f}; f32 min cos {cos32:.7f}, max|Δ| "
-                f"{err32:.3e}; a request: device {dev}, wall "
-                f"{r['wall_ms']:.2f} ms; load + first request "
-                f"{r['load_s']:.2f} s ({ranks_label(ranks)}; {card})")
+                f"{err32:.3e}; a request replayed: device {dev}, wall "
+                f"{r['wall_ms']:.2f} ms, of it collectives and checks "
+                f"{r['collective_ms']:.2f} ms (a check across the ranks "
+                f"{r['check_ms']:.3f} ms, one a batch); eager (programs set "
+                f"aside): device {eager_dev}, wall {r['eager_wall_ms']:.2f} "
+                f"ms; the first request {AB_ROUNDS} times in turns, "
+                f"replayed / eager: {r['in_turns_ms']['replayed']:.2f} / "
+                f"{r['in_turns_ms']['eager']:.2f} ms (median); "
+                f"load {r['load_s']:.2f} s, first request "
+                f"{r['first_request_s']:.2f} s, {len(r['capture_s'])} "
+                f"captures {sum(r['capture_s']):.3f} s, "
+                f"{len(r['segments'])} programs of "
+                f"{sorted(set(r['segments'].values()))} graphs, peak "
+                f"allocated {r['peak_bytes'] / 2**20:.1f} MiB, reserved "
+                f"{r['reserved_bytes'] / 2**20:.1f} MiB "
+                f"({ranks_label(ranks)}; {card})")
         summary[f"{name}_dp{dp}_tp{tp}"] = {
-            "launches": [r["launches"] for r in ranks],
-            "device_us": [r["device_us"] for r in ranks],
-            "wall_ms": [r["wall_ms"] for r in ranks]}
+            k: [r[k] for r in ranks] for k in (
+                "launches", "device_us", "wall_ms", "collective_ms",
+                "check_ms", "in_turns_ms",
+                "eager_device_us", "eager_wall_ms", "capture_s",
+                "first_request_s", "peak_bytes", "reserved_bytes",
+                "segments")}
+
+    fn = results["encode_fn"]
+    mini22 = results[("minilm", 2, 2)][1][0]
+    want = [2 * mini22["n_layer"] + 1]
+    for r in fn:
+        a, b = r["encode_fn"]
+        require(a.shape == (8, mini22["dims"][0])
+                and np.isfinite(a).all() and np.array_equal(a, b)
+                and np.array_equal(a, r["eager"])
+                and np.array_equal(a, fn[0]["eager"]),
+                "sharded make_sharded_encode_fn (2, 2): the program's "
+                "result is not bit for bit its eager twin's on every rank")
+        require(r["segments"] == want,
+                f"sharded make_sharded_encode_fn (2, 2): graphs "
+                f"{r['segments']}, not {want}")
+    log("sharded make_sharded_encode_fn (2, 2): 8x128 MiniLM batch, two "
+        "calls bit for bit each other and the eager twin on every rank, "
+        f"one program of {fn[0]['segments'][0]} graphs")
+    summary["encode_fn_dp2_tp2"] = {"segments": fn[0]["segments"],
+                                    "bit_for_bit": True}
 
     train = results["train"]
     label = ranks_label(results[("minilm", 2, 2)][1])
