@@ -47,6 +47,16 @@ every call is a real step. Its first runs eagerly, its second is captured
 and replayed, and the graph is bound to the parameters and optimizer
 state it was captured on (the class says how).
 
+A :class:`SegmentedTrainProgram` is a mesh rank's train step, bert_tpu's
+GSPMD step (``jax.jit(step_fn, in_shardings=...)``,
+bert_tpu/train.py:201-206): a :class:`TrainProgram`'s lifecycle with a
+:class:`SegmentedProgram`'s segments. Its backward's collectives are
+issued from autograd's device thread on the card, so its capture sets
+the recorder for every thread of the process
+(``collectives.recording(rec, every_thread=True)``) and captures in
+CUDA's relaxed mode, in which that thread may end a graph begun on the
+step's thread and begin the next.
+
 The kernel wrappers count their launches in Python (``<wrapper>.launches``),
 and a replay runs no Python. :func:`capture_counted` therefore takes back
 what the capture counted and :meth:`Program.replay` adds it again, so a
@@ -58,6 +68,7 @@ from __future__ import annotations
 
 import itertools
 import time
+import warnings
 import zlib
 from typing import (Callable, Dict, Hashable, List, Optional, Sequence,
                     Tuple)
@@ -137,7 +148,7 @@ class Program:
     def __call__(self, **arrays: np.ndarray) -> torch.Tensor:
         self.stage(arrays)
         if self.device.type != "cuda":  # nothing is captured
-            self.output = self.fn(**self.inputs)
+            self._run_eagerly()
             return self.output
         if self.graph is None:
             self._capture()
@@ -152,6 +163,10 @@ class Program:
     def _capture(self) -> None:
         self._warm()
         self._record()
+
+    def _run_eagerly(self) -> None:
+        """The CPU's call: the function, eagerly."""
+        self.output = self.fn(**self.inputs)
 
     def _warm(self) -> None:
         """Run the function eagerly on a side stream (what a capture may
@@ -213,10 +228,14 @@ class _Segments:
     collective ends the graph being captured, is recorded and not run (the
     captured kernels have not run: its tensor holds nothing yet), and the
     next graph begins in the same pool; elsewhere each collective runs and
-    is recorded."""
+    is recorded. ``relaxed``: the graphs are captured in CUDA's relaxed
+    mode, so another thread than the one that began a graph may end it (a
+    train step's backward, on autograd's device thread); otherwise
+    thread_local, as a forward's."""
 
-    def __init__(self, pool=None, card: bool = False):
+    def __init__(self, pool=None, card: bool = False, relaxed: bool = False):
         self.pool, self.card = pool, card
+        self.mode = "relaxed" if relaxed else "thread_local"
         self.graphs: list = []
         self.ops: List[Collective] = []
         self._open = None
@@ -224,12 +243,17 @@ class _Segments:
     def begin(self) -> None:
         self._open = torch.cuda.CUDAGraph()
         self._open.capture_begin(pool=self.pool,
-                                 capture_error_mode="thread_local")
+                                 capture_error_mode=self.mode)
 
     def end(self) -> None:
-        graph, self._open = self._open, None
-        graph.capture_end()
-        self.graphs.append(graph)
+        with warnings.catch_warnings():
+            # two collectives in a row (a gradient summed over data, then
+            # broadcast over model) leave an empty graph between them
+            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+            self._open.capture_end()
+        # kept open where the end raised, for abandon() to end
+        self.graphs.append(self._open)
+        self._open = None
 
     def abandon(self) -> None:
         """End a capture that raised (its graph is not kept)."""
@@ -254,6 +278,10 @@ class _Segments:
     def all_reduce(self, t: torch.Tensor, group) -> torch.Tensor:
         return self._boundary(
             lambda: Collective("all_reduce", group, t)).tensor
+
+    def broadcast(self, t: torch.Tensor, group) -> torch.Tensor:
+        return self._boundary(
+            lambda: Collective("broadcast", group, t)).tensor
 
     def all_gather(self, t: torch.Tensor, dim: int, group) -> torch.Tensor:
         return self._boundary(lambda: Collective.gather(t, dim, group)).out
@@ -288,9 +316,9 @@ class SegmentedProgram(Program):
     its output's rows over ``gather`` (the ``data`` group; None: none),
     as CUDA graphs between the collectives on the card.
 
-    The function's collectives (``collectives.all_reduce_`` and
-    ``all_gather_dim``) split it into segments. On the card the first
-    call
+    The function's collectives (``collectives.all_reduce_``,
+    ``broadcast_`` and ``all_gather_dim``) split it into segments. On the
+    card the first call
 
     1. runs the function eagerly on a side stream, its collectives with
        it (:meth:`Program._warm`; every rank does);
@@ -314,6 +342,10 @@ class SegmentedProgram(Program):
     first call records its collectives (:attr:`plan`) and checks them
     across ranks as the card does. :attr:`collective_s` sums the host
     seconds that the replays' collectives and checks took."""
+
+    # whose collectives the capture records: this thread's (a forward), or
+    # every thread's, in relaxed mode (a train step: :class:`_Segments`)
+    every_thread = False
 
     def __init__(self, fn: Callable[..., torch.Tensor],
                  inputs: Dict[str, torch.Tensor], pool=None,
@@ -345,7 +377,7 @@ class SegmentedProgram(Program):
 
     def _run_eagerly(self) -> None:
         rec = _Segments()
-        with recording(rec):
+        with recording(rec, self.every_thread):
             out = self.fn(**self.inputs)
         plan = self._plan(rec, out)
         if self.gather is not None:
@@ -358,7 +390,7 @@ class SegmentedProgram(Program):
         """Capture the function's segments (it runs nothing), then check
         them across ranks."""
         torch.cuda.synchronize(self.device)  # the warm run's collectives
-        rec = _Segments(self.pool, card=True)
+        rec = _Segments(self.pool, card=True, relaxed=self.every_thread)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         got: dict = {}
@@ -367,7 +399,7 @@ class SegmentedProgram(Program):
             with torch.cuda.stream(side):
                 try:
                     rec.begin()
-                    with recording(rec):
+                    with recording(rec, self.every_thread):
                         out = self.fn(**self.inputs)
                     rec.end()
                     got["out"] = out
@@ -470,7 +502,7 @@ class TrainProgram(Program):
         self.stage(arrays)
         card = self.device.type == "cuda"
         if card and self.steps:
-            if self.graph is None:
+            if self.bound is None:  # not captured yet
                 self.opt.zero_grad(set_to_none=True)
                 self._record()
                 self.grads = [p.grad for p in self.params]
@@ -483,6 +515,38 @@ class TrainProgram(Program):
             if card:
                 self._warm()
             else:  # nothing is captured
-                self.output = self.fn(**self.inputs)
+                self._run_eagerly()
         self.steps += 1
         return self.output
+
+
+class SegmentedTrainProgram(TrainProgram, SegmentedProgram):
+    """One mesh rank's train step of static inputs: bert_tpu's GSPMD
+    ``jax.jit(step_fn, in_shardings=...)`` (bert_tpu/train.py:201-206),
+    as CUDA graphs between the step's collectives on the card.
+
+    :class:`TrainProgram`'s lifecycle: the first call sets the gradients
+    to None and runs the step eagerly on a side stream, its collectives
+    with it on every rank; the second sets them to None and captures the
+    step in one pass that runs nothing (:class:`SegmentedProgram`'s
+    capture: each collective ends a graph, is recorded and begins the
+    next; the backward allocates the gradients from the pool, and they
+    are the program's from then on), checks the plan across ranks, and
+    replays; every later call replays: graph, collective, ..., graph, the
+    optimizer's update in the last, then a check of a failure flag. A
+    replay that raises on a rank raises on every rank.
+
+    The step's collectives, in the order it issues them: *g* after each
+    row-parallel product of both forwards, each side's row all-gather
+    over ``data``, then in the backward *g* again in each layer's remat
+    recompute and *f*'s all-reduce at each column-parallel input, then
+    each gradient summed over ``data`` and each replicated leaf's
+    broadcast over ``model``, then the sharded leaves' squared norm
+    summed over ``model``. On the card autograd issues the backward's
+    from its device thread: the capture takes every thread's collectives
+    and captures in relaxed mode (:class:`_Segments`), and the replay
+    runs them all from the caller's thread. On the CPU nothing is
+    captured: the step runs eagerly with the recorder set, and the first
+    call checks the plan across ranks."""
+
+    every_thread = True

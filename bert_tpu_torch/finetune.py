@@ -90,9 +90,10 @@ def draw_batches(toks_a, toks_b, steps: int, batch: int, seq: int):
 def main(argv=None) -> dict:
     """Returns {"first_loss", "last_loss", "out"}, and each step's
     "losses", "grad_norms" and "step_ms" (host clock around the step and
-    the read of its loss, which waits for the device). On one device the
-    step is captured (``make_train_step``'s default): the first step runs
-    eagerly, the second captures and replays, and the rest replay."""
+    the read of its loss, which waits for the device). The step is
+    captured (the default of ``make_train_step`` on one device and of
+    ``make_sharded_train_step`` on a mesh): the first step runs eagerly,
+    the second captures and replays, and the rest replay."""
     ap = argparse.ArgumentParser(prog="python -m bert_tpu_torch.finetune")
     ap.add_argument("-m", "--model", required=True,
                     help="dense model: f32/f16 ggml-bin, HF dir, .npz cache")

@@ -23,18 +23,29 @@ so nothing is staged in this module.
 A sharded program (``_graphs.SegmentedProgram``) is captured in segments
 that end at each collective, each kept as a :class:`Collective` to run
 between the segments' replays. For the length of a capture the program
-sets a recorder (:func:`recording`) in this thread; :func:`all_reduce_`
-and :func:`all_gather_dim` then hand their collective to it instead of
-running it (``recorder.all_reduce(t, group)`` /
-``recorder.all_gather(t, dim, group)``, each returning what the collective
-returns). With no recorder set they run as they always do, the train
-step's backward included.
+sets a recorder (:func:`recording`); :func:`all_reduce_`,
+:func:`broadcast_` and :func:`all_gather_dim` then hand their collective
+to it instead of running it (``recorder.all_reduce(t, group)`` /
+``recorder.broadcast(t, group)`` / ``recorder.all_gather(t, dim,
+group)``, each returning what the collective returns). With no recorder
+set they run as they always do.
+
+A forward's recorder is this thread's. A train step's
+(``_graphs.SegmentedTrainProgram``) is the process's: on the card
+autograd runs the backward on a device thread of its own, so the remat
+recompute's *g* and *f*'s backward are issued there, while the step's
+thread waits inside ``loss.backward()``. ``recording(rec,
+every_thread=True)`` sets the recorder for every thread of the process
+for the length of the capture: it takes a lock first, so no other such
+capture claims it meanwhile, and gives it back on exit, a raise
+included. A thread's own recorder comes first.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import types
 from typing import Optional
 
 import torch
@@ -46,11 +57,24 @@ class _Recording(threading.local):
 
 
 _recording = _Recording()
+# every thread's recorder for the length of a train capture, and its lock
+_shared = types.SimpleNamespace(recorder=None)
+_shared_lock = threading.Lock()
 
 
 @contextlib.contextmanager
-def recording(recorder):
-    """Within the block this thread's collectives go to ``recorder``."""
+def recording(recorder, every_thread: bool = False):
+    """Within the block this thread's collectives go to ``recorder``;
+    with ``every_thread``, every thread's (one such block at a time: the
+    next waits for the lock)."""
+    if every_thread:
+        with _shared_lock:
+            _shared.recorder = recorder
+            try:
+                yield recorder
+            finally:
+                _shared.recorder = None
+        return
     prev, _recording.recorder = _recording.recorder, recorder
     try:
         yield recorder
@@ -58,10 +82,18 @@ def recording(recorder):
         _recording.recorder = prev
 
 
+def _recorder():
+    """The recorder that takes this thread's collectives, or None."""
+    mine = _recording.recorder
+    return mine if mine is not None else _shared.recorder
+
+
 class Collective:
     """One collective: ``tensor`` summed over ``group`` in place
-    (``"all_reduce"``), or every rank's ``tensor`` of ``group`` gathered
-    into ``out`` along ``dim`` in rank order (``"all_gather"``). A sharded
+    (``"all_reduce"``), the ``tensor`` of ``group``'s first rank put in
+    place on every rank (``"broadcast"``), or every rank's ``tensor`` of
+    ``group`` gathered into ``out`` along ``dim`` in rank order
+    (``"all_gather"``). A sharded
     program keeps one for each of its collectives; on the card both
     tensors are static, where its graphs write and read them."""
 
@@ -80,17 +112,24 @@ class Collective:
                                device=tensor.device), dim)
 
     def run(self) -> None:
+        # detached: a train program's tensors are autograd's outputs (an
+        # in-place write into the gathered rows' views would be refused)
+        t = self.tensor.detach()
         if self.op == "all_reduce":
-            dist.all_reduce(self.tensor, group=self.group)
+            dist.all_reduce(t, group=self.group)
+            return
+        if self.op == "broadcast":
+            dist.broadcast(t, src=dist.get_global_rank(self.group, 0),
+                           group=self.group)
             return
         n = dist.get_world_size(self.group)
+        out = self.out.detach()
         if self.dim == 0:  # the output's row blocks are contiguous views
-            dist.all_gather(list(self.out.chunk(n)), self.tensor,
-                            group=self.group)
+            dist.all_gather(list(out.chunk(n)), t, group=self.group)
             return
-        parts = [torch.empty_like(self.tensor) for _ in range(n)]
-        dist.all_gather(parts, self.tensor, group=self.group)
-        torch.cat(parts, dim=self.dim, out=self.out)
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=self.group)
+        torch.cat(parts, dim=self.dim, out=out)
 
     def stand_in(self) -> None:
         """Take part in this collective with zeros on the host: a rank
@@ -98,6 +137,9 @@ class Collective:
         t = torch.zeros(self.tensor.shape, dtype=self.tensor.dtype)
         if self.op == "all_reduce":
             dist.all_reduce(t, group=self.group)
+        elif self.op == "broadcast":
+            dist.broadcast(t, src=dist.get_global_rank(self.group, 0),
+                           group=self.group)
         else:
             dist.all_gather([torch.empty_like(t) for _ in range(
                 dist.get_world_size(self.group))], t, group=self.group)
@@ -112,8 +154,9 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place; returns it."""
     if group is None:
         return t
-    if _recording.recorder is not None:
-        return _recording.recorder.all_reduce(t, group)
+    rec = _recorder()
+    if rec is not None:
+        return rec.all_reduce(t, group)
     dist.all_reduce(t, group=group)
     return t
 
@@ -123,7 +166,10 @@ def broadcast_(t: torch.Tensor, group) -> torch.Tensor:
     it."""
     if group is None:
         return t
-    dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    rec = _recorder()
+    if rec is not None:
+        return rec.broadcast(t, group)
+    Collective("broadcast", group, t).run()
     return t
 
 
@@ -133,8 +179,9 @@ def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     if group is None:
         return t
     src = t.contiguous()
-    if _recording.recorder is not None:
-        return _recording.recorder.all_gather(src, dim, group)
+    rec = _recorder()
+    if rec is not None:
+        return rec.all_gather(src, dim, group)
     op = Collective.gather(src, dim, group)
     op.run()
     return op.out

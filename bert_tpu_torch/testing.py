@@ -17,6 +17,7 @@ main path calls them.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -208,11 +209,12 @@ def _engine_job(loaded, dp, tp, token_lists, engine_kw, record=False):
 
 
 def _train_job(config, params, dp, tp, lr, batches, pooling="mean",
-               ckpt_in=None, ckpt_out=None):
-    """make_sharded_train_step on a (dp, tp) CPU mesh from ``params`` (a
-    dense host tree) or the train state in ``ckpt_in``, one step per
-    batch; per step its loss, grad_norm, step and the whole parameters,
-    first moments and count. Saves the state to ``ckpt_out``."""
+               ckpt_in=None, ckpt_out=None, jit=True):
+    """make_sharded_train_step(jit=) on a (dp, tp) CPU mesh from
+    ``params`` (a dense host tree) or the train state in ``ckpt_in``, one
+    step per batch; per step its loss, grad_norm, step and the whole
+    parameters, first moments and count. Saves the state to
+    ``ckpt_out``."""
     from .checkpoint import load_train_state, save_train_state
     from .model import TrainableBertModel
     from .parallel.mesh import make_mesh
@@ -227,7 +229,7 @@ def _train_job(config, params, dp, tp, lr, batches, pooling="mean",
     if ckpt_in:
         state = load_train_state(ckpt_in, state)
     state, step = make_sharded_train_step(mesh, config, opt, state,
-                                          pooling=pooling)
+                                          pooling=pooling, jit=jit)
     steps = []
     for batch in batches:
         state, m = step(state, batch)
@@ -239,6 +241,58 @@ def _train_job(config, params, dp, tp, lr, batches, pooling="mean",
     if ckpt_out:
         save_train_state(ckpt_out, state)
     return steps
+
+
+def sharded_train_plan(model, dp: int, tp: int, rows: int, seq: int
+                       ) -> list:
+    """The collectives of one ``make_sharded_train_step`` step on a rank
+    of a (dp, tp) mesh whose ``model`` (a TrainableBertModel shard) takes
+    ``rows`` rows of ``seq`` tokens a side, in the order the step issues
+    them: (op, axis, shape of the tensor). A group of one rank issues
+    nothing.
+
+    - each forward (side a, then b): *g* after each row-parallel product,
+      2 a layer, over ``model``; then its rows' all-gather over ``data``;
+    - the backward, 4 a layer a side, all over ``model`` on [rows, seq,
+      D]: the remat recompute's two *g* (the non-reentrant checkpoint
+      stops early only after the layer's last LayerNorm, which takes the
+      second *g*'s sum) and *f*'s all-reduce at the QKV and FFN-up
+      inputs. Both sides' are alike, so their interleaving does not show;
+    - each leaf's gradient, in ``model.tree()``'s order: summed over
+      ``data``, then a replicated leaf's broadcast over ``model``;
+    - the sharded leaves' squared norm (0-d) summed over ``model``.
+
+    With tp > 1 that is 12·L + 2·(dp > 1) + leaves·(dp > 1) + replicated
+    leaves + 1 collectives; the program holds one graph more."""
+    from .parallel.sharding import split_dim
+
+    d, n_layer = model.config.n_embd, model.config.n_layer
+    model_ar = ("all_reduce", "model", (rows, seq, d))
+    fwd = [model_ar] * (2 * n_layer * (tp > 1))
+    gather = [("all_gather", "data", (rows, d))] * (dp > 1)
+    plan = (fwd + gather) * 2 + [model_ar] * (8 * n_layer * (tp > 1))
+    for group, sub in model.tree().items():
+        for key, p in sub.items():
+            shape = tuple(p.shape)
+            plan += [("all_reduce", "data", shape)] * (dp > 1)
+            plan += [("broadcast", "model", shape)] * (
+                tp > 1 and split_dim(group, key) is None)
+    return plan + [("all_reduce", "model", ())] * (tp > 1)
+
+
+def plan_axes(plan, mesh) -> list:
+    """A program's collectives as (op, axis, shape): each group named by
+    the mesh axis whose group it is."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_group
+
+    def ranks(group):
+        return tuple(dist.get_process_group_ranks(group))
+    names = {ranks(axis_group(mesh, a)): a for a in (DATA_AXIS, MODEL_AXIS)
+             if axis_group(mesh, a) is not None}
+    return [(op.op, names.get(ranks(op.group), "?"), tuple(op.tensor.shape))
+            for op in plan]
 
 
 def _row_parallel_job(h, w, tp):
@@ -426,11 +480,20 @@ class FakeCard:
     """The card's objects for a :class:`~._graphs.SegmentedProgram` run
     on the CPU: streams that do nothing, and graphs that log their capture
     and replay to ``events`` and, while one captures, take the "kernels"
-    of :meth:`launch` instead of running them; a replay runs them."""
+    of :meth:`launch` instead of running them, from any thread (a stream
+    capture takes the stream's work whoever launches it); a replay runs
+    them. As on the card, a collective of the card's tensors that runs
+    while a graph captures raises (gloo's copies through the host would
+    invalidate the capture; a check's tensor is the host's), and so does
+    ending a capture on another thread than the one that began it, unless
+    it was begun in relaxed mode. An event from another thread than the
+    one that made the card is logged with ``@autograd``: there it stands
+    for autograd's device thread."""
 
     def __init__(self, events, fail_replay=False):
         self.events, self.fail_replay = events, fail_replay
         self.capturing = None
+        self.home = threading.get_ident()
         card = self
 
         class Graph:
@@ -438,21 +501,33 @@ class FakeCard:
                 self.kernels = []
 
             def capture_begin(self, pool=None, capture_error_mode="global"):
-                assert capture_error_mode == "thread_local"
+                assert capture_error_mode in ("thread_local", "relaxed")
+                self.mode, self.thread = (capture_error_mode,
+                                          threading.get_ident())
                 card.capturing = self
-                card.events.append("begin")
+                card.log("begin")
 
             def capture_end(self):
+                if (self.mode != "relaxed"
+                        and threading.get_ident() != self.thread):
+                    raise RuntimeError("CUDA error: a capture not begun in "
+                                       "relaxed mode ended on another "
+                                       "thread "
+                                       "(cudaErrorStreamCaptureWrongThread)")
                 card.capturing = None
-                card.events.append("end")
+                card.log("end")
 
             def replay(self):
-                card.events.append("replay")
+                card.log("replay")
                 if card.fail_replay:
                     raise RuntimeError("this replay fails")
                 for k in self.kernels:
                     k()
         self.Graph = Graph
+
+    def log(self, event: str) -> None:
+        self.events.append(event if threading.get_ident() == self.home
+                           else event + "@autograd")
 
     def launch(self, kernel, counter):
         """A kernel launched from Python: counted, then run, or taken by
@@ -462,7 +537,13 @@ class FakeCard:
             self.capturing.kernels.append(kernel)
         else:
             kernel()
-            self.events.append("kernel")
+            self.log("kernel")
+
+    def collective(self, name: str) -> None:
+        if self.capturing is not None and name != "check":  # check: host
+            raise RuntimeError("CUDA error: operation not permitted when "
+                               f"stream is capturing ({name})")
+        self.log(name)
 
     @contextlib.contextmanager
     def installed(self):
@@ -477,26 +558,33 @@ class FakeCard:
                  "stream": lambda s: contextlib.nullcontext(),
                  "synchronize": lambda dev=None: None,
                  "CUDAGraph": self.Graph}
-        reduce_, gather = dist.all_reduce, dist.all_gather
+        real = {k: getattr(dist, k)
+                for k in ("all_reduce", "all_gather", "broadcast")}
 
         def all_reduce(t, op=dist.ReduceOp.SUM, group=None, **kw):
-            self.events.append("all_reduce" if op == dist.ReduceOp.SUM
-                               else "check")
-            return reduce_(t, op=op, group=group, **kw)
+            self.collective("all_reduce" if op == dist.ReduceOp.SUM
+                            else "check")
+            return real["all_reduce"](t, op=op, group=group, **kw)
 
         def all_gather(parts, t, group=None, **kw):
-            self.events.append("all_gather")
-            return gather(parts, t, group=group, **kw)
+            self.collective("all_gather")
+            return real["all_gather"](parts, t, group=group, **kw)
+
+        def broadcast(t, src, group=None, **kw):
+            self.collective("broadcast")
+            return real["broadcast"](t, src=src, group=group, **kw)
         saved = {k: getattr(torch.cuda, k) for k in fakes}
         for k, v in fakes.items():
             setattr(torch.cuda, k, v)
-        dist.all_reduce, dist.all_gather = all_reduce, all_gather
+        dist.all_reduce, dist.all_gather, dist.broadcast = (
+            all_reduce, all_gather, broadcast)
         try:
             yield self
         finally:
             for k, v in saved.items():
                 setattr(torch.cuda, k, v)
-            dist.all_reduce, dist.all_gather = reduce_, gather
+            for k, v in real.items():
+                setattr(dist, k, v)
 
 
 def _fake_card_job(fail_capture=None, fail_replay=None):
@@ -554,11 +642,240 @@ def _fake_card_job(fail_capture=None, fail_replay=None):
     return out
 
 
+def _collectives_job():
+    """The ``"broadcast"`` :class:`~.parallel.collectives.Collective` and
+    the recorder paths on a (1, world) CPU mesh, rank r's tensor r + 1:
+    ``broadcast_`` without a recorder and with this thread's (the CPU's
+    recorder runs and records it), the recorded op run again on new
+    values and stood in for by each rank in turn, its signature; the
+    process's recorder (``every_thread``) taking a broadcast issued on
+    another thread, and given back after a raise; and an all-gather
+    recorded inside an autograd Function's forward (its output is
+    autograd's, as in a train capture), run again on new rows."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from ._graphs import _Segments
+    from .parallel import collectives as coll
+    from .parallel.mesh import MODEL_AXIS, axis_group, make_mesh
+
+    world = int(os.environ["WORLD_SIZE"])
+    group = axis_group(make_mesh(world, tp=world, device_type="cpu"),
+                       MODEL_AXIS)
+    rank = dist.get_rank()
+    out = {}
+    t = torch.full((3,), rank + 1.0)
+    out["eager"] = coll.broadcast_(t, group).numpy().copy()
+    t.fill_(rank + 1.0)
+    with coll.recording(_Segments()) as rec:
+        got = coll.broadcast_(t, group)
+    (op,) = rec.ops
+    out["recorded"] = (op.op, got is t, t.numpy().copy(), op.signature())
+    t.fill_(10.0 * (rank + 1))
+    op.run()
+    out["run"] = t.numpy().copy()
+    for standing in range(world):  # each rank stands in once
+        t.fill_(7.0 * (rank + 1))
+        op.stand_in() if rank == standing else op.run()
+        out[f"rank {standing} stands in"] = t.numpy().copy()
+
+    rec = _Segments()
+    with coll.recording(rec, every_thread=True):
+        on_another_thread(lambda: coll.broadcast_(t, group))
+    try:
+        with coll.recording(_Segments(), every_thread=True):
+            raise KeyError("inside")
+    except KeyError:
+        pass
+    out["every_thread"] = ([o.op for o in rec.ops], coll._shared.recorder,
+                           coll._shared_lock.locked())
+
+    x = torch.full((2, 3), rank + 1.0, requires_grad=True)
+    with coll.recording(_Segments()) as rec:
+        y = coll.gather_rows(x * 1.0, group)
+    (op,) = rec.ops
+    with torch.no_grad():
+        op.tensor.fill_(-(rank + 1.0))
+    op.run()
+    out["gather"] = (y.requires_grad, op.out is y, y.detach().numpy().copy())
+    return out
+
+
+def on_another_thread(work) -> None:
+    """Run ``work()`` on a thread of its own and wait for it, as autograd
+    runs a backward's CUDA work on its device thread while the caller
+    waits; its error is raised here."""
+    error = []
+
+    def run():
+        try:
+            work()
+        except BaseException as e:  # raised below, in the caller's thread
+            error.append(e)
+    t = threading.Thread(target=run, name="autograd")
+    t.start()
+    t.join()
+    if error:
+        raise error[0]
+
+
+FAKE_TRAIN_INPUTS = ([1.0, 2.0, 3.0], [0.0, -1.0, 5.0], [2.0, 2.0, 2.0],
+                     [1.0, 2.0, 3.0])
+
+
+def _fake_train_job(fail_capture=None, fail_replay=None):
+    """A :class:`~._graphs.SegmentedTrainProgram` taking the card's path
+    on a (1, world) CPU mesh with :class:`FakeCard`, kept in a program
+    table: a step of five segments whose backward runs on another thread
+    (:func:`on_another_thread`), as on the card. Forward: a kernel, *g*
+    over ``model``; backward: a kernel, *f*'s all-reduce over ``model``,
+    the gradient's kernel; then the gradient summed over every rank (the
+    ``data`` group's stand-in) and broadcast over ``model``, and the
+    update's kernel. One call for each of :data:`FAKE_TRAIN_INPUTS`; the
+    optimizer's state is placed anew before the fourth. Returns each
+    call's events, output, launch count and program, and whether the
+    parameter's gradient was the program's after each replay; or, where
+    rank ``fail_capture`` raises inside the backward's capture (or
+    ``fail_replay``'s graph replay raises at the third call), what each
+    rank raised."""
+    import functools
+    import os
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    from ._graphs import Programs, SegmentedTrainProgram
+    from .parallel.collectives import all_reduce_, broadcast_
+    from .parallel.mesh import MODEL_AXIS, axis_group, make_mesh
+
+    world = int(os.environ["WORLD_SIZE"])
+    mesh = make_mesh(world, tp=world, device_type="cpu")
+    tp_group, data = axis_group(mesh, MODEL_AXIS), dist.group.WORLD
+    rank = dist.get_rank()
+    events: list = []
+    card = FakeCard(events)
+    counter = types.SimpleNamespace(launches=0)
+    model = torch.nn.ParameterList([torch.nn.Parameter(torch.zeros(3))])
+    (w,) = model.parameters()
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    opt.state[w] = {"momentum_buffer": torch.zeros(3)}
+
+    def step(x):
+        a = torch.empty(3)
+        card.launch(lambda: a.copy_(x * (rank + 1)), counter)
+        all_reduce_(a, tp_group)
+        g, grad = torch.empty(3), torch.empty(3)
+
+        def backward():
+            if card.capturing is not None and rank == fail_capture:
+                raise RuntimeError("this capture fails")
+            card.launch(lambda: g.copy_(a * 2), counter)
+            all_reduce_(g, tp_group)
+            card.launch(lambda: grad.copy_(g + 1), counter)
+        on_another_thread(backward)
+        w.grad = grad
+        all_reduce_(grad, data)
+        broadcast_(grad, tp_group)
+        out = torch.empty(3)
+        card.launch(lambda: out.copy_(grad * 3), counter)
+        return (out,)
+
+    table = Programs(torch.device("cpu"))
+    table.pool = "pool"
+    make = functools.partial(SegmentedTrainProgram, model=model, opt=opt,
+                             counters=[counter])
+    out = {"calls": [], "programs": []}
+    with card.installed():
+        for i, x in enumerate(FAKE_TRAIN_INPUTS):
+            if i == 3:  # moments placed anew: the program is not current
+                opt.state[w] = {"momentum_buffer": torch.zeros(3)}
+            arrays = {"x": np.asarray(x, np.float32)}
+            prog = table.get(("key",), step, arrays, make)
+            prog.device = torch.device("cuda")  # take the card's path
+            card.fail_replay = i == 2 and rank == fail_replay
+            try:
+                (got,) = prog(**arrays)
+            except RuntimeError as e:
+                out["calls"].append({"raised": str(e),
+                                     "events": list(events)})
+                break
+            if prog not in out["programs"]:
+                out["programs"].append(prog)
+            out["calls"].append({
+                "out": got.numpy().copy(), "events": list(events),
+                "launches": counter.launches,
+                "program": out["programs"].index(prog),
+                "grad_is_programs": bool(prog.grads
+                                         and w.grad is prog.grads[0])})
+            events.clear()
+    first = out.pop("programs")[:1]
+    out["graphs"] = [len(p.graphs) for p in first]
+    out["plan"] = [[op.op for op in p.plan or ()] for p in first]
+    return out
+
+
+def _graphs_train_job(config, params, dp, tp, lr, batches):
+    """make_sharded_train_step's program (``jit=True``) and its eager twin
+    (``jit=False``) on a (dp, tp) CPU mesh from the same ``params``, one
+    step per batch each: every step's loss and grad_norm and this rank's
+    parameters and both moments as they are (its shards); the program's
+    gathered parameters, first moments and count for a hold against
+    bert_tpu; the program table's keys, its collectives as (op, axis,
+    shape) (:func:`plan_axes`) and what :func:`sharded_train_plan`
+    derives."""
+    import torch
+
+    from .model import TrainableBertModel
+    from .parallel.mesh import make_mesh
+    from .params import params_to_numpy, params_to_torch
+    from .train import (adam_moments, init_train_state, make_optimizer,
+                        make_sharded_train_step)
+
+    mesh = make_mesh(dp * tp, tp=tp, device_type="cpu")
+    out = {}
+    for jit in (True, False):
+        opt = make_optimizer(lr)
+        state = init_train_state(TrainableBertModel(
+            params_to_torch(params, device="cpu"), config), opt)
+        state, step = make_sharded_train_step(mesh, config, opt, state,
+                                              jit=jit)
+        rows = []
+        for b in batches:
+            state, m = step(state, b)
+            st = state.opt_state.state
+            rows.append({
+                "loss": m["loss"].numpy().copy(),
+                "grad_norm": m["grad_norm"].numpy().copy(),
+                "tensors": {f"{g}/{k}": [t.detach().numpy().copy() for t in (
+                    p, st[p]["exp_avg"], st[p]["exp_avg_sq"])]
+                    for g, sub in state.params.tree().items()
+                    for k, p in sub.items()}})
+            if jit:
+                mu, _, count = adam_moments(state)
+                rows[-1].update(params=params_to_numpy(state.params), mu=mu,
+                                count=count, step=state.step)
+        out[jit] = rows
+        if jit:
+            table = step.programs[torch.device("cpu")].table
+            out["keys"] = [k[:2] for k in table]
+            out["plan"] = plan_axes(next(iter(table.values())).plan, mesh)
+            ids = batches[0]["ids_a"]
+            out["want"] = sharded_train_plan(state.params, dp, tp,
+                                             ids.shape[0] // dp,
+                                             ids.shape[1])
+    return out
+
+
 _JOBS = {"encode": _encode_job, "engine": _engine_job, "train": _train_job,
          "row_parallel": _row_parallel_job, "multihost": _multihost_job,
          "server": _server_job, "graphs_engine": _graphs_engine_job,
          "graphs_encode": _graphs_encode_job, "wire": _wire_job,
-         "fake_card": _fake_card_job}
+         "fake_card": _fake_card_job, "fake_train": _fake_train_job,
+         "collectives": _collectives_job,
+         "graphs_train": _graphs_train_job}
 
 
 def rank_jobs(jobs):

@@ -35,7 +35,10 @@ device), for the eager step too, so that both run the same arithmetic.
 ``torch.distributed``'s idiom: each rank holds its Megatron shard of the
 parameters and both AdamW moments (parallel/sharding.py), runs its
 ``data``-axis rows of the batch, and computes the InfoNCE loss over the
-whole batch; gradients are summed over ``data``.
+whole batch; gradients are summed over ``data``. bert_tpu jits that step
+too (one GSPMD program per batch shape): the port keeps one
+:class:`~bert_tpu_torch._graphs.SegmentedTrainProgram` per batch shape
+and state on each rank, CUDA graphs between the step's collectives.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ._graphs import Programs, TrainProgram
+from ._graphs import Programs, SegmentedTrainProgram, TrainProgram
 from .model import TrainableBertModel, bert_forward
 from .parallel.collectives import all_reduce_, broadcast_, gather_rows
 from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, axis_group, axis_size,
@@ -333,6 +336,7 @@ def make_sharded_train_step(
     temperature: float = 0.05,
     compute_dtype: torch.dtype = torch.float32,
     pooling: str = "mean",
+    jit: bool = True,
 ):
     """A train step over the mesh, and ``state`` placed on it. Returns
     (placed_state, step).
@@ -351,6 +355,20 @@ def make_sharded_train_step(
     replicas take model rank 0's gradient, so that they never drift). The
     step runs the plain versions (bert_tpu's takes ``use_pallas=False``)
     with per-layer remat, as :func:`make_train_step` does.
+
+    ``jit=True`` (bert_tpu jits its sharded step) runs the step of each
+    (whole batch's shapes, model, optimizer) as one
+    :class:`~bert_tpu_torch._graphs.SegmentedTrainProgram` on each rank:
+    on the card its first step runs eagerly, its second is captured into
+    CUDA graphs that end at each collective, checked across the ranks and
+    replayed, and every later one stages this rank's rows and replays,
+    the collectives run from the host between the graphs. The program is
+    bound to the state's tensors as :func:`make_train_step`'s is. A
+    capture or replay that fails on any rank raises on every rank. On the
+    CPU the same staging, keying and checks run, and the step runs
+    eagerly. ``step.programs`` maps each device to its program table.
+    ``jit=False`` returns the eager step (bert_tpu's plain step, which it
+    jits).
     """
     if DATA_AXIS not in (mesh.mesh_dim_names or ()):
         raise ValueError(
@@ -372,28 +390,20 @@ def make_sharded_train_step(
                          shard_params(nu, tp, m), count)
     placed = TrainState(params=model, opt_state=opt, step=state.step,
                         mesh=mesh)
-    # (parameter, whether it is a model-axis shard)
-    leaves = [(p, split_dim(g, k) is not None and tp > 1)
-              for g, sub in model.tree().items() for k, p in sub.items()]
 
-    def train_step(state: TrainState, batch: Dict[str, Any]
-                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        model, opt = state.params, state.opt_state
-        if not optimizer.built(opt):
-            raise ValueError("train state's optimizer was not built by "
-                             f"{optimizer}")
-        dev = model.embeddings["word"].device
-        rows = local_rows(mesh, np.shape(batch["ids_a"])[0])
-        b = {k: _tensor(v)[rows].to(dev, torch.int64 if k.startswith("ids")
-                                    else torch.float32)
-             for k, v in batch.items()}
-        opt.zero_grad(set_to_none=True)
+    def run_step(model: TrainableBertModel, opt: torch.optim.AdamW,
+                 **b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One step of this rank's rows from gradients set to None:
+        (loss, grad_norm)."""
         emb_a, emb_b = (gather_rows(bert_forward(
             model, b[f"ids_{s}"], b[f"mask_{s}"],
             compute_dtype=compute_dtype, use_kernels=False, remat=True,
             pooling=pooling), dp_group) for s in ("a", "b"))
         loss = info_nce_loss(emb_a, emb_b, temperature)
         loss.backward()
+        # (parameter, whether it is a model-axis shard)
+        leaves = [(p, split_dim(g, k) is not None and tp > 1)
+                  for g, sub in model.tree().items() for k, p in sub.items()]
         for p, cut in leaves:  # optax updates every leaf, a zero grad too
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -410,8 +420,55 @@ def make_sharded_train_step(
             all_reduce_(sq_sharded, model.tp_group)
         gnorm = torch.sqrt(sq_sharded + sum(s for s, cut in sq if not cut))
         opt.step()
-        return (TrainState(params=model, opt_state=opt, step=state.step + 1,
-                           mesh=mesh),
-                {"loss": loss.detach(), "grad_norm": gnorm})
+        return loss.detach(), gnorm
 
+    def checked(state: TrainState):
+        if not optimizer.built(state.opt_state):
+            raise ValueError("train state's optimizer was not built by "
+                             f"{optimizer}")
+        return state.params, state.opt_state
+
+    def rows_of(arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """This rank's rows of the batch's host arrays."""
+        rows = local_rows(mesh, arrays["ids_a"].shape[0])
+        return {k: np.ascontiguousarray(a[rows]) for k, a in arrays.items()}
+
+    def stepped(state: TrainState, metrics):
+        return (TrainState(params=state.params, opt_state=state.opt_state,
+                           step=state.step + 1, mesh=mesh), metrics)
+
+    if not jit:
+        def eager_step(state: TrainState, batch: Dict[str, Any]
+                       ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+            model, opt = checked(state)
+            dev = model.embeddings["word"].device
+            b = {k: torch.from_numpy(a).to(dev)
+                 for k, a in rows_of(_host_batch(batch)).items()}
+            opt.zero_grad(set_to_none=True)
+            loss, gnorm = run_step(model, opt, **b)
+            return stepped(state, {"loss": loss, "grad_norm": gnorm})
+        return placed, eager_step
+
+    tables: Dict[torch.device, Programs] = {}
+
+    def train_step(state: TrainState, batch: Dict[str, Any]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        model, opt = checked(state)
+        whole = _host_batch(batch)
+        arrays = rows_of(whole)
+        dev = model.embeddings["word"].device
+        table = tables.get(dev)
+        if table is None:
+            table = tables[dev] = Programs(dev)
+        key = (whole["ids_a"].shape, whole["ids_b"].shape, id(model),
+               id(opt))
+        loss, gnorm = table.get(
+            key, functools.partial(run_step, model, opt), arrays,
+            functools.partial(SegmentedTrainProgram, model=model,
+                              opt=opt))(**arrays)
+        # the static outputs are overwritten by the next replay
+        return stepped(state, {"loss": loss.clone(),
+                               "grad_norm": gnorm.clone()})
+
+    train_step.programs = tables
     return placed, train_step

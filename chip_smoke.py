@@ -128,8 +128,9 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    CPU;
 7. sharded phase: 2 and 4 ranks spawned by
    ``bert_tpu_torch.parallel.multihost.spawn_ranks`` (on this one card:
-   gloo, NCCL refusing two ranks on one card) run the main path's MiniLM-L6
-   Q4_0 file at (dp, tp) = (1, 2), (2, 1) and (2, 2) and hf_server's
+   gloo, NCCL refusing two ranks on one card) run a Q4_0 file of
+   MiniLM-L6's widths cut to 2 layers (seed 0, one request) at (dp, tp) =
+   (1, 2), (2, 1) and (2, 2) and hf_server's
    rubert-tiny2 directory at (1, 2) through ``BertTorch.from_file(path,
    dp=, tp=)``, with the counts set to 0 just before and read just after
    on every rank; fails unless each rank launches q4_matmul at the shard
@@ -144,11 +145,17 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    kernels name by name and count by count, with the counters agreeing
    with the profile, and hold 2·L + 1 graphs a program at tp = 2 and 1 at
    tp = 1, alike on every rank; make_sharded_encode_fn at (2, 2) must give
-   bit for bit its eager twin's rows. Then 3 f32 fine-tune steps at (2, 2)
-   (eager) against one rank's (loss, grad_norm, noise_rule). Each rank's
-   device and wall time a request, replayed and eager, the collectives'
-   share, the capture seconds and peak memory are logged as figures of
-   the shared card;
+   bit for bit its eager twin's rows. Then 5 f32 fine-tune steps at (2,
+   2) by make_sharded_train_step's program (one segmented program a rank:
+   step 1 eager, step 2 captured in graphs between its 103 collectives,
+   the backward's issued from autograd's device thread) in lockstep with
+   two eager states (``jit=False``): captured vs eager within eager vs
+   eager every step, 104 graphs alike on every rank, the collectives in
+   the order testing.sharded_train_plan derives, one capture (step 2), no
+   kernel launched, and the first 3 steps held to one rank's (loss,
+   grad_norm, noise_rule). Each rank's device and wall time a request or
+   a step, replayed and eager, the collectives' share, the capture
+   seconds and peak memory are logged as figures of the shared card;
 8. prints one JSON line with each kernel's numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -158,6 +165,7 @@ device it exits non-zero before doing anything.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -3097,6 +3105,69 @@ AGREE_PAIRS = {"captured vs eager": (0, 1), "eager vs eager": (1, 2),
                "captured vs eager 2": (0, 2)}
 
 
+def compare_lockstep(worst: dict, metrics: list, trees: list) -> None:
+    """Add one lockstep step of three runs (captured, eager, eager) to
+    ``worst``: for each pair of AGREE_PAIRS, each quantity's max|Δ| so
+    far (loss, grad_norm, each leaf's parameters and both moments)."""
+    for name, (i, j) in AGREE_PAIRS.items():
+        w = worst.setdefault(name, {})
+        for q in ("loss", "grad_norm"):
+            d = float((metrics[i][q] - metrics[j][q]).abs())
+            w[q] = max(w.get(q, 0.0), d)
+        for leaf in trees[0]:
+            for part, x, y in zip(("", "mu ", "nu "), trees[i][leaf],
+                                  trees[j][leaf]):
+                d = float((x - y).abs().max())
+                w[part + leaf] = max(w.get(part + leaf, 0.0), d)
+
+
+def hold_to_eager(trees: list, noisy: dict, keys, lr: float, s: int,
+                  what: str) -> None:
+    """The captured run's parameters (``trees[0]``) held to the first
+    eager run's by testing.noise_rule after step ``s`` (qkv_b's key
+    lanes exempt)."""
+    import numpy as np
+
+    from bert_tpu_torch.testing import noise_rule
+
+    for leaf, (p, mu, _) in trees[0].items():
+        q, mu_eager, _ = trees[1][leaf]
+        got = p.cpu().numpy()
+        noisy.setdefault(leaf, np.zeros(got.shape, bool))
+        try:
+            noise_rule(got, q.cpu().numpy(), mu.cpu().numpy(),
+                       mu_eager.cpu().numpy(), noisy[leaf], lr, s, leaf,
+                       # a model shard's qkv_b holds whole heads
+                       exempt=(keys[:got.shape[-1]]
+                               if leaf.endswith("qkv_b") else None))
+        except AssertionError as e:
+            raise SmokeFailure(f"{what}, captured vs eager: step {s} "
+                               f"{e}") from None
+
+
+def lockstep_verdict(worst: dict, n_steps: int, what: str) -> dict:
+    """Log each pair's agreement and require the rule: captured vs eager
+    within eager vs eager's max|Δ| of every quantity (so bit for bit
+    where eager vs eager is)."""
+    out = {}
+    for name, w in worst.items():
+        differ = sorted(q for q, d in w.items() if d)
+        out[name] = {"quantities": len(w), "differing": differ,
+                     "max_abs": max(w.values()),
+                     "loss_max_abs": w["loss"],
+                     "grad_norm_max_abs": w["grad_norm"]}
+        log(f"{what}: {name}, {n_steps} steps in lockstep: "
+            f"{len(w) - len(differ)} of {len(w)} quantities (loss, grad_norm,"
+            f" each leaf's parameters and both moments, every step) equal; "
+            f"max|Δ| {out[name]['max_abs']:.3e}"
+            + (f"; differing: {differ}" if differ else ", bit for bit"))
+    ce, ee = worst["captured vs eager"], worst["eager vs eager"]
+    over = {q: (ce[q], ee[q]) for q in ce if ce[q] > ee[q]}
+    require(not over, f"{what}: captured vs eager beyond eager vs eager "
+            f"(captured, eager): {over}")
+    return out
+
+
 def captured_vs_eager(loaded, lr: float, batches) -> dict:
     """The captured step against the eager one on the card: three states
     from the same weights, one stepped by make_train_step(jit=True) and two
@@ -3107,10 +3178,9 @@ def captured_vs_eager(loaded, lr: float, batches) -> dict:
     eager vs eager is bit for bit captured vs eager must be too; and the
     captured parameters hold testing.noise_rule against the eager ones
     (qkv_b's key lanes exempt)."""
-    import numpy as np
     import torch
 
-    from bert_tpu_torch.testing import key_bias_lanes, noise_rule
+    from bert_tpu_torch.testing import key_bias_lanes
     from bert_tpu_torch.train import make_train_step
 
     dev = torch.device("cuda")
@@ -3118,7 +3188,7 @@ def captured_vs_eager(loaded, lr: float, batches) -> dict:
     for jit in (True, False, False):
         opt, state = new_train_state(loaded, dev, lr)
         runs.append([state, make_train_step(loaded.config, opt, jit=jit)])
-    worst = {name: {} for name in AGREE_PAIRS}
+    worst: dict = {}
     noisy, keys = {}, key_bias_lanes(loaded.config)
     for s, b in enumerate(batches, 1):
         metrics = []
@@ -3126,45 +3196,10 @@ def captured_vs_eager(loaded, lr: float, batches) -> dict:
             r[0], m = r[1](r[0], b)
             metrics.append(m)
         trees = [_train_tensors(r[0]) for r in runs]
-        for name, (i, j) in AGREE_PAIRS.items():
-            w = worst[name]
-            for q in ("loss", "grad_norm"):
-                d = float((metrics[i][q] - metrics[j][q]).abs())
-                w[q] = max(w.get(q, 0.0), d)
-            for leaf in trees[0]:
-                for part, x, y in zip(("", "mu ", "nu "), trees[i][leaf],
-                                      trees[j][leaf]):
-                    d = float((x - y).abs().max())
-                    w[part + leaf] = max(w.get(part + leaf, 0.0), d)
-        for leaf, (p, mu, _) in trees[0].items():
-            q, mu_eager, _ = trees[1][leaf]
-            got = p.cpu().numpy()
-            noisy.setdefault(leaf, np.zeros(got.shape, bool))
-            try:
-                noise_rule(got, q.cpu().numpy(), mu.cpu().numpy(),
-                           mu_eager.cpu().numpy(), noisy[leaf], lr, s, leaf,
-                           exempt=keys if leaf.endswith("qkv_b") else None)
-            except AssertionError as e:
-                raise SmokeFailure(f"train, captured vs eager: step {s} "
-                                   f"{e}") from None
+        compare_lockstep(worst, metrics, trees)
+        hold_to_eager(trees, noisy, keys, lr, s, "train")
     del runs
-    out = {}
-    for name, w in worst.items():
-        differ = sorted(q for q, d in w.items() if d)
-        out[name] = {"quantities": len(w), "differing": differ,
-                     "max_abs": max(w.values()),
-                     "loss_max_abs": w["loss"],
-                     "grad_norm_max_abs": w["grad_norm"]}
-        log(f"train: {name}, {len(batches)} steps in lockstep: "
-            f"{len(w) - len(differ)} of {len(w)} quantities (loss, grad_norm,"
-            f" each leaf's parameters and both moments, every step) equal; "
-            f"max|Δ| {out[name]['max_abs']:.3e}"
-            + (f"; differing: {differ}" if differ else ", bit for bit"))
-    ce, ee = worst["captured vs eager"], worst["eager vs eager"]
-    over = {q: (ce[q], ee[q]) for q in ce if ce[q] > ee[q]}
-    require(not over, "train: captured vs eager beyond eager vs eager "
-            f"(captured, eager): {over}")
-    return out
+    return lockstep_verdict(worst, len(batches), "train")
 
 
 def measure_steps(loaded, dev, lr: float, batches, compute_dtype,
@@ -3277,17 +3312,43 @@ def _profiled(run) -> dict:
     host = {e.key: e.count for e in events
             if e.key.startswith(("cudaGraphLaunch", "cuGraphLaunch"))
             or "Launch" in e.key and "Kernel" in e.key
-            or e.key.startswith("cudaMemcpy")}
+            or e.key.startswith(("cudaMemcpy", "cudaMemset"))}
     return {"wall_us": wall_us,
             "device_busy_us": sum(e.self_device_time_total for e in kernels),
             "kernels": sum(e.count for e in kernels),
             "by_name": {e.key: e.count for e in kernels},
             "host_calls": host,
+            "enqueued": sum(n for k, n in host.items()
+                            if "GraphLaunch" not in k),
             "graph_launches": sum(n for k, n in host.items()
                                   if "GraphLaunch" in k),
             "kernel_launches_from_python": sum(
                 n for k, n in host.items() if "Kernel" in k),
             "events": kernels}
+
+
+PROFILE_TRIES = 5
+
+
+def _profiled_whole(run, label: str) -> dict:
+    """:func:`_profiled` over an eager ``run``, taken again (at most
+    PROFILE_TRIES times) until the profiler recorded every device
+    operation that the host enqueued: one record for each kernel launch,
+    async copy and memset call on the host's side. On the card the
+    profiler at times loses a few dozen of an eager step's ~2,800
+    device records (their host calls all recorded), and a count compared
+    name by name must not be read from such a profile. A profile that
+    saw no device time is returned as it is."""
+    for n in range(1, PROFILE_TRIES + 1):
+        p = _profiled(run)
+        if p["device_busy_us"] <= 0 or p["kernels"] == p["enqueued"]:
+            return p
+        log(f"train profile, {label}: try {n} recorded {p['kernels']} of "
+            f"the {p['enqueued']} device operations the host enqueued "
+            f"({p['host_calls']}); profiled again")
+    require(False, f"train profile, {label}: in each of {PROFILE_TRIES} "
+            "tries the profiler recorded fewer device operations than the "
+            "host enqueued")
 
 
 def _kernel_names(p: dict, copies_outside: int = 0) -> dict:
@@ -3344,7 +3405,7 @@ def profile_train_step(loaded, dev, lr: float, batches) -> dict:
         prog.opt.zero_grad(set_to_none=True)
         loss, _ = prog.fn(**prog.inputs)
         float(loss)
-    twin = _profiled(eager_twin)
+    twin = _profiled_whole(eager_twin, "its function run eagerly")
     eopt, estate = new_train_state(loaded, dev, lr)
     estep = make_train_step(loaded.config, eopt, jit=False)
     for b in batches[:2]:
@@ -3355,7 +3416,7 @@ def profile_train_step(loaded, dev, lr: float, batches) -> dict:
     def eager():
         ebox[0], m = estep(ebox[0], batches[2])
         float(m["loss"])
-    old = _profiled(eager)
+    old = _profiled_whole(eager, "eager step (jit=False)")
     ran, want = _kernel_names(replay, copies_outside=2), _kernel_names(twin)
     diff = {k: (ran.get(k, 0), want.get(k, 0)) for k in {*ran, *want}
             if ran.get(k, 0) != want.get(k, 0)}
@@ -3588,7 +3649,12 @@ def train_path(counters):
 
 # (dp, tp) of the MiniLM-L6 runs, by world size; rubert-tiny2 runs at tp = 2
 SHARDED_MESHES = {2: ((1, 2), (2, 1)), 4: ((2, 2),)}
-SHARDED_REQUESTS = 3
+# the encode jobs' requests and depth (MiniLM-L6's widths), cut so that
+# the phase keeps its time with the train program's steps added
+SHARDED_REQUESTS = 1
+SHARDED_ENCODE_LAYERS = 2
+SHARDED_TRAIN_STEPS = 5  # in lockstep: the program and two eager states
+SHARDED_HELD = 3  # of them held to one rank's steps
 
 
 def ranks_label(ranks) -> str:
@@ -3693,8 +3759,8 @@ def sharded_rank(encode_jobs, train=None, encode_fn=None):
     the first request replayed and eager in turns, the cost of a check
     across the ranks, and the first request in f32. ``encode_fn`` holds
     make_sharded_encode_fn's program at (2, 2) to its eager twin.
-    ``train`` runs make_sharded_train_step at (2, 2), f32, one step per
-    batch, with the counts at 0 (training runs the plain versions)."""
+    ``train`` runs make_sharded_train_step's program and its eager twin
+    at (2, 2), f32 (:func:`_sharded_train`)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3825,10 +3891,24 @@ def _sharded_encode_fn(path, ids, mask):
             "segments": [len(p.graphs) for p in fn.programs.table.values()]}
 
 
-def _sharded_train(path, lr, batches):
+def _sharded_train(path, lr, batches, n_held):
+    """make_sharded_train_step at (2, 2), f32, on the train phase's file:
+    three states from the same weights, one stepped by the program
+    (``jit=True``: a _graphs.SegmentedTrainProgram, step 1 eager, step 2
+    captured) and two by ``jit=False``, in lockstep, one step per batch,
+    with the launch counts at 0 (training runs the plain versions). After
+    each step every quantity of this rank's shards is compared in the
+    pairs of AGREE_PAIRS and the program's parameters held to the first
+    eager state's (noise_rule); the program's first ``n_held`` steps are
+    gathered whole for the hold to one rank. Then the first batch stepped
+    by the program and eagerly, AB_ROUNDS times each in turns, and one
+    profiled replay. Returns those, the program's collectives against
+    testing.sharded_train_plan, its graphs, each capture's step and
+    seconds, the replays' collective and check seconds, and memory."""
     import torch
     import torch.distributed as dist
 
+    from bert_tpu_torch import _graphs
     from bert_tpu_torch.loader import load_model
     from bert_tpu_torch.model import TrainableBertModel
     from bert_tpu_torch.ops.attention import multi_head_attention
@@ -3837,33 +3917,92 @@ def _sharded_train(path, lr, batches):
     from bert_tpu_torch.ops.q4_matmul import q4_matmul
     from bert_tpu_torch.parallel.mesh import make_mesh
     from bert_tpu_torch.params import params_to_numpy, params_to_torch
+    from bert_tpu_torch.testing import (key_bias_lanes, plan_axes,
+                                        sharded_train_plan)
     from bert_tpu_torch.train import (adam_moments, init_train_state,
                                       make_optimizer,
                                       make_sharded_train_step)
 
     loaded = load_model(path)
     mesh = make_mesh(4, tp=2)
-    opt = make_optimizer(lr)
-    state = init_train_state(TrainableBertModel(
-        params_to_torch(loaded.params, device="cpu"), loaded.config), opt)
-    state, step = make_sharded_train_step(mesh, loaded.config, opt, state)
+    captures = []  # (the program's step, seconds)
+    record = _graphs.SegmentedTrainProgram._record
+
+    def timed(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        record(self)
+        torch.cuda.synchronize()
+        captures.append((self.steps + 1, time.perf_counter() - t0))
+    _graphs.SegmentedTrainProgram._record = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for jit in (True, False, False):
+        opt = make_optimizer(lr)
+        state = init_train_state(TrainableBertModel(
+            params_to_torch(loaded.params, device="cpu"), loaded.config),
+            opt)
+        runs.append(list(make_sharded_train_step(
+            mesh, loaded.config, opt, state, jit=jit)))
     counters = (q4_matmul, fused_layer_norm, fused_qkv_attention,
                 multi_head_attention)
     for c in counters:
         c.launches = 0
+    worst: dict = {}
+    noisy, keys = {}, key_bias_lanes(loaded.config)
     rows = []
-    for b in batches:
-        t0 = time.perf_counter()
-        state, m = step(state, b)
-        loss = float(m["loss"])  # waits for the step
-        ms = (time.perf_counter() - t0) * 1e3
-        params = params_to_numpy(state.params)
-        mu = adam_moments(state)[0]
-        keep = dist.get_rank() == 0  # the others' gathered trees are equal
-        rows.append((loss, float(m["grad_norm"]), params if keep else None,
-                     mu if keep else None, ms))
-    return {"train": rows, "launches": {c.__name__: c.launches
-                                        for c in counters}}
+    keep = dist.get_rank() == 0  # the others' gathered trees are equal
+    for s, b in enumerate(batches, 1):
+        metrics, ms = [], []
+        for r in runs:
+            t0 = time.perf_counter()
+            r[0], m = r[1](r[0], b)
+            float(m["loss"])  # waits for the step
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append(m)
+        trees = [_train_tensors(r[0]) for r in runs]
+        compare_lockstep(worst, metrics, trees)
+        hold_to_eager(trees, noisy, keys, lr, s, "sharded train")
+        whole = None
+        if s <= n_held:  # gathered: collectives on every rank
+            whole = (params_to_numpy(runs[0][0].params),
+                     adam_moments(runs[0][0])[0])
+        rows.append((float(metrics[0]["loss"]),
+                     float(metrics[0]["grad_norm"]),
+                     *(whole if keep and whole else (None, None)), ms))
+    launches = {c.__name__: c.launches for c in counters}
+    (prog,) = next(iter(runs[0][1].programs.values())).table.values()
+    turns = {"captured": [], "eager": []}
+    coll_s = prog.collective_s
+    for _ in range(AB_ROUNDS):
+        for way, r in zip(turns, runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r[0], m = r[1](r[0], batches[0])
+            float(m["loss"])
+            turns[way].append((time.perf_counter() - t0) * 1e3)
+    coll_ms = (prog.collective_s - coll_s) / AB_ROUNDS * 1e3
+
+    def one_replay():
+        runs[0][0], m = runs[0][1](runs[0][0], batches[0])
+        float(m["loss"])
+    t0 = time.perf_counter()
+    dev_us, names = _rank_profile(one_replay)
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    _graphs.SegmentedTrainProgram._record = record
+    rows_a, seq = batches[0]["ids_a"].shape
+    return {"rank": dist.get_rank(), "train": rows, "launches": launches,
+            "worst": worst, "graphs": len(prog.graphs),
+            "plan": plan_axes(prog.plan, mesh),
+            "want_plan": sharded_train_plan(runs[0][0].params, 2, 2,
+                                            rows_a // 2, seq),
+            "captures": captures, "steps": prog.steps,
+            "in_turns_ms": turns, "collective_ms": coll_ms,
+            "profiled": {"device_us": dev_us, "wall_ms": prof_ms,
+                         "kernels": sum(names.values())},
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "reserved_bytes": torch.cuda.memory_reserved()}
 
 
 def sharded_programs_hold(what: str, r: dict, ranks: list, tp: int) -> None:
@@ -3899,6 +4038,107 @@ def sharded_programs_hold(what: str, r: dict, ranks: list, tp: int) -> None:
             f"not {want} each as on rank 0")
 
 
+def sharded_train_holds(train: list, want_steps: list, config, label: str,
+                        card: str) -> dict:
+    """The checks of make_sharded_train_step's program at (2, 2), every
+    rank: no kernel launched; 104 graphs for MiniLM-L6 (the collectives
+    testing.sharded_train_plan derives, in its order, plus one), alike on
+    every rank; one capture, at step 2; captured vs eager within eager vs
+    eager over every step (lockstep_verdict); the same loss on every
+    rank; and the program's first SHARDED_HELD steps held to one rank's
+    (loss rel 1e-4, grad_norm rel 1e-3, noise_rule). Logs each rank's
+    step wall captured and eager in turns, the collectives' and checks'
+    ms a replay, the capture's seconds, memory, and a profiled replay's
+    device time."""
+    import numpy as np
+
+    from bert_tpu_torch.testing import key_bias_lanes, noise_rule
+
+    n_steps = len(train[0]["train"])
+    for r in train:
+        rank = r["rank"]
+        require(not any(r["launches"].values()),
+                f"sharded train: rank {rank} launched kernels: "
+                f"{r['launches']}")
+        want = r["want_plan"]
+        require(r["plan"] == want, f"sharded train: rank {rank}'s "
+                f"collectives are not the derived {len(want)} in order: "
+                f"{r['plan']}")
+        require(r["graphs"] == len(want) + 1 == train[0]["graphs"],
+                f"sharded train: rank {rank} holds {r['graphs']} graphs, "
+                f"not {len(want) + 1} as on rank 0")
+        require([st for st, _ in r["captures"]] == [2],
+                f"sharded train: rank {rank} captured at steps "
+                f"{[st for st, _ in r['captures']]}, not once at step 2")
+        require(all(t["train"][s][0] == r["train"][s][0] for t in train
+                    for s in range(n_steps)),
+                "sharded train: the ranks' losses differ")
+        lockstep_verdict(r["worst"], n_steps,
+                         f"sharded train (2, 2) rank {rank}")
+        turns = {k: statistics.median(v)
+                 for k, v in r["in_turns_ms"].items()}
+        kinds = collections.Counter((op, ax) for op, ax, _ in want)
+        prof = r["profiled"]
+        busy = ("not measured" if prof["device_us"] is None else
+                f"{prof['device_us'] / 1e3:.3f} ms "
+                f"({100 * prof['device_us'] / 1e3 / prof['wall_ms']:.2f}% "
+                f"of its {prof['wall_ms']:.1f} ms wall)")
+        log(f"sharded train (2, 2) rank {rank}: program of {r['graphs']} "
+            f"graphs ({len(want)} collectives: "
+            f"{kinds['all_reduce', 'model']} model all-reduces, "
+            f"{kinds['all_gather', 'data']} row gathers, "
+            f"{kinds['all_reduce', 'data']} data all-reduces, "
+            f"{kinds['broadcast', 'model']} broadcasts), "
+            f"captured at step 2 in {r['captures'][0][1]:.3f} s; step wall "
+            f"in turns ({AB_ROUNDS} each, median) captured / eager "
+            f"{turns['captured']:.2f} / {turns['eager']:.2f} ms, of the "
+            f"captured its collectives and checks {r['collective_ms']:.2f} "
+            f"ms; lockstep step ms (program, eager, eager) "
+            f"{[[round(x, 1) for x in row[4]] for row in r['train']]}; a "
+            f"profiled replay: device {busy}, {prof['kernels']} kernels; "
+            f"peak allocated {r['peak_bytes'] / 2**20:.1f} MiB, reserved "
+            f"{r['reserved_bytes'] / 2**20:.1f} MiB ({label}; {card})")
+    got = train[0]["train"]
+    noisy, keys, worst = None, key_bias_lanes(config), 0.0
+    for s, (g, w) in enumerate(zip(got, want_steps), 1):
+        loss_rel = abs(g[0] - w[0]) / abs(w[0])
+        gn_rel = abs(g[1] - w[1]) / abs(w[1])
+        require(np.isfinite([g[0], g[1]]).all() and loss_rel <= 1e-4
+                and gn_rel <= 1e-3, f"sharded train: step {s} loss "
+                f"{g[0]} vs {w[0]}, grad_norm {g[1]} vs {w[1]}")
+        if noisy is None:
+            noisy = {gr: {k: np.zeros(v.shape, bool) for k, v in sub.items()}
+                     for gr, sub in w[2].items()}
+        for gr, sub in w[2].items():
+            for k, want in sub.items():
+                try:
+                    rr = noise_rule(g[2][gr][k], want, g[3][gr][k],
+                                    w[3][gr][k], noisy[gr][k], TRAIN_LR, s,
+                                    f"{gr}/{k}",
+                                    exempt=keys if k == "qkv_b" else None)
+                except AssertionError as e:
+                    raise SmokeFailure(f"sharded train: step {s} {e}") \
+                        from None
+                worst = max(worst, rr["max_abs"])
+        log(f"sharded train (2, 2) step {s}, the program: loss {g[0]:.7f} "
+            f"/ single rank {w[0]:.7f} (rel {loss_rel:.2e}), grad_norm "
+            f"{g[1]:.6f} / {w[1]:.6f} (rel {gn_rel:.2e}); rank step ms "
+            f"{[round(t['train'][s - 1][4][0], 3) for t in train]} "
+            f"({label})")
+    log(f"sharded train: params max|Δ| {worst:.3e} vs the single rank after "
+        f"{len(want_steps)} steps (noise_rule held; {card})")
+    return {"params_max_abs": worst, "graphs": train[0]["graphs"],
+            "collectives": len(train[0]["want_plan"]),
+            "capture_s": [r["captures"][0][1] for r in train],
+            "in_turns_ms": [{k: statistics.median(v) for k, v in
+                             r["in_turns_ms"].items()} for r in train],
+            "collective_ms": [r["collective_ms"] for r in train],
+            "profiled": [r["profiled"] for r in train],
+            "peak_bytes": [r["peak_bytes"] for r in train],
+            "reserved_bytes": [r["reserved_bytes"] for r in train],
+            "step_ms": [[row[4] for row in r["train"]] for r in train]}
+
+
 def _cos(a, b):
     import numpy as np
 
@@ -3907,37 +4147,46 @@ def _cos(a, b):
 
 
 def sharded_path():
-    """MiniLM-L6 Q4_0 (bf16, the main path's file) at tp = 2, dp = 2 and
-    (2, 2), rubert-tiny2 (dense, hf_server's directory) at tp = 2, and 3
-    fine-tune steps at (2, 2) (f32, the train phase's file), every rank a
-    process on the one card (parallel.multihost.spawn_ranks; NCCL refuses
-    two ranks on one card, so the group is gloo). Each is held to the
-    single-rank result on the card: bf16 min cos > 0.999; f32 cos >
-    0.9999 and max|Δ| <= 5e-3; the steps by loss (rel 1e-4), grad_norm
-    (rel 1e-3) and noise_rule, as the train phase holds the card to the
-    CPU. Every rank must launch q4_matmul at the shard shapes, the
-    LayerNorm and the fused attention over H/tp heads (MiniLM), the
-    per-(batch, head) attention over 6 heads (rubert-tiny2), and its
-    sharded programs must hold (:func:`sharded_programs_hold`);
+    """MiniLM-L6's widths in Q4_0 at SHARDED_ENCODE_LAYERS layers (bf16;
+    seed 0, as the main path's file) at tp = 2, dp = 2 and (2, 2),
+    rubert-tiny2 (dense, hf_server's directory) at tp = 2, and
+    SHARDED_TRAIN_STEPS fine-tune steps at (2, 2) (f32, the train phase's
+    file) by make_sharded_train_step's program and its eager twin, every
+    rank a process on the one card (parallel.multihost.spawn_ranks; NCCL
+    refuses two ranks on one card, so the group is gloo). Each is held to
+    the single-rank result on the card: bf16 min cos > 0.999; f32 cos >
+    0.9999 and max|Δ| <= 5e-3; the program's first SHARDED_HELD steps by
+    loss (rel 1e-4), grad_norm (rel 1e-3) and noise_rule, as the train
+    phase holds the card to the CPU. Every rank must launch q4_matmul at
+    the shard shapes, the LayerNorm and the fused attention over H/tp
+    heads (MiniLM), the per-(batch, head) attention over 6 heads
+    (rubert-tiny2), and its sharded programs must hold
+    (:func:`sharded_programs_hold`, :func:`sharded_train_holds`);
     make_sharded_encode_fn at (2, 2) must be bit for bit its eager
     twin."""
     import numpy as np
     import torch
 
     from bert_tpu_torch import BertTorch
+    from bert_tpu_torch.formats import GgmlHParams, write_ggml
     from bert_tpu_torch.loader import load_model
     from bert_tpu_torch.parallel.multihost import spawn_ranks
-    from bert_tpu_torch.params import params_to_numpy
-    from bert_tpu_torch.testing import key_bias_lanes, noise_rule
+    from bert_tpu_torch.params import (BertConfig, params_to_numpy,
+                                       random_named_tensors)
     from bert_tpu_torch.train import make_train_step
 
     t_phase = time.perf_counter()
     card = gpu_line()
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build", "chip_smoke")
-    q4_path = os.path.join(work, "minilm_l6_q4_0.bin")
+    q4_path = os.path.join(work, "minilm_l2_q4_0.bin")
     hf_dir = os.path.join(work, "rubert_tiny2_seed0")
     f32_path = os.path.join(work, "minilm_l6_f32.bin")
+    cfg = BertConfig(**{**MINILM_L6, "n_layer": SHARDED_ENCODE_LAYERS})
+    write_ggml(q4_path, GgmlHParams(cfg.n_vocab, cfg.n_max_tokens,
+                                    cfg.n_embd, cfg.n_intermediate,
+                                    cfg.n_head, cfg.n_layer, ftype=2),
+               fixture_tokens(cfg.n_vocab), random_named_tensors(cfg, 0))
     rng = np.random.default_rng(21)
     requests = [request_corpus(rng) for _ in range(SHARDED_REQUESTS)]
     hf_req = [hf_request(rng)]
@@ -3952,11 +4201,11 @@ def sharded_path():
                       .encode_batch(reqs[0]))
         del m16
     loaded = load_model(f32_path)
-    batches = train_batches(loaded, 3, 8, 64)
+    batches = train_batches(loaded, SHARDED_TRAIN_STEPS, 8, 64)
     opt, state = new_train_state(loaded, torch.device("cuda"), TRAIN_LR)
     step = make_train_step(loaded.config, opt)
     want_steps = []
-    for b in batches:
+    for b in batches[:SHARDED_HELD]:
         state, m = step(state, b)
         want_steps.append((float(m["loss"]), float(m["grad_norm"]),
                            params_to_numpy(state.params),
@@ -3982,13 +4231,14 @@ def sharded_path():
             jobs.append({"path": hf_dir, "dp": 1, "tp": 2,
                          "requests": hf_req, "model": "rubert"})
         else:
-            train = {"path": f32_path, "lr": TRAIN_LR, "batches": batches}
+            train = {"path": f32_path, "lr": TRAIN_LR, "batches": batches,
+                     "n_held": SHARDED_HELD}
             encode_fn = {"path": q4_path, "ids": ids, "mask": mask}
         t0 = time.perf_counter()
         ranks = spawn_ranks(world, sharded_rank, jobs, train, encode_fn,
                             timeout=900)
         log(f"sharded: {world} ranks ran {len(jobs)} encode jobs"
-            f"{', make_sharded_encode_fn and 3 train steps' if train else ''}"
+            f"{', make_sharded_encode_fn and train steps' if train else ''}"
             f" in {time.perf_counter() - t0:.2f} s (spawn, load and run)")
         for i, job in enumerate(jobs):
             results[(job["model"], job["dp"], job["tp"])] = (
@@ -4095,45 +4345,9 @@ def sharded_path():
     summary["encode_fn_dp2_tp2"] = {"segments": fn[0]["segments"],
                                     "bit_for_bit": True}
 
-    train = results["train"]
-    label = ranks_label(results[("minilm", 2, 2)][1])
-    for r in train:
-        require(not any(r["launches"].values()),
-                f"sharded train: kernels launched: {r['launches']}")
-    got = train[0]["train"]
-    noisy, keys, worst = None, key_bias_lanes(loaded.config), 0.0
-    for s, (g, w) in enumerate(zip(got, want_steps), 1):
-        require(all(t["train"][s - 1][0] == g[0] for t in train),
-                f"sharded train: step {s} losses differ across ranks")
-        loss_rel = abs(g[0] - w[0]) / abs(w[0])
-        gn_rel = abs(g[1] - w[1]) / abs(w[1])
-        require(np.isfinite([g[0], g[1]]).all() and loss_rel <= 1e-4
-                and gn_rel <= 1e-3, f"sharded train: step {s} loss "
-                f"{g[0]} vs {w[0]}, grad_norm {g[1]} vs {w[1]}")
-        if noisy is None:
-            noisy = {gr: {k: np.zeros(v.shape, bool) for k, v in sub.items()}
-                     for gr, sub in w[2].items()}
-        for gr, sub in w[2].items():
-            for k, want in sub.items():
-                try:
-                    rr = noise_rule(g[2][gr][k], want, g[3][gr][k],
-                                    w[3][gr][k], noisy[gr][k], TRAIN_LR, s,
-                                    f"{gr}/{k}",
-                                    exempt=keys if k == "qkv_b" else None)
-                except AssertionError as e:
-                    raise SmokeFailure(f"sharded train: step {s} {e}") \
-                        from None
-                worst = max(worst, rr["max_abs"])
-        log(f"sharded train (2, 2) step {s}: loss {g[0]:.7f} / single rank "
-            f"{w[0]:.7f} (rel {loss_rel:.2e}), grad_norm {g[1]:.6f} / "
-            f"{w[1]:.6f} (rel {gn_rel:.2e}); rank step ms "
-            f"{[round(t['train'][s - 1][4], 3) for t in train]} "
-            f"({label})")
-    log(f"sharded train: params max|Δ| {worst:.3e} vs the single rank after "
-        f"3 steps (noise_rule held; {card})")
-    summary["train"] = {"params_max_abs": worst,
-                        "step_ms": [[row[4] for row in t["train"]]
-                                    for t in train]}
+    summary["train"] = sharded_train_holds(
+        results["train"], want_steps, loaded.config,
+        ranks_label(results[("minilm", 2, 2)][1]), card)
     t_all = time.perf_counter() - t_phase
     log(f"sharded: the phase took {t_all:.2f} s")
     summary["phase_s"] = t_all

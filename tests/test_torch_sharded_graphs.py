@@ -26,7 +26,12 @@ heads, 2 layers; ranks spawned over gloo, one spawn per world size):
     count each replay once; a capture or a replay that raises on one rank
     raises on every rank;
 (f) the wire cast before the gather is bit for bit the cast after it,
-    and bert_tpu's cast, for f32, f16 and int8.
+    and bert_tpu's cast, for f32, f16 and int8;
+(g) the collectives' recorder paths: the ``"broadcast"`` Collective
+    (recorded, run again, stood in for, its signature), the process's
+    recorder taking a collective issued on another thread and given back
+    after a raise, and an all-gather recorded inside an autograd
+    Function's forward run again on its output.
 """
 
 import numpy as np
@@ -76,12 +81,13 @@ def ranks():
         encode_job(2, 1),
         ("wire", dict(loaded=loaded(2), dp=2, tp=1, ids=ids, mask=mask)),
         ("fake_card", {}), ("fake_card", dict(fail_capture=1)),
-        ("fake_card", dict(fail_replay=1))])
+        ("fake_card", dict(fail_replay=1)), ("collectives", {})])
     four = spawn_ranks(4, testing.rank_jobs, [engine_job(2, 2),
                                               encode_job(2, 2)])
     return {(1, 2): [r[0:2] for r in two], (2, 1): [r[2:4] for r in two],
             (2, 2): four, "wire": [r[4] for r in two],
-            "fake": [r[5:8] for r in two]}
+            "fake": [r[5:8] for r in two],
+            "collectives": [r[8] for r in two]}
 
 
 # (a) -------------------------------------------------------------------------
@@ -241,3 +247,35 @@ def test_wire_before_the_gather_is_the_cast_after_it(ranks, wire):
         np.testing.assert_array_equal(got, theirs)
     if wire == "int8":  # unit rows of 256 lanes: small codes, many
         assert len(np.unique(after)) > 16
+
+
+# (g) -------------------------------------------------------------------------
+
+def test_broadcast_collective_is_recorded_and_run_again(ranks):
+    for got in ranks["collectives"]:
+        np.testing.assert_array_equal(got["eager"], [1.0] * 3)
+        op, same, value, signature = got["recorded"]
+        # the CPU's recorder runs the broadcast and records it; the
+        # signature is alike on every rank (rank 0 the source of each)
+        assert (op, same) == ("broadcast", True)
+        np.testing.assert_array_equal(value, [1.0] * 3)
+        assert signature == ("broadcast", 2, (3,), "torch.float32", 0)
+        np.testing.assert_array_equal(got["run"], [10.0] * 3)
+    r0, r1 = ranks["collectives"]
+    # the source stands in with zeros, so its peer gets them; a peer that
+    # stands in leaves the source's tensor as it was
+    np.testing.assert_array_equal(r1["rank 0 stands in"], [0.0] * 3)
+    np.testing.assert_array_equal(r0["rank 1 stands in"], [7.0] * 3)
+
+
+def test_every_thread_recorder_takes_another_threads_collective(ranks):
+    for got in ranks["collectives"]:
+        assert got["every_thread"] == (["broadcast"], None, False)
+
+
+def test_a_recorded_gather_runs_again_on_autograds_output(ranks):
+    for got in ranks["collectives"]:
+        requires_grad, same, rows = got["gather"]
+        assert requires_grad and same
+        np.testing.assert_array_equal(rows, [[-1.0] * 3] * 2
+                                      + [[-2.0] * 3] * 2)
