@@ -1,0 +1,13 @@
+"""Host time of the engine's dispatch phase (routing, padding or packing,
+staging, replay, queuing the copy) per sentence over the window:
+``stats()["phases"]["dispatch"]``."""
+
+from gpubench.readers import us_per_text
+
+UNIT = "us/sentence"
+SOURCE = "program_span"
+MOVES = "sentences_per_s"
+
+
+def read(ctx):
+    return us_per_text(ctx, "dispatch")
