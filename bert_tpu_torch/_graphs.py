@@ -57,6 +57,12 @@ the recorder for every thread of the process
 CUDA's relaxed mode, in which that thread may end a graph begun on the
 step's thread and begin the next.
 
+A table made with the engine's :class:`~.profiling.PhaseTimers` times each
+call's parts as parts of the engine's dispatch: ``dispatch.stage`` (the
+copies into the static inputs), ``dispatch.capture`` (a new shape's warm
+run and capture) and ``dispatch.replay`` (on the CPU, the eager run). A
+table made without records none.
+
 The kernel wrappers count their launches in Python (``<wrapper>.launches``),
 and a replay runs no Python. :func:`capture_counted` therefore takes back
 what the capture counted and :meth:`Program.replay` adds it again, so a
@@ -66,6 +72,7 @@ counts, the capture does not, and each replay counts once.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import time
 import warnings
@@ -130,6 +137,7 @@ class Program:
         self.output: Optional[torch.Tensor] = None
         self.graph = None
         self.launches: Optional[List[int]] = None  # one replay's, by counter
+        self.timers = None  # the PhaseTimers its table times its calls by
 
     def stage(self, arrays: Dict[str, np.ndarray]) -> None:
         """Copy every input array into its static tensor, whole."""
@@ -145,14 +153,23 @@ class Program:
             t.copy_(torch.from_numpy(np.ascontiguousarray(
                 a, dtype=self._np_dtypes[name])), non_blocking=True)
 
+    def _phase(self, name: str):
+        if self.timers is None:
+            return contextlib.nullcontext()
+        return self.timers.phase(name)
+
     def __call__(self, **arrays: np.ndarray) -> torch.Tensor:
-        self.stage(arrays)
+        with self._phase("dispatch.stage"):
+            self.stage(arrays)
         if self.device.type != "cuda":  # nothing is captured
-            self._run_eagerly()
+            with self._phase("dispatch.replay"):
+                self._run_eagerly()
             return self.output
         if self.graph is None:
-            self._capture()
-        self.replay()
+            with self._phase("dispatch.capture"):
+                self._capture()
+        with self._phase("dispatch.replay"):
+            self.replay()
         return self.output
 
     def current(self) -> bool:
@@ -199,12 +216,14 @@ class Program:
 
 class Programs:
     """An engine's program table: key → :class:`Program`, all sharing one
-    memory pool on the card."""
+    memory pool on the card; with ``timers``, each program's calls are
+    timed as phases of them."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, timers=None):
         self.device = device
         self.pool = (torch.cuda.graph_pool_handle()
                      if device.type == "cuda" else None)
+        self.timers = timers
         self.table: Dict[Hashable, Program] = {}
 
     def get(self, key: Hashable, fn: Callable[..., torch.Tensor],
@@ -219,6 +238,7 @@ class Programs:
             inputs = {name: torch.tensor(a, device=self.device)  # a copy
                       for name, a in arrays.items()}
             prog = self.table[key] = program(fn, inputs, self.pool)
+            prog.timers = self.timers
         return prog
 
 
@@ -366,13 +386,17 @@ class SegmentedProgram(Program):
         return rec.ops + [final]
 
     def __call__(self, **arrays: np.ndarray) -> torch.Tensor:
-        self.stage(arrays)
+        with self._phase("dispatch.stage"):
+            self.stage(arrays)
         if self.device.type != "cuda":
-            self._run_eagerly()
+            with self._phase("dispatch.replay"):
+                self._run_eagerly()
         else:
             if self.plan is None:
-                self._capture()
-            self.replay()
+                with self._phase("dispatch.capture"):
+                    self._capture()
+            with self._phase("dispatch.replay"):
+                self.replay()
         return self.output
 
     def _run_eagerly(self) -> None:

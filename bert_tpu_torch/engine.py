@@ -234,7 +234,7 @@ class BertTorch:
         # one program per batch shape; on a mesh its segments end at the
         # collectives and its rows are gathered over data last. None sets
         # the programs aside: every op is launched from Python
-        self._programs = Programs(self.device)
+        self._programs = Programs(self.device, self.timers)
         self._program = (Program if mesh is None else functools.partial(
             SegmentedProgram, gather=self._dp_group))
         # a batch stages, replays and queues its copy to the host before
@@ -322,25 +322,55 @@ class BertTorch:
     def _copy_to_host(self, emb: torch.Tensor):
         """Start the device→host copy of one batch's rows; returns the host
         tensor and the event that marks its arrival (None on the CPU)."""
-        if self.device.type != "cuda":
-            return emb, None
-        host = torch.empty(emb.shape, dtype=emb.dtype, pin_memory=True)
-        host.copy_(emb, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
-        return host, done
+        with self.timers.phase("dispatch.copy"):
+            if self.device.type != "cuda":
+                return emb, None
+            host = torch.empty(emb.shape, dtype=emb.dtype, pin_memory=True)
+            host.copy_(emb, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            return host, done
 
     @torch.inference_mode()
     def _dispatch_all(self, token_lists: Sequence[Sequence[int]]) -> list:
         """Route + dispatch every input; returns the pending
         (original-index array, host rows, arrival event) entries."""
+        with self.timers.phase("route"):
+            lengths, pack_idx, pack_plan, bucket_idx = self._route(
+                token_lists)
+        pending = []
+        with self.timers.phase("dispatch"):
+            if pack_idx:
+                pending.extend(self._dispatch_packed(token_lists, pack_idx,
+                                                     pack_plan))
+            if bucket_idx:
+                with self.timers.phase("dispatch.pack"):
+                    plan = plan_buckets([lengths[i] for i in bucket_idx],
+                                        self.seq_buckets, self.max_batch,
+                                        min_batch=self._dp)
+                for seq_b, batch_b, sub in plan.groups:
+                    with self.timers.phase("dispatch.pack"):
+                        idxs = [bucket_idx[j] for j in sub]
+                        ids, mask = self.tokenizer.pad_batch(
+                            [token_lists[i] for i in idxs], seq_b,
+                            batch_size=batch_b
+                        )
+                    with self._lock:
+                        host, done = self._copy_to_host(
+                            self._forward(ids, mask)[: len(idxs)])
+                    self.timers.record_bucket(batch_b, seq_b)
+                    pending.append((np.asarray(idxs), host, done))
+        return pending
+
+    def _route(self, token_lists: Sequence[Sequence[int]]):
+        """Routing, as BertTPU routes: short sentences go through the
+        packed path (several per row, block-diagonal attention); everything
+        else through length-bucketed padding. Small batches ALWAYS pack;
+        large batches pack only when that pads fewer tokens than bucketing.
+        Returns the lengths, the packed inputs and their plan, and the
+        bucketed inputs."""
         n = len(token_lists)
         lengths = [len(t) for t in token_lists]
-
-        # Routing, as BertTPU routes: short sentences go through the packed
-        # path (several per row, block-diagonal attention); everything else
-        # through length-bucketed padding. Small batches ALWAYS pack; large
-        # batches pack only when that pads fewer tokens than bucketing.
         pack_idx: List[int] = []
         pack_plan = None
         bucket_idx = list(range(n))
@@ -371,28 +401,7 @@ class BertTorch:
                 pack_plan = plan
                 in_pack = set(short)
                 bucket_idx = [i for i in bucket_idx if i not in in_pack]
-
-        pending = []
-        with self.timers.phase("dispatch"):
-            if pack_idx:
-                pending.extend(self._dispatch_packed(token_lists, pack_idx,
-                                                     pack_plan))
-            if bucket_idx:
-                plan = plan_buckets([lengths[i] for i in bucket_idx],
-                                    self.seq_buckets, self.max_batch,
-                                    min_batch=self._dp)
-                for seq_b, batch_b, sub in plan.groups:
-                    idxs = [bucket_idx[j] for j in sub]
-                    ids, mask = self.tokenizer.pad_batch(
-                        [token_lists[i] for i in idxs], seq_b,
-                        batch_size=batch_b
-                    )
-                    with self._lock:
-                        host, done = self._copy_to_host(
-                            self._forward(ids, mask)[: len(idxs)])
-                    self.timers.record_bucket(batch_b, seq_b)
-                    pending.append((np.asarray(idxs), host, done))
-        return pending
+        return lengths, pack_idx, pack_plan, bucket_idx
 
     def _dispatch_packed(self, token_lists, idxs, plan=None):
         """Pack short sentences into fixed (rows, pack_seq) batches and
@@ -404,13 +413,16 @@ class BertTorch:
         pending = []
         row_cap = self.max_batch
         for start in range(0, plan.n_rows, row_cap):
-            end = min(plan.n_rows, start + row_cap)
-            pls = [Placement(p.index, p.row - start, p.offset, p.length,
-                             p.slot)
-                   for p in plan.placements if start <= p.row < end]
-            sub = PackPlan(pls, end - start, plan.seq_len, plan.max_segments)
-            n_rows = min(_size_bucket(sub.n_rows, self._min_rows), row_cap)
-            ids, seg, pos, flat = pack_batch(tl, sub, n_rows=n_rows)
+            with self.timers.phase("dispatch.pack"):
+                end = min(plan.n_rows, start + row_cap)
+                pls = [Placement(p.index, p.row - start, p.offset, p.length,
+                                 p.slot)
+                       for p in plan.placements if start <= p.row < end]
+                sub = PackPlan(pls, end - start, plan.seq_len,
+                               plan.max_segments)
+                n_rows = min(_size_bucket(sub.n_rows, self._min_rows),
+                             row_cap)
+                ids, seg, pos, flat = pack_batch(tl, sub, n_rows=n_rows)
             with self._lock:
                 host, done = self._copy_to_host(
                     self._forward_packed(ids, seg, pos, flat))
@@ -427,7 +439,8 @@ class BertTorch:
         follows the whole batch's padded tokens."""
         model = self._model_for(ids.size)
         # ids are widened on the host: a cast on the card is one more launch
-        ids = ids.astype(np.int64)
+        with self.timers.phase("dispatch.pack"):
+            ids = ids.astype(np.int64)
         r = local_rows(self.mesh, ids.shape[0])
 
         def encode(ids, mask):
@@ -452,8 +465,9 @@ class BertTorch:
         ``data``), gathered by a second program whose index is padded to
         a multiple of 256 (``gather_segments``)."""
         model = self._model_for(ids.size)
-        ids, pos = ids.astype(np.int64), pos.astype(np.int64)
-        flat = flat.astype(np.int64)
+        with self.timers.phase("dispatch.pack"):
+            ids, pos = ids.astype(np.int64), pos.astype(np.int64)
+            flat = flat.astype(np.int64)
         d = self.config.n_embd
         r = local_rows(self.mesh, ids.shape[0])
 
@@ -497,14 +511,19 @@ class BertTorch:
         """Wait for each batch's host copy and place its rows in ``out``."""
         with self.timers.phase("gather"):
             for idxs, host, done in pending:
-                if done is not None:
-                    done.synchronize()
-                out[idxs] = host.numpy().astype(np.float32)
-        if self.wire_dtype == "int8":
-            # fixed-point wire: undo the 127 scale by re-normalizing (outputs
-            # are unit-norm by construction, bert.cpp:911-913 semantics)
-            norms = np.linalg.norm(out, axis=-1, keepdims=True)
-            np.divide(out, np.maximum(norms, 1e-12), out=out)
+                # the host blocked on the card
+                with self.timers.phase("gather.wait"):
+                    if done is not None:
+                        done.synchronize()
+                with self.timers.phase("gather.place"):
+                    out[idxs] = host.numpy().astype(np.float32)
+            if self.wire_dtype == "int8":
+                # fixed-point wire: undo the 127 scale by re-normalizing
+                # (outputs are unit-norm by construction, bert.cpp:911-913
+                # semantics)
+                with self.timers.phase("gather.place"):
+                    norms = np.linalg.norm(out, axis=-1, keepdims=True)
+                    np.divide(out, np.maximum(norms, 1e-12), out=out)
 
     # -- streaming corpus-scale evaluation ----------------------------------
     def eval_tokens_iter(self, token_lists: Sequence[Sequence[int]],

@@ -3,8 +3,10 @@
 Counterpart of ``bert_tpu/profiling.py``:
 
   * :class:`PhaseTimers` — cheap host-side accumulators for the engine's
-    phases (tokenize / dispatch / gather) and per-bucket execution counts,
-    surfaced via ``BertTorch.stats()``;
+    phases (tokenize / route / dispatch / gather and their parts) and
+    per-bucket execution counts, surfaced via ``BertTorch.stats()``; while
+    a ``torch.profiler`` records, each phase is also a span on its
+    timeline, named ``bert_tpu_torch.<phase>``;
   * :func:`trace` — a ``torch.profiler`` context over host and card
     activity that writes a Chrome / TensorBoard trace (bert_tpu's
     ``jax.profiler`` trace);
@@ -24,6 +26,19 @@ from typing import Dict
 
 import torch
 
+# the prefix of a phase's span on a torch.profiler timeline
+SPAN_PREFIX = "bert_tpu_torch."
+
+
+def span(name: str):
+    """A host span on a recording ``torch.profiler``'s timeline. It is a
+    function's record, as a torch op's is, and not a user annotation
+    (``record_function``'s): the profiler copies a user annotation onto
+    the card's timeline, over the kernels launched inside it, where it
+    would read as device time."""
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): the
 # bf16 tensor-core rate and the HBM3 rate
 H100_BF16_FLOPS = 989e12
@@ -32,6 +47,13 @@ H100_HBM_BW = 3.35e12
 
 class PhaseTimers:
     """Accumulates wall time per named phase + per-bucket execution counts.
+
+    A part of a phase is named ``<phase>.<part>`` by its caller; a phase's
+    self time is its total less its parts'. While a ``torch.profiler``
+    records (and only then: entering a span costs microseconds, the check a
+    fraction of one), each phase is also a span named
+    ``bert_tpu_torch.<key>`` on the clock of the card's activity, so the
+    card's idle gaps can be named by the phase the host was in.
 
     Thread-safe: unsynchronized ``+=`` on the accumulators from concurrent
     callers loses updates."""
@@ -45,14 +67,17 @@ class PhaseTimers:
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            with self._lock:
-                self.totals[name] += dt
-                self.counts[name] += 1
+        with (span(SPAN_PREFIX + name)
+              if torch._C._autograd._profiler_enabled()
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                dt = time.perf_counter() - t0
+                with self._lock:
+                    self.totals[name] += dt
+                    self.counts[name] += 1
 
     def record_bucket(self, batch: int, seq: int, kind: str = "") -> None:
         with self._lock:

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import logging
 import math
@@ -239,8 +240,12 @@ class BatchingScheduler:
         toks: List[List[int]] = list(payloads)  # type: ignore[arg-type]
         text_idx = [i for i, p in enumerate(payloads) if isinstance(p, str)]
         if text_idx:
-            tokenized = self.model.tokenizer.tokenize_batch(
-                [payloads[i] for i in text_idx], self.model.n_max_tokens)
+            # the engine's tokenize phase, where the engine keeps timers
+            timers = getattr(self.model, "timers", None)
+            with (timers.phase("tokenize") if timers is not None
+                  else contextlib.nullcontext()):
+                tokenized = self.model.tokenizer.tokenize_batch(
+                    [payloads[i] for i in text_idx], self.model.n_max_tokens)
             for i, t in zip(text_idx, tokenized):
                 toks[i] = t
         return self.model.eval_tokens(toks)
