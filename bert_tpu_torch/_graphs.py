@@ -92,10 +92,11 @@ from .ops.layer_norm import fused_layer_norm, fused_layer_norm_codes
 from .ops.q4_matmul import q4_matmul
 from .parallel.collectives import Collective, recording
 
-# every kernel wrapper's launch counter
+# every kernel wrapper's launch counter, and q4_matmul's count of its
+# wgmma instance
 COUNTERS = (q4_matmul, fused_layer_norm, fused_layer_norm_codes,
             fused_qkv_attention, multi_head_attention, int8_matmul,
-            int8_matmul_gelu, quantize_activations_i8)
+            int8_matmul_gelu, quantize_activations_i8, q4_matmul.wgmma)
 
 
 def capture_counted(counters: Sequence, capture: Callable[[], None]

@@ -39,7 +39,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "q4_matmul": {
         # x, packed, scales, mins (nullable), out, M, K, N, stream
         f"q4_matmul_{t}": [_P, _P, _P, _P, _P, _I, _I, _I, _P]
-        for t in ("f32", "bf16")
+        for t in ("f32", "bf16", "bf16_wgmma")
     },
     "layer_norm": {
         # x, residual (nullable), pre_bias (nullable), scale, bias, out,

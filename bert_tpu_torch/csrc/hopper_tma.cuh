@@ -4,8 +4,9 @@
 // (wgmma) plumbing: shared-memory descriptors, fence / commit / wait, and
 // the register hand-over between warpgroups (setmaxnreg).
 //
-// Used by q4_matmul.cu (TMA tile loads on mbarriers) and int8_matmul.cu
-// (TMA loads and stores, wgmma, a producer warpgroup). encode_map finds
+// Used by q4_matmul.cu (TMA tile loads on mbarriers; its bulk-M bf16
+// instance also wgmma and warpgroup roles) and int8_matmul.cu (TMA loads
+// and stores, wgmma, a producer warpgroup). encode_map finds
 // cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so nothing links
 // against libcuda.
 
@@ -231,6 +232,9 @@ __device__ __forceinline__ void wgmma_wait() {
 // register across this point (wgmma writes it behind the compiler's back).
 __device__ __forceinline__ void fence_operand(int& r) {
   asm volatile("" : "+r"(r)::"memory");
+}
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
 }
 
 // Hand registers between warpgroups: every warp of the warpgroup executes

@@ -47,13 +47,15 @@
 // In diagnostic builds on the H100 the per-thread cp.async copies had
 // cost more time per group than the products; TMA takes most of it away
 // (chip_smoke.py's times before and after are in PERF.md).
-// mma.sync and not wgmma: a 64-row group gives a block only 4 k16 steps
-// between copies, and at these sizes the grid and the per-group latency,
-// not the issue rate of the tensor cores, set the time. BM is 64 when that
-// gives at least one tile per SM, else 32, which doubles the blocks of the
-// small shapes (M=512, N=384: 48 -> 96 blocks). No split-K: every output
-// is summed by one thread in a fixed order, so a call is deterministic.
-// Ragged M and N edges are masked on store; K must be a multiple of 64.
+// mma.sync and not wgmma below the router's crossover (WGMMA_MIN_M in
+// ops/q4_matmul.py, measured by chip_smoke.py): a 64-row group gives a
+// block only 4 k16 steps between copies, and at these sizes the grid and
+// the per-group latency, not the issue rate of the tensor cores, set the
+// time. BM is 64 when that gives at least one tile per SM, else 32, which
+// doubles the blocks of the small shapes (M=512, N=384: 48 -> 96 blocks).
+// No split-K: every output is summed by one thread in a fixed order, so a
+// call is deterministic. Ragged M and N edges are masked on store; K must
+// be a multiple of 64.
 //
 // The bf16 instance: the x tile is bf16 (no widening), A comes from it by
 // ldmatrix, one product a step.
@@ -89,6 +91,48 @@
 // three fit an SM: at M=1024 the QKV and FFN-up grids (288 and 384 tiles)
 // then run in one wave, where two a SM (107 KB: 3-slot rings, two W
 // tiles) took two, and longer, in a diagnostic build on the H100.
+//
+// The bulk-M bf16 instance (q4_matmul_bf16_wgmma; N % 16 == 0). What
+// bounds it: at bert-base's shapes at M = 8,192 tokens the product is
+// bound by operations (QKV: 29 GFLOP, 29 us at 989 TFLOP/s, against 15 us
+// for x, W and a bf16-sized output at 3.35 TB/s), and only wgmma reaches
+// the tensor cores' full rate; the mma.sync instance ran at a fifth of it.
+// Two costs come on top of the products: dequantizing, about five
+// instructions a weight, and the f32 output, 4 bytes an element written
+// while every SM finishes its tiles at about the same time.
+// Design: persistent blocks, one per SM, 384 threads, computing out^T =
+// W^T x^T on tiles of 128 W columns x 256 tokens, token-block major.
+//  - The producer warpgroup (one thread works; setmaxnreg 40) keeps a
+//    4-stage ring of TMA loads on full/empty mbarriers: per K group the x
+//    tile (256 tokens x 64 k in bf16, 128-byte swizzle), the band's 32
+//    packed rows of 128 columns (128-byte swizzle) and its scale (and min)
+//    rows. TMA zero-fills past M and N.
+//  - Two consumer warpgroups (setmaxnreg 232) own 64 W columns each. Per
+//    group each thread dequantizes its own wgmma A fragments (16 bytes of
+//    the band, 32 weights, the mma.sync instances' arithmetic: (c-8)*s or
+//    c*s+m in f32 with __fmul_rn / __fadd_rn, rounded once to bf16) into
+//    registers, then issues four wgmma.m64n256k16 with A from registers
+//    and B the x tile by descriptor, f32 accumulators (128 a thread). The
+//    fragments are double-buffered: group g+1's are made while group g's
+//    products run, and a stage is released once its products retired.
+//    W never reaches shared memory as bf16, so the shared-memory traffic
+//    is the x tile's (written once, read by each consumer) and the band's.
+//  - The epilogue goes through shared memory: each consumer writes half a
+//    tile (128 tokens x its 64 columns) into two boxes in the output map's
+//    128-byte swizzle, and one thread stores them by TMA; the warps go on
+//    while the copy engine drains, so the next tile's products overlap the
+//    f32 output's write.
+//  - Tail: where the last round of tiles would fill at most half the SMs,
+//    its tiles are cut into 128-token halves (wgmma.m64n128k16) so that
+//    twice as many SMs share it.
+// Each output is summed by one accumulator, k in order, 16 a step: no
+// split-K, no atomics; at every shape chip_smoke.py checks, the result is
+// the mma.sync instance's bit for bit. Rejected in diagnostic builds on the
+// H100 (PERF.md): dequantizing warpgroups that write a swizzled bf16 W
+// tile for the consumers' descriptors (SS operands), 128- or 256-row
+// tiles, one or two such warpgroups; it read that W tile once per m64
+// product from shared memory and ran at the same speed as this design
+// without its staged epilogue, for which it had no shared memory left.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -582,6 +626,385 @@ bool valid(int M, int K, int N) {
   return M > 0 && N > 0 && K > 0 && K % BK == 0;
 }
 
+// ---------------------------------------------------------------------------
+// The bulk-M bf16 instance: persistent warp-specialised blocks on wgmma,
+// out^T = W^T x^T with W^T dequantized into registers (the header's last
+// part says why)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int WBN = 128;  // W columns (outputs' n) of a tile, 64 a consumer
+constexpr int BT = 256;   // tokens (x rows, outputs' m) of a tile: wgmma's N
+constexpr int STAGES = 4;
+constexpr int THREADS = 3 * 128;  // two consumer warpgroups, the producer
+// registers a thread after setmaxnreg: 168 each at launch (65,536 / 384);
+// the producer's go to the consumers
+constexpr int REG_P = 40, REG_C = 232;
+// an epilogue box: 128 tokens x 32 columns of f32, rows of 128 bytes in
+// the 128-byte swizzle, as the output's tensor map stores it
+constexpr int OUT_T = 128, OUT_N = 32;
+
+struct Smem {
+  // as TMA writes them: x tiles in 128-byte rows (one row a token) and the
+  // bands, both in the 128-byte swizzle (16-byte chunk j of row r at chunk
+  // j ^ (r % 8)); the x tile is what the wgmma's B descriptor reads
+  alignas(1024) bf16 x[STAGES][BT][BK];
+  alignas(1024) uint8_t band[STAGES][QK][WBN];
+  // each consumer's half tile of output (its 64 columns as two boxes)
+  alignas(1024) float out[2][2][OUT_T][OUT_N];
+  alignas(128) float sc[STAGES][2][WBN];
+  alignas(128) float mn[STAGES][2][WBN];
+  uint64_t full[STAGES], empty[STAGES];
+};
+
+#define WG_R8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= a @ b over one k16 step: A 64 x 16 of W^T in registers (the
+// mma.m16n8k16 A layout, a warp 16 rows), B 256 x 16 of x, K-major in
+// shared memory (a descriptor), f32 accumulators, 128 a thread; scale_d =
+// 0 overwrites d (a tile's first step).
+__device__ __forceinline__ void wgmma_rs(float (&d)[BT / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : WG_R8(0), WG_R8(8), WG_R8(16), WG_R8(24), WG_R8(32), WG_R8(40),
+        WG_R8(48), WG_R8(56), WG_R8(64), WG_R8(72), WG_R8(80), WG_R8(88),
+        WG_R8(96), WG_R8(104), WG_R8(112), WG_R8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// The same over the first 128 tokens of the tile (a half tile, below).
+__device__ __forceinline__ void wgmma_rs_half(float (&d)[BT / 4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : WG_R8(0), WG_R8(8), WG_R8(16), WG_R8(24), WG_R8(32), WG_R8(40),
+        WG_R8(48), WG_R8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+#undef WG_R8
+
+// One weight from its nibble n: (n-8)*s (Q4_0) or n*s+m (Q4_1), in f32
+// with one rounding per operation, as the mma.sync instances compute it.
+// The bits 0x4B00000n read as a float are 2^23 + n exactly.
+template <bool Q41>
+__device__ __forceinline__ float weight(uint32_t nibble, float s, float m) {
+  const float v = __int_as_float(0x4B000000u | nibble);
+  if (Q41) return __fadd_rn(__fmul_rn(__fsub_rn(v, 8388608.f), s), m);
+  return __fmul_rn(__fsub_rn(v, 8388616.f), s);
+}
+
+// This thread's A fragments of one group, for its k16 steps kk = 0..3:
+// a[kk] holds W^T rows n and n + 8 (W columns of the tile) at k = 16 kk +
+// 2q, + 1 (a[kk][0], [1]) and + 8, + 9 ([2], [3]), q = lane % 4. Step kk
+// reads the low nibbles (kk < 2) or high nibbles of packed rows 16 (kk % 2)
+// + 2q + {0, 1, 8, 9}: eight rows, each read once as a byte per column.
+// The band's swizzle puts the four q's rows in four 16-byte chunks, and
+// the eight lanes of a q read neighbouring bytes: no bank conflicts.
+template <bool Q41>
+__device__ __forceinline__ void fragments(const Smem& s, int st, int n,
+                                          uint32_t (&a)[4][4]) {
+  const int q = threadIdx.x & 3;
+  float sc[2][2], mn[2][2];  // [low/high nibbles][column n, n + 8]
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      sc[h][c] = s.sc[st][h][n + 8 * c];
+      mn[h][c] = Q41 ? s.mn[st][h][n + 8 * c] : 0.f;
+    }
+  uint32_t b[2][4][2];  // [kk % 2][row 2q + {0, 1, 8, 9}][column]
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      const int r = 16 * half + 2 * q + (rr & 1) + 8 * (rr >> 1);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = n + 8 * c;
+        b[half][rr][c] =
+            s.band[st][r][(((col >> 4) ^ (r & 7)) << 4) | (col & 15)];
+      }
+    }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int half = kk & 1, h = kk >> 1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // a[kk][i]: rows pair i / 2, column i % 2
+      const int c = i & 1, rr = (i >> 1) * 2;
+      a[kk][i] = hopper::pack_bf16(
+          weight<Q41>((b[half][rr][c] >> (4 * h)) & 0xF, sc[h][c], mn[h][c]),
+          weight<Q41>((b[half][rr + 1][c] >> (4 * h)) & 0xF, sc[h][c],
+                      mn[h][c]));
+    }
+  }
+}
+
+// Keep the compiler from reusing a fragment's registers before the wgmma
+// that reads them has retired (it reads them behind the compiler's back).
+__device__ __forceinline__ void hold(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// One K group of a consumer: its fragments into `cur`, four wgmma on the
+// stage's x tile, then, once the previous group's products retired, that
+// group's fragments (`prev`) and its stage are free.
+template <bool Q41>
+__device__ __forceinline__ void group(Smem& s, float (&acc)[BT / 2],
+                                      uint32_t (&cur)[4][4],
+                                      uint32_t (&prev)[4][4], int n, int g,
+                                      bool half, int& q) {
+  const int st = q % STAGES;
+  hopper::mbar_wait(&s.full[st], (q / STAGES) & 1);
+  fragments<Q41>(s, st, n, cur);
+  hopper::wgmma_fence();
+  // one branch around the group's four wgmma (not one each), so that
+  // ptxas sees them back to back and fences only the first
+  if (half) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs_half(reinterpret_cast<float(&)[BT / 4]>(acc), cur[kk],
+                    hopper::desc_sw128(&s.x[st][0][kk * 16]), g > 0 || kk > 0);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs(acc, cur[kk], hopper::desc_sw128(&s.x[st][0][kk * 16]),
+               g > 0 || kk > 0);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<1>();
+  hold(prev);
+  if (g > 0 && (threadIdx.x & 31) == 0)
+    hopper::mbar_arrive(&s.empty[(q + STAGES - 1) % STAGES]);
+  ++q;
+}
+
+// Tokens 128 H.. of the consumer's finished tile, out[t0 + 128 H.., n0 +
+// 64 w..], through its staging boxes, stored by two TMA stores. The thread
+// holds out^T rows n and n + 8 (acc[4j + {0, 1}] and [4j + {2, 3}]) at
+// tokens 8j + 2q and + 1; lanes g and g ^ 1 (g = lane / 4) swap one value
+// each, so that each writes a pair of neighbouring columns: (t, n, n + 1)
+// from the even lane, (t + 1, n - 1, n) from the odd one. The box's
+// swizzle spreads a warp's pairs over all banks.
+template <int H>
+__device__ __forceinline__ void store_half(Smem& s, const float (&acc)[BT / 2],
+                                           const CUtensorMap* map, int t0,
+                                           int n0) {
+  const int w = threadIdx.x >> 7, lane = threadIdx.x & 31, q = lane & 3;
+  const bool odd = (lane >> 2) & 1, lead = (threadIdx.x & 127) == 0;
+  const int n = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);  // 0..63
+  // the stores that last read the boxes are done with them
+  if (lead) hopper::bulk_wait_read<0>();
+  hopper::named_bar_sync(1 + w, 128);
+#pragma unroll
+  for (int j = 0; j < OUT_T / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int a = 4 * (j + H * OUT_T / 8) + 2 * r;
+      const float v0 = acc[a], v1 = acc[a + 1];
+      const float got = __shfl_xor_sync(~0u, odd ? v0 : v1, 4);
+      const int t = 8 * j + 2 * q + odd, c = n + 8 * r - odd;
+      float* box = &s.out[w][c >> 5][0][0];
+      *reinterpret_cast<float2*>(
+          box + t * OUT_N + ((((c & 31) >> 2) ^ (t & 7)) << 2) + (c & 3)) =
+          odd ? make_float2(got, v1) : make_float2(v0, got);
+    }
+  hopper::fence_proxy_async();
+  hopper::named_bar_sync(1 + w, 128);
+  if (lead) {
+    hopper::tma_store_2d(map, &s.out[w][0][0][0], n0 + 64 * w,
+                         t0 + H * OUT_T);
+    hopper::tma_store_2d(map, &s.out[w][1][0][0], n0 + 64 * w + OUT_N,
+                         t0 + H * OUT_T);
+    hopper::bulk_commit();
+  }
+}
+
+// The block's tiles, the same order for every role: t = blockIdx.x, +
+// gridDim.x, ..., token-block major, 256 tokens x 128 columns. Where the
+// last round would leave at least half the SMs idle, its tiles (index
+// `split` on) are cut in two halves of 128 tokens, twice as many tiles
+// that each take about half the time: the SMs fill better, and every output
+// is still summed in the same order.
+struct Tiles {
+  int tiles_n, split, count;  // count: tiles after any cut
+  __device__ __forceinline__ void at(int v, int& t0, int& n0,
+                                     bool& half) const {
+    int tile = v;
+    half = v >= split;
+    if (half) tile = split + (v - split) / 2;
+    t0 = tile / tiles_n * BT + (half ? ((v - split) & 1) * OUT_T : 0);
+    n0 = tile % tiles_n * WBN;
+  }
+};
+
+template <bool Q41>
+__device__ __forceinline__ void consumer(Smem& s, const CUtensorMap* map,
+                                         const Tiles& tl, int groups) {
+  // this thread's W^T rows: 64 a consumer warpgroup, 16 a warp
+  const int n_in = 64 * (threadIdx.x >> 7) + 16 * ((threadIdx.x >> 5) & 3) +
+                   ((threadIdx.x & 31) >> 2);
+  float acc[BT / 2];
+  uint32_t fa[4][4], fb[4][4];
+  int q = 0;
+  for (int v = blockIdx.x; v < tl.count; v += gridDim.x) {
+    int t0, n0;
+    bool half;
+    tl.at(v, t0, n0, half);
+    for (int g = 0; g < groups; g += 2) {
+      group<Q41>(s, acc, fa, fb, n_in, g, half, q);
+      if (g + 1 < groups) group<Q41>(s, acc, fb, fa, n_in, g + 1, half, q);
+    }
+    hopper::wgmma_wait<0>();
+    hold(fa);
+    hold(fb);
+    if ((threadIdx.x & 31) == 0)
+      hopper::mbar_arrive(&s.empty[(q + STAGES - 1) % STAGES]);
+#pragma unroll
+    for (int j = 0; j < BT / 2; ++j) hopper::fence_operand(acc[j]);
+    store_half<0>(s, acc, map, t0, n0);
+    if (!half) store_half<1>(s, acc, map, t0, n0);
+  }
+  if ((threadIdx.x & 127) == 0) hopper::bulk_wait<0>();
+}
+
+struct Maps {  // TMA descriptors: Q4 operands as above, and the output
+  CUtensorMap x, band, sc, mn, out;
+};
+
+// Roles (threads): consumers 0-255, then the producer's warpgroup, of which
+// one thread works. Tiles t = blockIdx.x, + gridDim.x, ..., token-block
+// major; q counts the block's K groups over its tiles, and group q uses
+// ring stage q % STAGES.
+__global__ void __launch_bounds__(THREADS, 1)
+    q4_matmul_wgmma_kernel(const __grid_constant__ Maps maps, Tiles tl, int K,
+                           int q4_1) {
+  extern __shared__ unsigned char smem_raw[];
+  // aligned by an offset from smem_raw, not through an integer, so that
+  // the compiler still knows it for shared memory (LDS, not generic loads)
+  Smem& s = *reinterpret_cast<Smem*>(
+      smem_raw + (-hopper::smem_addr(smem_raw) & 1023u));
+  const int groups = K / BK;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      hopper::mbar_init<1>(&s.full[i]);
+      hopper::mbar_init<8>(&s.empty[i]);  // the consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer: one thread keeps the ring full
+    hopper::setmaxnreg_dec<REG_P>();
+    if (threadIdx.x == 256) {
+      // a half tile's x box brings 256 tokens too, the second 128 unused
+      const uint32_t bytes =
+          BT * BK * 2 + QK * WBN + (q4_1 ? 4 : 2) * WBN * 4;
+      int q = 0;
+      for (int v = blockIdx.x; v < tl.count; v += gridDim.x) {
+        int t0, n0;
+        bool half;
+        tl.at(v, t0, n0, half);
+        for (int g = 0; g < groups; ++g, ++q) {
+          const int st = q % STAGES;
+          hopper::mbar_wait(&s.empty[st], ((q / STAGES) & 1) ^ 1);
+          uint64_t* bar = &s.full[st];
+          hopper::mbar_expect(bar, bytes);
+          hopper::tma_2d(&s.x[st][0][0], &maps.x, g * BK, t0, bar);
+          hopper::tma_2d(&s.band[st][0][0], &maps.band, n0, g * QK, bar);
+          hopper::tma_2d(&s.sc[st][0][0], &maps.sc, n0, 2 * g, bar);
+          if (q4_1) hopper::tma_2d(&s.mn[st][0][0], &maps.mn, n0, 2 * g, bar);
+        }
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<REG_C>();
+    if (q4_1)
+      consumer<true>(s, &maps.out, tl, groups);
+    else
+      consumer<false>(s, &maps.out, tl, groups);
+  }
+}
+
+int launch(const void* x, const void* packed, const void* scales,
+           const void* mins, void* out, int M, int K, int N,
+           cudaStream_t stream) {
+  constexpr int smem = sizeof(Smem) + 1024;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      q4_matmul_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return (int)attr;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  const bool ok =
+      hopper::encode_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M,
+                         (uint64_t)K * 2, BK, BT,
+                         CU_TENSOR_MAP_SWIZZLE_128B) &&
+      hopper::encode_map(&maps.band, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, N,
+                         K / 2, N, WBN, QK, CU_TENSOR_MAP_SWIZZLE_128B) &&
+      hopper::encode_map(&maps.sc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, N,
+                         K / QK, (uint64_t)N * 4, WBN, 2,
+                         CU_TENSOR_MAP_SWIZZLE_NONE) &&
+      (mins == nullptr ||
+       hopper::encode_map(&maps.mn, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, mins, N,
+                          K / QK, (uint64_t)N * 4, WBN, 2,
+                          CU_TENSOR_MAP_SWIZZLE_NONE)) &&
+      hopper::encode_map(&maps.out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, out, N,
+                         M, (uint64_t)N * 4, OUT_N, OUT_T,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  // the last round's tiles are cut in halves where that round would fill
+  // at most half the SMs
+  const int sms = hopper::sm_count();
+  Tiles tl;
+  tl.tiles_n = (N + WBN - 1) / WBN;
+  const int tiles = (M + BT - 1) / BT * tl.tiles_n;
+  const int last = tiles - (tiles - 1) / sms * sms;  // tiles in the last round
+  tl.split = 2 * last <= sms ? tiles - last : tiles;
+  tl.count = tl.split + 2 * (tiles - tl.split);
+  const int grid = tl.count < sms ? tl.count : sms;
+  q4_matmul_wgmma_kernel<<<grid, THREADS, smem, stream>>>(maps, tl, K,
+                                                         mins != nullptr);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
 extern "C" int q4_matmul_f32(const void* x, const void* packed,
@@ -598,4 +1021,14 @@ extern "C" int q4_matmul_bf16(const void* x, const void* packed,
   if (!valid(M, K, N)) return (int)cudaErrorInvalidValue;
   return launch_for<__nv_bfloat16>(x, packed, scales, mins, out, M, K, N,
                                    (cudaStream_t)stream);
+}
+
+// The bulk-M bf16 instance: N % 16 == 0 (its loads are TMA tiles).
+extern "C" int q4_matmul_bf16_wgmma(const void* x, const void* packed,
+                                    const void* scales, const void* mins,
+                                    void* out, int M, int K, int N,
+                                    void* stream) {
+  if (!valid(M, K, N) || N % 16 != 0) return (int)cudaErrorInvalidValue;
+  return wg::launch(x, packed, scales, mins, out, M, K, N,
+                    (cudaStream_t)stream);
 }

@@ -22,19 +22,35 @@ import torch
 from .. import _kernels
 from ..quant import GROUP, QK, QuantTensor
 
-# Router: the fused kernel for M ≤ fused_max_m(x.dtype) rows,
-# dequantize-then-matmul above; chip_smoke.py's router phase times both at
-# 1,024-16,384 rows at the QKV and FFN-up shapes and logs the threshold its
-# measurement gives (PERF.md). On an NVIDIA H100 80GB HBM3 at 700 W the
-# bf16 kernel beat the plain branch at every M measured, by more than 4x
-# at 16,384 rows, so FUSED_MAX_M is the largest M measured. So did the
-# f32 instance (the six-product split on the tensor cores) against the
-# plain branch's f32 cuBLAS GEMM, at both shapes at every M measured (by
-# 13% and more at 16,384 rows), so FUSED_MAX_M_F32 is the largest M
-# measured too. They are kept apart because each follows its own
-# measurement: the f32 instance's first design (CUDA cores) lost at every
-# M.
-FUSED_MAX_M = 16384
+# Router. A CUDA tensor always launches a kernel (or raises), of one of
+# two designs in csrc/q4_matmul.cu, chosen by what the call's shape shows:
+# - bf16 at M >= WGMMA_MIN_M rows with N % 16 == 0: the wgmma instance.
+#   At bulk M the product is bound by operations (bert-base's QKV at M =
+#   8,192: 29 GFLOP, 29 us at 989 TFLOP/s, against 15 us of bytes), and
+#   only wgmma reaches the tensor cores' full rate: persistent blocks whose
+#   consumers dequantize W into wgmma's register operand and store the f32
+#   output by TMA while the next tile's products run.
+# - Below WGMMA_MIN_M, at N % 16 != 0 (no TMA), and for f32: the mma.sync
+#   instances, 64-row tiles, one a block, whose many small blocks suit
+#   small M, where the grid and the per-group latency set the time.
+# chip_smoke.py's router phase times both bf16 designs and the plain
+# version at bert-base's four shapes over M = 128-65,536 and logs the
+# crossover its measurement gives, which WGMMA_MIN_M follows (PERF.md). On
+# an NVIDIA H100 80GB HBM3 at 700 W the wgmma instance won at all four
+# shapes at every M from 512 rows up (at 512, attention-out by 3%, the
+# others by 18-41%; by 2.4-3.0x from 8,192 up) and lost attention-out
+# at 128 and 256 rows, where a few tiles leave most SMs idle. At
+# MiniLM's widths it won at 1,024 rows but attention-out (N = 384), and
+# all four at 2,048.
+# bf16 has no plain branch on the card: fused_max_m(bf16) is BF16_MAX_M,
+# 2**31 - 1 (the kernels' int M), above every M an engine forms.
+# f32 keeps its own: the f32 mma.sync instance (the six-product split on
+# the tensor cores) beat the plain branch's f32 cuBLAS GEMM at both shapes
+# at every M measured, 1,024-16,384 (by 13% and more at 16,384 rows), so
+# FUSED_MAX_M_F32 is the largest M measured; above it an f32 x takes
+# q4_matmul_plain.
+WGMMA_MIN_M = 512
+BF16_MAX_M = 2 ** 31 - 1
 FUSED_MAX_M_F32 = 16384
 
 
@@ -110,14 +126,21 @@ def _check_alignment(x: torch.Tensor, qt: QuantTensor) -> None:
                              f"not {need[name]}-byte aligned")
 
 
-def _launch(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+# the C entry point of each (dtype, instance)
+_ENTRY = {(torch.float32, "mma"): "q4_matmul_f32",
+          (torch.bfloat16, "mma"): "q4_matmul_bf16",
+          (torch.bfloat16, "wgmma"): "q4_matmul_bf16_wgmma"}
+
+
+def _launch(x: torch.Tensor, qt: QuantTensor, instance: str = "mma"
+            ) -> torch.Tensor:
     m, k = x.shape
     n = qt.packed.shape[-1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
     _check_alignment(x, qt)
-    fn = "q4_matmul_f32" if x.dtype == torch.float32 else "q4_matmul_bf16"
+    fn = _ENTRY[x.dtype, instance]
     lib = _kernels.library("q4_matmul")
     with torch.cuda.device(x.device):
         rc = getattr(lib, fn)(
@@ -126,29 +149,55 @@ def _launch(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
             m, k, n, _kernels.stream_of(x))
     _kernels.check(rc, fn)
     q4_matmul.launches += 1
+    if instance == "wgmma":
+        q4_matmul.wgmma.launches += 1
     return out
+
+
+def route(m: int, n: int, dtype: torch.dtype, device_type: str) -> str:
+    """Where ``q4_matmul`` sends x[m, K] of ``dtype`` on ``device_type``
+    against a weight of N = ``n`` columns: ``"plain"``
+    (:func:`q4_matmul_plain`), ``"mma"`` (the mma.sync instances) or
+    ``"wgmma"`` (the bulk-M bf16 instance); the router's comment says
+    why."""
+    if device_type == "cpu" or m > fused_max_m(dtype):
+        return "plain"
+    if dtype == torch.bfloat16 and m >= WGMMA_MIN_M and n % 16 == 0:
+        return "wgmma"
+    return "mma"
 
 
 def q4_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """``x[M, K] @ dequant(qt)[K, N] → f32[M, N]``.
 
-    CPU tensors take :func:`q4_matmul_plain`. CUDA tensors with
-    M ≤ :func:`fused_max_m` rows launch the kernel (or raise); larger M
-    takes the router's other branch, dequantize-then-matmul, as the JAX
-    package sends it to XLA's dot."""
+    CPU tensors take :func:`q4_matmul_plain`. CUDA tensors launch a kernel
+    (or raise), the instance :func:`route` picks; only an f32 x of more
+    than :func:`fused_max_m` rows takes the router's other branch,
+    dequantize-then-matmul, as the JAX package sends it to XLA's dot."""
     if x.device.type == "cpu":
         return q4_matmul_plain(x, qt)
     if x.device.type != "cuda":
         raise ValueError(f"q4_matmul: unsupported device {x.device}")
     _check_operands(x, qt)
-    if x.shape[0] > fused_max_m(x.dtype):
+    where = route(x.shape[0], qt.packed.shape[-1], x.dtype, "cuda")
+    if where == "plain":
         return q4_matmul_plain(x, qt)
-    return _launch(x, qt)
+    return _launch(x, qt, where)
 
 
 def fused_max_m(dtype: torch.dtype) -> int:
-    """The router's threshold for x of ``dtype``."""
-    return FUSED_MAX_M if dtype == torch.bfloat16 else FUSED_MAX_M_F32
+    """The most rows a CUDA x of ``dtype`` takes to a kernel."""
+    return BF16_MAX_M if dtype == torch.bfloat16 else FUSED_MAX_M_F32
+
+
+class _Count:
+    """The launches of one instance, kept as the wrappers keep theirs
+    (``.launches``, which the engine's CUDA graphs add at each replay)."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
 
 
 q4_matmul.launches = 0  # kernel launches, counted where they happen
+q4_matmul.wgmma = _Count("q4_matmul.wgmma")  # of them, the wgmma instance's

@@ -14,8 +14,15 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    masked rows), in f32 and bf16, and times kernel, plain version and
    (where one PyTorch call computes the same function) that call at every
    shape of the main path: device time from CUDA-graph replay between CUDA
-   events, and the kernel's eager time beside it; times the q4 kernel
-   against the router's dequantize-then-matmul branch at large M; holds
+   events, and the kernel's eager time beside it; holds q4_matmul's
+   wgmma instance (bulk-M bf16) at bert-base's shapes at M = 8,192 and
+   32,768 and at ragged edges, Q4_0 and Q4_1, under graph replay, against
+   the plain version and bit for bit the mma.sync instance, and times it
+   beside its bound, the mma.sync instance, the plain version and cuBLAS
+   bf16; sweeps the q4 router (bf16: both instances and the plain version
+   at bert-base's shapes, M = 512-65,536; f32: kernel against plain, M =
+   1,024-16,384) and checks that bf16 past 16,384 rows launches one wgmma
+   kernel and f32 takes the plain branch; holds
    the LayerNorm at the paths' shapes, at M = 1, at D = 129, 130, 1,280
    and 4,096 and in its f32-input form (timed beside F.layer_norm and
    beside cast + kernel); holds the per-(batch, head) attention at ragged
@@ -28,16 +35,18 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    rubert-tiny2's 2,048 bucket and the wide-head instance's 2x2x100 and
    4x8x512 at d_head 256 (each with the kernel's and the plain version's
    max|Δ| against an f64 product; the per-(batch, head) attention's bf16
-   rows too); the router's sweep reports the threshold its measurement
-   gives in each dtype. A kernel whose ptxas report shows a spill fails
-   the build step;
+   rows too); the router's sweep reports the crossover (bf16) and the
+   threshold (f32) its measurement gives. A kernel whose ptxas report
+   shows a spill fails the build step;
 3. main path: writes a MiniLM-L6 Q4_0 ggml file from seed 0, loads it with
    ``BertTorch.from_file(path)`` (the card, bf16) and answers a few
    mixed-length ``encode_batch`` requests — packed short sentences,
    bucketed sentences over 64 tokens, one of 512 tokens — with every
    kernel's launch count set to 0 just before and read just after; fails
    if a kernel of the path was not launched, or if the per-(batch, head)
-   attention kernel was (d_head 32 takes the fused kernel); profiles one
+   attention kernel was (d_head 32 takes the fused kernel), or if the q4
+   products' wgmma launches are not what the route gives for the batches'
+   M; profiles one
    more request (device busy, the LayerNorm's time, the f32 -> bf16
    casts) and times its q4_matmul and attention calls bucket by bucket;
    fails unless the LayerNorm launched 2L + 1 times a batch; checks the
@@ -439,52 +448,107 @@ def q4_f32_timing(dev, rng):
     return rows
 
 
+BERT_BASE_Q4 = ((768, 2304, "QKV"), (768, 768, "attention-out"),
+                (768, 3072, "FFN-up"), (3072, 768, "FFN-down"))
+
+
 def router_phase(dev, rng):
-    """The q4 router's threshold on this card: the kernel against the
-    plain dequantize-then-matmul at large M, at the QKV and FFN-up shapes,
-    in bf16 (the card's compute type) and in f32."""
+    """The q4 router's crossovers on this card. bf16: the wgmma instance
+    against the mma.sync instance and the plain dequantize-then-matmul, at
+    bert-base's four shapes over M = 512-65,536 (65,536 = 128 x 512, the
+    largest batch at max_batch 128); the crossover is the smallest M from
+    which the wgmma instance wins at all four shapes at every M measured
+    above it, which WGMMA_MIN_M follows. f32: the kernel against the plain
+    branch at MiniLM's QKV and FFN-up shapes, M = 1,024-16,384, which
+    FUSED_MAX_M_F32 follows. Device time by graph replay."""
     import numpy as np
     import torch
 
     from bert_tpu_torch.ops import q4_matmul as Q
 
-    log("q4_matmul router: kernel vs dequantize-then-matmul (graph replay)")
+    log("q4_matmul router, bf16: wgmma vs mma.sync instance vs "
+        "dequantize-then-matmul at bert-base widths (graph replay)")
     rows = []
+    for m in (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536):
+        for (k, n, what) in BERT_BASE_Q4:
+            qd = q4_weights(rng, k, n, 2, dev)
+            x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+                np.float32)).to(dev).to(torch.bfloat16)
+            r = dict(M=m, K=k, N=n, what=what, dtype="bf16",
+                     wgmma_ms=time_ms(lambda: Q._launch(x, qd, "wgmma"),
+                                      10, 5),
+                     mma_ms=time_ms(lambda: Q._launch(x, qd, "mma"), 10, 5),
+                     plain_ms=time_ms(lambda: Q.q4_matmul_plain(x, qd), 3, 3),
+                     bound_ms=bound(m * k * 2 + k // 2 * n + k // 32 * n * 4
+                                    + m * n * 2, 2.0 * m * n * k, "bf16")[0])
+            log(f"  M={m} K={k} N={n} ({what}) bf16: wgmma "
+                f"{r['wgmma_ms']:.5f} ms, mma.sync {r['mma_ms']:.5f}, plain "
+                f"{r['plain_ms']:.5f}, bound {r['bound_ms']:.5f}")
+            rows.append(r)
+            del x
+        torch.cuda.synchronize()
+    ms = sorted({r["M"] for r in rows})
+    wins = [m for m in ms if all(r["wgmma_ms"] < r["mma_ms"] for r in rows
+                                 if r["M"] == m and r["K"] in (768, 3072))]
+    crossover = None
+    for m in reversed(ms):
+        if m not in wins:
+            break
+        crossover = m
+    log(f"  bf16: the wgmma instance wins at all four shapes for M in "
+        f"{wins}; crossover by this run: {crossover} (WGMMA_MIN_M = "
+        f"{Q.WGMMA_MIN_M}); the plain branch is slower than the route at "
+        f"every M measured: "
+        f"{all(r['plain_ms'] > min(r['wgmma_ms'], r['mma_ms']) for r in rows)}")
+    # MiniLM's shapes, for the record: which instance the route gives there
+    for m in (128, 256, 512, 1024, 2048):
+        for (k, n, what) in ((384, 1152, "QKV"), (384, 384, "attention-out"),
+                             (384, 1536, "FFN-up"), (1536, 384, "FFN-down")):
+            qd = q4_weights(rng, k, n, 2, dev)
+            x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+                np.float32)).to(dev).to(torch.bfloat16)
+            r = dict(M=m, K=k, N=n, what="MiniLM " + what, dtype="bf16",
+                     wgmma_ms=time_ms(lambda: Q._launch(x, qd, "wgmma"),
+                                      10, 5),
+                     mma_ms=time_ms(lambda: Q._launch(x, qd, "mma"), 10, 5))
+            log(f"  M={m} K={k} N={n} (MiniLM {what}) bf16: wgmma "
+                f"{r['wgmma_ms']:.5f} ms, mma.sync {r['mma_ms']:.5f}; the "
+                f"route takes {Q.route(m, n, torch.bfloat16, 'cuda')}")
+            rows.append(r)
+            del x
+
+    log("q4_matmul router, f32: kernel vs dequantize-then-matmul "
+        "(graph replay)")
+    rows32 = []
     for m in (1024, 2048, 4096, 8192, 16384):
         for (k, n, what) in ((384, 1152, "QKV"), (384, 1536, "FFN-up")):
             qd = q4_weights(rng, k, n, 2, dev)
-            x32 = torch.from_numpy(
+            x = torch.from_numpy(
                 rng.standard_normal((m, k)).astype(np.float32)).to(dev)
-            for dn, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-                x = x32.to(dt)
-                r = dict(M=m, K=k, N=n, what=what, dtype=dn,
-                         kernel_ms=time_ms(lambda: Q._launch(x, qd), 10, 5),
-                         plain_ms=time_ms(lambda: Q.q4_matmul_plain(x, qd),
-                                          10, 5))
-                log(f"  M={m} K={k} N={n} ({what}) {dn}: kernel "
-                    f"{r['kernel_ms']:.5f} ms, plain {r['plain_ms']:.5f}")
-                rows.append(r)
-            del x, x32
+            r = dict(M=m, K=k, N=n, what=what, dtype="f32",
+                     kernel_ms=time_ms(lambda: Q._launch(x, qd), 10, 5),
+                     plain_ms=time_ms(lambda: Q.q4_matmul_plain(x, qd),
+                                      10, 5))
+            log(f"  M={m} K={k} N={n} ({what}) f32: kernel "
+                f"{r['kernel_ms']:.5f} ms, plain {r['plain_ms']:.5f}")
+            rows32.append(r)
+            del x
             torch.cuda.synchronize()
-    measured = {}
-    for dn in ("bf16", "f32"):
-        ms = sorted({r["M"] for r in rows})
-        wins = [m for m in ms
-                if all(r["kernel_ms"] < r["plain_ms"] for r in rows
-                       if r["M"] == m and r["dtype"] == dn)]
-        # the largest M up to which the kernel wins at every M measured
-        # (the largest measured where it wins at all of them); None where
-        # it loses at the smallest
-        measured[dn] = None
-        for m in ms:
-            if m not in wins:
-                break
-            measured[dn] = m
-        log(f"  {dn}: the kernel wins at both shapes for M in {wins}; "
-            f"threshold by this run: {measured[dn]} (FUSED_MAX_M = "
-            f"{Q.FUSED_MAX_M}, f32: {Q.FUSED_MAX_M_F32})")
-    return {"rows": rows, "measured_max_m": measured,
-            "FUSED_MAX_M": Q.FUSED_MAX_M,
+    ms32 = sorted({r["M"] for r in rows32})
+    wins32 = [m for m in ms32 if all(r["kernel_ms"] < r["plain_ms"]
+                                     for r in rows32 if r["M"] == m)]
+    # the largest M up to which the kernel wins at every M measured (None
+    # where it loses at the smallest)
+    measured32 = None
+    for m in ms32:
+        if m not in wins32:
+            break
+        measured32 = m
+    log(f"  f32: the kernel wins at both shapes for M in {wins32}; "
+        f"threshold by this run: {measured32} (FUSED_MAX_M_F32 = "
+        f"{Q.FUSED_MAX_M_F32})")
+    return {"rows": rows + rows32, "wgmma_crossover": crossover,
+            "measured_max_m_f32": measured32, "WGMMA_MIN_M": Q.WGMMA_MIN_M,
             "FUSED_MAX_M_F32": Q.FUSED_MAX_M_F32}
 
 
@@ -575,24 +639,116 @@ def kernel_phase(dev, rng):
         timed_shapes=timed, timed_shapes_f32=timed_f32,
         router=router_phase(dev, rng))
 
-    # the router's other branch: M > fused_max_m(dtype) rows take the
-    # plain dequantize-then-matmul on the card, and launch no kernel
+    # the router's other branch. f32: M > fused_max_m(f32) rows take the
+    # plain dequantize-then-matmul on the card and launch no kernel. bf16
+    # has no other branch: above that M, and at 65,544 rows (past the
+    # largest batch), it launches the wgmma instance once, within the bf16
+    # kernel's tolerance of the plain version
     k, n = 384, 1536
     qd = q4_weights(rng, k, n, 2, dev)
-    for dt in (torch.bfloat16, torch.float32):
-        m = Q.fused_max_m(dt) + 8
+    for dt, m in ((torch.bfloat16, Q.FUSED_MAX_M_F32 + 8),
+                  (torch.bfloat16, 65544), (torch.float32,
+                                            Q.fused_max_m(torch.float32) + 8)):
         x = t(rng.standard_normal((m, k)).astype(np.float32), dt)
-        before = Q.q4_matmul.launches
+        before = (Q.q4_matmul.launches, Q.q4_matmul.wgmma.launches)
         routed = Q.q4_matmul(x, qd)
+        plain = Q.q4_matmul_plain(x, qd)
         torch.cuda.synchronize()
-        # same computation twice; 1e-5 only allows cuBLAS another reduction
-        require(Q.q4_matmul.launches == before
-                and torch.allclose(routed, Q.q4_matmul_plain(x, qd),
-                                   atol=1e-5, rtol=1e-5),
-                f"q4_matmul router: M={m} {dt} did not take the plain branch")
-        log(f"  ok  q4_matmul router     M={m} > {Q.fused_max_m(dt)} "
-            f"{dt} took dequantize-then-matmul (no launch)")
-        del routed, x
+        ran = (Q.q4_matmul.launches - before[0],
+               Q.q4_matmul.wgmma.launches - before[1])
+        if dt == torch.float32:
+            # same computation twice; 1e-5 only allows cuBLAS another
+            # reduction
+            require(ran == (0, 0) and torch.allclose(routed, plain,
+                                                     atol=1e-5, rtol=1e-5),
+                    f"q4_matmul router: M={m} {dt} did not take the plain "
+                    f"branch")
+            log(f"  ok  q4_matmul router     M={m} > {Q.fused_max_m(dt)} "
+                f"{dt} took dequantize-then-matmul (no launch)")
+        else:
+            require(ran == (1, 1), f"q4_matmul router: M={m} {dt} launched "
+                    f"{ran} (all, wgmma), not one wgmma instance")
+            errs["bf16"] = max(errs["bf16"], compare(
+                "q4_matmul", routed, plain, "bf16",
+                f"router M={m} bf16: one wgmma launch"))
+        del routed, plain, x
+
+    # -- kernel 1b: the wgmma instance (bulk-M bf16) ------------------------
+    # against the plain version and, bit for bit, the mma.sync instance (the
+    # same products, each output summed in the same order), under graph
+    # replay; two replays on the same input bit for bit; one launch by
+    # instance; at bert-base's shapes at M = 8,192 and 32,768, ragged edges
+    log("kernel 1b: q4_matmul's wgmma instance (bf16, graph replay)")
+    wg_shapes = [(m, k, n, what) for m in (8192, 32768)
+                 for (k, n, what) in BERT_BASE_Q4]
+    wg_shapes += [(8192 + 37, 768, 784, "ragged M and N"),
+                  (300, 3072, 784, "ragged, K 3,072"),
+                  (4100, 768, 144, "N 144, a half-tile tail"),
+                  (1, 64, 16, "one row")]
+    for (m, k, n, what) in wg_shapes:
+        for ftype in (2, 3):
+            qd = q4_weights(rng, k, n, ftype, dev)
+            x = t(rng.standard_normal((m, k)).astype(np.float32),
+                  torch.bfloat16)
+            label = f"M,K,N={m},{k},{n} q4_{ftype - 2} bf16 ({what})"
+            before = (Q.q4_matmul.launches, Q.q4_matmul.wgmma.launches)
+            eager = Q._launch(x, qd, "wgmma")
+            require((Q.q4_matmul.launches - before[0],
+                     Q.q4_matmul.wgmma.launches - before[1]) == (1, 1),
+                    f"q4_matmul wgmma {label}: not one launch by instance")
+            if Q.route(m, n, torch.bfloat16, "cuda") == "wgmma":
+                before = Q.q4_matmul.wgmma.launches
+                routed = Q.q4_matmul(x, qd)
+                require(Q.q4_matmul.wgmma.launches == before + 1
+                        and torch.equal(routed, eager),
+                        f"q4_matmul {label}: the wrapper did not launch the "
+                        f"wgmma instance")
+                del routed
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = Q._launch(x, qd, "wgmma")
+            graph.replay()
+            torch.cuda.synchronize()
+            first = replayed.clone()
+            graph.replay()
+            torch.cuda.synchronize()
+            require(torch.equal(first, replayed)
+                    and torch.equal(first, eager),
+                    f"q4_matmul wgmma {label}: two calls differ")
+            require(torch.equal(first, Q._launch(x, qd, "mma")),
+                    f"q4_matmul wgmma {label}: not the mma.sync instance's "
+                    f"bits")
+            errs["bf16"] = max(errs["bf16"], compare(
+                "q4_matmul", first, Q.q4_matmul_plain(x, qd), "bf16",
+                f"wgmma {label}"))
+            del graph, replayed, first, eager, x
+            torch.cuda.synchronize()
+    timed_wg = []
+    for m in (8192, 32768):
+        for (k, n, what) in BERT_BASE_Q4:
+            qd = q4_weights(rng, k, n, 2, dev)
+            x = t(rng.standard_normal((m, k)).astype(np.float32),
+                  torch.bfloat16)
+            w_dense = Q.q4_dequantize(qd, torch.bfloat16)
+            b_ms, b_by = bound(m * k * 2 + k // 2 * n + k // 32 * n * 4
+                               + m * n * 4, 2.0 * m * n * k, "bf16")
+            r = dict(shape=f"M={m} K={k} N={n} q4_0 bf16 ({what})",
+                     ms=time_ms(lambda: Q._launch(x, qd, "wgmma")),
+                     eager_ms=eager_ms(lambda: Q._launch(x, qd, "wgmma")),
+                     mma_ms=time_ms(lambda: Q._launch(x, qd, "mma")),
+                     plain_ms=time_ms(lambda: Q.q4_matmul_plain(x, qd), 3, 3),
+                     dense_bf16_matmul_ms=time_ms(
+                         lambda: torch.matmul(x, w_dense)),
+                     bound_ms=b_ms, bound_by=b_by)
+            log(f"  {r['shape']}: wgmma {r['ms']:.5f} ms (eager "
+                f"{r['eager_ms']:.5f}), mma.sync {r['mma_ms']:.5f}, plain "
+                f"{r['plain_ms']:.5f}, cuBLAS dense bf16 "
+                f"{r['dense_bf16_matmul_ms']:.5f}, bound {b_ms:.5f} "
+                f"({b_by}; {100 * b_ms / r['ms']:.1f}% of it)")
+            timed_wg.append(r)
+            del x, w_dense
+    results["q4_matmul"].update(max_abs_err=errs["bf16"],
+                                timed_shapes_wgmma=timed_wg)
 
     # -- kernel 3: fused QKV attention -------------------------------------
     log("kernel 3: fused_qkv_attention")
@@ -1375,7 +1531,8 @@ def graphs_phase(model, label: str, request, prof, timed: dict,
 
 # each counter's kernels in a profile: a name holds all of a tuple's parts
 PROFILE_NAMES = {
-    "q4_matmul": (("q4_matmul_kernel",),),
+    "q4_matmul": (("q4_matmul_kernel",), ("q4_matmul_wgmma_kernel",)),
+    "q4_matmul.wgmma": (("q4_matmul_wgmma_kernel",),),
     "fused_layer_norm": (("ln_rows_kernel", ", false>("),
                          ("ln_block_kernel", ", false>(")),
     "fused_layer_norm_codes": (("ln_rows_kernel", ", true>("),
@@ -1437,12 +1594,35 @@ def kernels_agree_with_counters(model, label: str, request, prof) -> None:
             f"{seen} are not the counters' {counted}")
 
 
+def q4_instances(model, batches0: dict, per_batch: int, label: str) -> None:
+    """The q4 products' instances since ``batches0`` (bucket counts) and the
+    wgmma counter set to 0: each batch of M = rows x T launches
+    ``per_batch`` products, on the wgmma instance where the route says so
+    (every weight's N here is a multiple of 16)."""
+    import torch
+
+    from bert_tpu_torch.ops import q4_matmul as Q
+
+    want = 0
+    for key, n in model.timers.bucket_counts.items():
+        rows, seq = key[0], key[1]  # (rows, T, kind)
+        if Q.route(rows * seq, 16, torch.bfloat16, "cuda") == "wgmma":
+            want += (n - batches0.get(key, 0)) * per_batch
+    got = Q.q4_matmul.wgmma.launches
+    log(f"{label}: q4_matmul instances: mma.sync "
+        f"{Q.q4_matmul.launches - got}, wgmma {got} (by the route at "
+        f"WGMMA_MIN_M = {Q.WGMMA_MIN_M}: {want} wgmma)")
+    require(got == want, f"{label}: {got} wgmma launches, the route gives "
+            f"{want}")
+
+
 def main_path(dev, rng, counters):
     import numpy as np
     import torch
 
     from bert_tpu_torch import BertTorch
     from bert_tpu_torch.formats import GgmlHParams, write_ggml
+    from bert_tpu_torch.ops.q4_matmul import q4_matmul
     from bert_tpu_torch.params import BertConfig, random_named_tensors
 
     cfg = BertConfig(**MINILM_L6)
@@ -1490,12 +1670,14 @@ def main_path(dev, rng, counters):
     timed = timed_start(model)
     for c in counters:
         c.launches = 0
+    q4_matmul.wgmma.launches = 0
     outs, lat = [], []
     for r in requests:
         t0 = time.perf_counter()
         outs.append(model.encode_batch(r))  # returns after the host copy
         lat.append(time.perf_counter() - t0)
     launches = {c.__name__: c.launches for c in counters}
+    q4_instances(model, batches0, 4 * cfg.n_layer, "main path")
     timed_end(model, timed, lat, sum(len(r) for r in requests))
     # d_head 32 takes the fused kernel: the per-(b, h) one must stay idle
     require(launches.pop("multi_head_attention") == 0,
@@ -3688,7 +3870,7 @@ def _launch_spies():
         mod._launch = recording
 
     spy(q4_matmul, "q4_matmul",
-        lambda x, qt: (x.shape[1], qt.packed.shape[-1]))
+        lambda x, qt, *instance: (x.shape[1], qt.packed.shape[-1]))
     spy(fused_attention, "fused_qkv_attention", lambda *a: a[2])
     spy(attention, "multi_head_attention", lambda q, *a: q.shape[1])
     return seen

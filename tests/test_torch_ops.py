@@ -43,11 +43,14 @@ from bert_tpu_torch.ops.layer_norm import (
     vector_width,
 )
 from bert_tpu_torch.ops.q4_matmul import (
+    FUSED_MAX_M_F32,
+    WGMMA_MIN_M,
     _check_alignment as _check_q4_alignment,
     load_alignment,
     fused_max_m,
     q4_matmul,
     q4_matmul_plain,
+    route,
 )
 from bert_tpu_torch.quant import QuantTensor
 
@@ -137,6 +140,37 @@ def test_q4_router_keeps_every_path_shape_on_the_kernel(dtype):
     # kernel checks go up to 2,048 (M=2048 K=1024 N=4096) in both dtypes
     assert fused_max_m(dtype) >= 2048
     assert fused_max_m(torch.bfloat16) >= fused_max_m(torch.float32)
+
+
+def test_q4_router_sends_every_bf16_batch_to_a_kernel():
+    # 65,536 = 128 rows x 512 tokens, the largest batch at max_batch 128
+    # (gpubench's roofline reader takes fused_max_m as the kernel's range)
+    assert fused_max_m(torch.bfloat16) >= 65536
+
+
+@pytest.mark.parametrize("m, n, dtype, device, want", [
+    (WGMMA_MIN_M - 1, 768, torch.bfloat16, "cuda", "mma"),
+    (WGMMA_MIN_M, 768, torch.bfloat16, "cuda", "wgmma"),
+    (65536, 2304, torch.bfloat16, "cuda", "wgmma"),
+    (FUSED_MAX_M_F32 + 1, 3072, torch.bfloat16, "cuda", "wgmma"),
+    (1, 768, torch.bfloat16, "cuda", "mma"),
+    (65536, 200, torch.bfloat16, "cuda", "mma"),  # N % 16 != 0: no TMA
+    (WGMMA_MIN_M, 8, torch.bfloat16, "cuda", "mma"),
+    (WGMMA_MIN_M, 16, torch.bfloat16, "cuda", "wgmma"),
+    (FUSED_MAX_M_F32, 768, torch.float32, "cuda", "mma"),
+    (FUSED_MAX_M_F32 + 1, 768, torch.float32, "cuda", "plain"),
+    (65536, 768, torch.float32, "cuda", "plain"),
+    (WGMMA_MIN_M, 768, torch.float32, "cuda", "mma"),
+    (1, 768, torch.bfloat16, "cpu", "plain"),
+    (65536, 768, torch.bfloat16, "cpu", "plain"),
+    (16, 768, torch.float32, "cpu", "plain"),
+], ids=["bf16-below-crossover", "bf16-at-crossover", "bf16-largest-batch",
+        "bf16-past-f32-threshold", "bf16-one-row", "bf16-ragged-n",
+        "bf16-n8", "bf16-n16", "f32-at-threshold", "f32-past-threshold",
+        "f32-largest-batch", "f32-at-crossover", "cpu-bf16-one-row",
+        "cpu-bf16-largest", "cpu-f32"])
+def test_q4_route(m, n, dtype, device, want):
+    assert route(m, n, dtype, device) == want
 
 
 @pytest.mark.parametrize("n, want", [
