@@ -1,6 +1,7 @@
-"""Host time of the engine's dispatch phase (routing, padding or packing,
-staging, replay, queuing the copy) per sentence over the window:
-``stats()["phases"]["dispatch"]``."""
+"""Host time of the engine's dispatch phase (each batch's padding or
+packing, staging, replay, queuing the copy) per sentence over the window:
+``stats()["phases"]["dispatch"]``. Routing is outside it:
+``route_us_per_sentence.bulk``."""
 
 from gpubench.readers import us_per_text
 

@@ -5,9 +5,11 @@
   traffic/<mix>.json        a traffic mix: its loop and parameters
   limits/<workload>.json    a cell's correctness limits and their readings
   metrics/<metric>.py       a per-layer metric's reader
+  archs/<architecture>.py   an architecture: its weights' draw, its model
+                            file and its plain reference
 
-A later change adds a configuration, a mix, a cell or a metric by adding
-files and entries; nothing here lists them.
+A later change adds a configuration, a mix, a cell, a metric or an
+architecture by adding files and entries; nothing here lists them.
 """
 
 from __future__ import annotations
@@ -38,14 +40,26 @@ class Registry:
     def limits(self, workload: str) -> dict:
         return self._json("limits", workload)
 
-    def metric(self, name: str):
-        """The reader module of a per-layer metric (``read(ctx)``)."""
-        path = os.path.join(self.root, "metrics", f"{name}.py")
+    def _module(self, kind: str, name: str):
+        path = os.path.join(self.root, kind, f"{name}.py")
         spec = importlib.util.spec_from_file_location(
-            f"gpubench_metric_{name.replace('.', '_')}", path)
+            f"gpubench_{kind}_{name.replace('.', '_')}", path)
         module = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(module)
         return module
+
+    def metric(self, name: str):
+        """The reader module of a per-layer metric (``read(ctx)``)."""
+        return self._module("metrics", name)
+
+    def arch(self, name: str):
+        """The module of an architecture: ``draw(cfg, seed, device)``, the
+        weights; ``write(directory, cfg, vocab, weights) -> (path, bytes)``,
+        what ``BertTorch.from_file`` loads (a file or a checkpoint
+        directory); ``Reference(weights, cfg, device, precision)`` with
+        ``embed(token_lists)``, the plain reference (``precision`` "f32"
+        or "fp8")."""
+        return self._module("archs", name)
 
 
 def load_benchmark(path: str = os.path.join(CHECKOUT, "BENCHMARK.json")

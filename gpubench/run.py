@@ -3,12 +3,14 @@
     python3 -m gpubench --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 It reads ``BENCHMARK.json`` at the checkout's root, finds the cell's
-configuration, traffic mix, limits and metrics by name (registry.py),
-draws the weights and the traffic from the seed, sets up the program
-(``bert_tpu_torch.BertTorch.from_file`` on a ggml file it writes, and the
-shapes its traffic uses), measures for ``--seconds`` seconds, frees the
-program, checks what the timed path produced against the plain reference
-(reference/), and prints one JSON line last on standard output. With
+configuration, traffic mix, limits and metrics by name, and the
+configuration's architecture (``architecture``, else ``bert``) by its name
+(registry.py), draws the weights and the traffic from the seed, sets up the
+program (``bert_tpu_torch.BertTorch.from_file`` on the model file the
+architecture writes, and the shapes its traffic uses), measures for
+``--seconds`` seconds, frees the program, checks what the timed path
+produced against the architecture's plain reference, and prints one JSON
+line last on standard output. With
 ``--trace 1`` it reports the cell's per-layer metrics from a device trace
 of the window instead of its end-to-end metrics.
 
@@ -34,13 +36,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from . import corpus as corpus_mod
-from . import generate, weights
+from . import generate
 from .registry import (CHECKOUT, Registry, load_benchmark, metrics_for,
                        workload)
 
 # stands for a number that could not be read (JSON has no infinity)
 NO_NUMBER = 1e9
 FORBIDDEN = ("jax", "jaxlib", "flax", "bert_tpu")
+# the architecture of a configuration that names none
+DEFAULT_ARCH = "bert"
 CACHE_DIRS = {"TRITON_CACHE_DIR": "triton", "TORCH_EXTENSIONS_DIR":
               "torch_extensions", "CUDA_CACHE_PATH": "cuda_cache"}
 
@@ -72,6 +76,7 @@ class Cell:
     t_start: float                      # process start, monotonic
     engine_overrides: dict = field(default_factory=dict)
     # set by the run
+    arch: object = None                 # the architecture's module
     corpus: object = None
     t_window: Optional[float] = None    # monotonic start of the window
     notes: Dict[str, object] = field(default_factory=dict)
@@ -101,19 +106,18 @@ def engine_kwargs(cell: Cell) -> dict:
 
 
 def build_engine(cell: Cell):
-    """Draw the weights on the device, write them as a ggml Q4_0 file under
-    TMPDIR, and load it through the user's entry."""
+    """Draw the weights on the device, write them as the architecture's
+    model file under TMPDIR, and load it through the user's entry."""
     import torch
     from bert_tpu_torch import BertTorch
 
     if cell.engine is not None:
         return cell.engine
     t = time.monotonic()
-    w = weights.draw(cell.cfg, cell.weight_seed(), cell.device)
+    w = cell.arch.draw(cell.cfg, cell.weight_seed(), cell.device)
     with tempfile.TemporaryDirectory(prefix="gpubench-") as d:
-        path = os.path.join(d, "model.bin")
-        cell.notes["model_file_bytes"] = weights.write_ggml(
-            path, cell.cfg, cell.corpus.vocab, w)
+        path, cell.notes["model_file_bytes"] = cell.arch.write(
+            d, cell.cfg, cell.corpus.vocab, w)
         del w
         if cell.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -206,12 +210,11 @@ def compare(cell: Cell, answers: List[Tuple[str, np.ndarray]]
 
 def reference_embeddings(cell: Cell, texts: List[str],
                          precision: str = "f32") -> np.ndarray:
-    """The plain reference's embeddings of ``texts``, from its own
-    tokenizer and its own dequantization of the seed's weights."""
-    from .reference.bert import Reference
-
-    ref = Reference(weights.draw(cell.cfg, cell.weight_seed(), cell.device),
-                    cell.cfg, cell.device, precision=precision)
+    """The architecture's plain reference's embeddings of ``texts``, from
+    its own tokenizer and its own reading of the seed's weights."""
+    ref = cell.arch.Reference(
+        cell.arch.draw(cell.cfg, cell.weight_seed(), cell.device), cell.cfg,
+        cell.device, precision=precision)
     tok = cell.corpus.tokenizer()
     emb = ref.embed([tok(text, cell.cap) for text in texts])
     out = emb.cpu().numpy().astype(np.float64)
@@ -255,12 +258,14 @@ def make_cell(bench: dict, name: str, seed: int, seconds: float,
 
     w = workload(bench, name)
     mix = dict(registry.traffic(w["traffic"]), **(mix_overrides or {}))
-    cell = Cell(name=name, cfg=registry.config(w["config"]), mix=mix,
+    cfg = registry.config(w["config"])
+    cell = Cell(name=name, cfg=cfg, mix=mix,
                 limits=registry.limits(name), seed=seed, seconds=seconds,
                 trace=trace, device=torch.device(device), t_start=t_start,
                 engine_overrides=engine_overrides or {},
                 **kw)
-    cell.corpus = corpus_mod.load()
+    cell.arch = registry.arch(cfg.get("architecture", DEFAULT_ARCH))
+    cell.corpus = corpus_mod.load(cfg)
     return cell
 
 

@@ -64,11 +64,12 @@ def tiny_config(dtype="float32"):
 
 def write_root(root):
     """A registry root: the tiny configuration, the small mixes and their
-    limits, and a copy of the package's metric readers."""
+    limits, and a copy of the package's metric readers and
+    architectures."""
     for d in ("configs", "traffic", "limits"):
         os.makedirs(os.path.join(root, d), exist_ok=True)
-    shutil.copytree(os.path.join(PKG, "metrics"),
-                    os.path.join(root, "metrics"))
+    for d in ("metrics", "archs"):
+        shutil.copytree(os.path.join(PKG, d), os.path.join(root, d))
     with open(os.path.join(root, "configs", "tiny.json"), "w") as f:
         json.dump(tiny_config(), f)
     for name, mix in MIXES.items():
@@ -98,10 +99,28 @@ SERVE_LAYERS = [
          "latency_p50_ms"))]
 
 
-def tiny_bench():
-    """BENCHMARK.json with the tiny cells in place of the card's, and the
-    serving metrics for the tiny serving cell."""
+def parked_cells():
+    """The cells taken out of BENCHMARK.json whose entries ``parked/``
+    keeps."""
+    return sorted(n[:-len(".json")] for n in os.listdir(
+        os.path.join(PKG, "parked")) if n.endswith(".json"))
+
+
+def bench_with(cell):
+    """BENCHMARK.json with the parked cell ``cell`` put back: its workload
+    and the metrics that only it reports, as they stood."""
     bench = copy.deepcopy(load_benchmark())
+    with open(os.path.join(PKG, "parked", f"{cell}.json")) as f:
+        for key, entries in json.load(f).items():
+            bench[key] += entries
+    return bench
+
+
+def tiny_bench():
+    """BENCHMARK.json with the tiny cells in place of the card's, the
+    parked sentence cell's metrics for the tiny sentence cells, and the
+    serving metrics for the tiny serving cell."""
+    bench = bench_with("bert_base_q4_0.sts_stream")
     bench["end_to_end"] += copy.deepcopy(SERVE_E2E)
     bench["per_layer"] += copy.deepcopy(SERVE_LAYERS)
     bench["workloads"] = [{"name": c, "config": "tiny", "traffic": t,

@@ -1,7 +1,7 @@
 """The harness on the CPU's plain path: the lookup by name in a registry
-of its own, a dummy mix and a dummy metric added as new files, the result
-line, the planted faults that ``correct`` has to catch, and the modules a
-run loads."""
+of its own, a dummy mix, a dummy metric and a toy architecture added as
+new files, the result line, the planted faults that ``correct`` has to
+catch, and the modules a run loads."""
 
 import json
 import os
@@ -16,7 +16,8 @@ import pytest
 from gpubench import registry, run
 from gpubench.registry import CHECKOUT, PKG, Registry, load_benchmark
 
-from .conftest import LIMIT, tiny_bench, write_root
+from .conftest import (LIMIT, bench_with, parked_cells, tiny_bench,
+                       tiny_config, write_root)
 
 SEED = 2 ** 31 + 4242
 KEYS = ("correct", "attempted", "failed", "metrics", "device")
@@ -67,6 +68,119 @@ def test_added_mix_and_metric_run_without_editing(tmp_path):
     assert set(r["metrics"]) == {"sentences_per_s", "setup_s"}
 
 
+TOY_ARCH = '''
+"""A toy architecture: bert's pieces, each call noted beside this file."""
+
+import json
+import os
+
+from gpubench.registry import Registry
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+bert = Registry(os.path.dirname(HERE)).arch("bert")
+FLIP = {flip}
+
+
+def note(**kw):
+    with open(os.path.join(HERE, "{name}.calls.jsonl"), "a") as f:
+        f.write(json.dumps(kw) + "\\n")
+
+
+def draw(cfg, seed, device):
+    note(hook="draw", seed=seed)
+    return bert.draw(cfg, seed, device)
+
+
+def write(directory, cfg, vocab, weights):
+    note(hook="write", n_vocab=len(vocab))
+    return bert.write(directory, cfg, vocab, weights)
+
+
+class Reference(bert.Reference):
+    def __init__(self, weights, cfg, device, precision="f32"):
+        note(hook="reference", precision=precision)
+        super().__init__(weights, cfg, device, precision=precision)
+
+    def embed(self, token_lists, **kw):
+        note(hook="embed", first=sorted({{t[0] for t in token_lists}}),
+             last=sorted({{t[-1] for t in token_lists}}))
+        out = super().embed(token_lists, **kw)
+        return -out if FLIP else out
+'''
+# a vocabulary of its own size, not the tiny configuration's 30,522
+TOY_VOCAB = 31000
+
+
+def _toy_root(root, name, flip):
+    """A registry root with the architecture ``name`` (bert's pieces, noted;
+    ``flip``: its reference negates every embedding) and the cell
+    ``tiny.<name>``, a tiny configuration that names it, written as new
+    files; the benchmark with the cell in its rate metric's workloads."""
+    write_root(root)
+    with open(os.path.join(root, "archs", f"{name}.py"), "w") as f:
+        f.write(TOY_ARCH.format(name=name, flip=flip))
+    cfg = dict(tiny_config(), name=name, architecture=name,
+               vocab_size=TOY_VOCAB)
+    with open(os.path.join(root, "configs", f"{name}.json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(root, "limits", f"tiny.{name}.json"), "w") as f:
+        json.dump({"checks": {"emb_gap_max": {"limit": LIMIT},
+                              "unanswered": {"limit": 0}}}, f)
+    bench = tiny_bench()
+    bench["configs"].append({"name": name, "source": "toy",
+                             "file": f"gpubench/configs/{name}.json",
+                             "reduced": [], "why": "toy"})
+    bench["workloads"].append({"name": f"tiny.{name}", "config": name,
+                               "traffic": "tiny_stream", "chips": 1,
+                               "why": "toy"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "sentences_per_s":
+            m["workloads"].append(f"tiny.{name}")
+    return bench, Registry(root)
+
+
+def _calls(root, name):
+    with open(os.path.join(root, "archs", f"{name}.calls.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_added_architecture_runs_without_editing(tmp_path):
+    """A configuration that names a new architecture, and that
+    architecture's module, run as added files: every hook is called, and
+    the configuration's vocabulary size reaches the program (through the
+    model file) and the reference (through the weights' draw)."""
+    root = str(tmp_path)
+    bench, reg = _toy_root(root, "toy", flip=False)
+    seen = {}
+
+    def vocab(engine):
+        seen["n_vocab"] = len(engine.vocab)
+        seen["tokens"] = engine.tokenize("the cat")
+    r = run.execute(bench, "tiny.toy", SEED, 0.3, False, "cpu", reg,
+                    time.monotonic(), engine_hook=vocab)
+    assert r["correct"], r["checks"]
+    assert set(r["metrics"]) == {"sentences_per_s", "setup_s"}
+    calls = _calls(root, "toy")
+    assert [c["hook"] for c in calls] == ["draw", "write", "draw",
+                                          "reference", "embed"]
+    assert calls[1]["n_vocab"] == seen["n_vocab"] == TOY_VOCAB
+    assert seen["tokens"][0] == 101 and seen["tokens"][-1] == 102
+    assert calls[4]["first"] == [101] and calls[4]["last"] == [102]
+    assert calls[3]["precision"] == "f32"
+
+
+def test_added_architecture_reference_is_the_one_used(tmp_path):
+    """A toy architecture whose reference negates every embedding reads
+    ``correct`` false: the cell's reference is its architecture's."""
+    root = str(tmp_path)
+    bench, reg = _toy_root(root, "toy_flipped", flip=True)
+    r = run.execute(bench, "tiny.toy_flipped", SEED, 0.3, False, "cpu",
+                    reg, time.monotonic())
+    assert not r["correct"]
+    assert r["checks"]["emb_gap_max"]["value"] > 1.0
+    assert "embed" in [c["hook"] for c in _calls(root, "toy_flipped")]
+
+
 @pytest.mark.parametrize("cell,trace", [
     ("tiny.sentences", 0), ("tiny.stream", 0), ("tiny.stream", 1),
     ("tiny.passages", 1), ("tiny.queries", 0), ("tiny.queries", 1)])
@@ -81,17 +195,11 @@ def test_result_line(tiny, cell, trace):
     if trace:
         want = {m["name"] for m in registry.metrics_for(
             bench["per_layer"], w)}
-        # device readers read nothing from a CPU run
-        got = set(r["metrics"])
-        assert got <= want
-        assert not {m for m in got if "idle" in m or "roofline" in m
-                    or "mfu" in m}
-        # what the program counts and times is read on the CPU too
-        assert got == {m for m in want if m.split(".")[0] in (
-            "sched_batch_requests", "sched_wait_ms", "batch_eval_ms",
-            "dispatch_us_per_sentence", "tokenize_us_per_sentence",
-            "dispatch_us_per_passage", "tokenize_us_per_passage")}
-        assert got
+        # what the program counts and times is read on the CPU too; the
+        # device's readers read nothing from a CPU run
+        on_cpu = {m for m in want if reg.metric(m).SOURCE in (
+            "program_span", "program_counter")}
+        assert set(r["metrics"]) == on_cpu and on_cpu
     else:
         want = {m["name"] for m in registry.metrics_for(
             bench["end_to_end"], w)}
@@ -202,29 +310,38 @@ def test_forbidden_names_are_whole_top_level_names(monkeypatch):
 def test_no_card_exits_nonzero_without_a_result():
     out = subprocess.run(
         [sys.executable, "-m", "gpubench", "--workload",
-         "bert_base_q4_0.sts_stream", "--seed", "1", "--seconds", "1",
+         "bert_base_q4_0.passage_bulk", "--seed", "1", "--seconds", "1",
          "--trace", "0"], capture_output=True, text=True, cwd=CHECKOUT,
         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), timeout=300)
     assert out.returncode != 0 and out.stdout.strip() == ""
 
 
 def test_benchmark_file_names_existing_files():
-    bench = load_benchmark()
+    """BENCHMARK.json, and it with each parked cell put back, names
+    files that are there; every reader agrees with its entry."""
     reg = Registry()
-    assert set(bench) == {"command", "paths", "run_seconds", "configs",
-                          "workloads", "end_to_end", "per_layer"}
-    names = {c["name"] for c in bench["configs"]}
-    for c in bench["configs"]:
-        cfg = reg.config(c["name"])
-        assert os.path.join(CHECKOUT, c["file"]) == os.path.join(
-            PKG, "configs", c["name"] + ".json")
-        assert cfg["source"] == c["source"] and cfg["reduced"] == []
-    for w in bench["workloads"]:
-        assert w["config"] in names and w["chips"] == 1
-        reg.traffic(w["traffic"])
-        assert set(reg.limits(w["name"])["checks"]) == {"emb_gap_max",
-                                                       "unanswered"}
-    for m in bench["per_layer"]:
+    assert set(load_benchmark()) == {"command", "paths", "run_seconds",
+                                     "configs", "workloads", "end_to_end",
+                                     "per_layer"}
+    assert parked_cells()
+    benches = [load_benchmark()] + [bench_with(c) for c in parked_cells()]
+    for bench in benches:
+        names = {c["name"] for c in bench["configs"]}
+        for c in bench["configs"]:
+            cfg = reg.config(c["name"])
+            assert os.path.join(CHECKOUT, c["file"]) == os.path.join(
+                PKG, "configs", c["name"] + ".json")
+            assert cfg["source"] == c["source"] and cfg["reduced"] == []
+        for w in bench["workloads"]:
+            assert w["config"] in names and w["chips"] == 1
+            reg.traffic(w["traffic"])
+            assert set(reg.limits(w["name"])["checks"]) == {"emb_gap_max",
+                                                           "unanswered"}
+        for m in bench["per_layer"]:
+            for w in m["workloads"]:
+                assert m["moves"] in {e["name"] for e in registry.metrics_for(
+                    bench["end_to_end"], registry.workload(bench, w))}
+    for m in load_benchmark()["per_layer"] + tiny_bench()["per_layer"]:
         mod = reg.metric(m["name"])
         assert (mod.UNIT, mod.SOURCE, mod.MOVES) == (
             m["unit"], m["source"], m["moves"])

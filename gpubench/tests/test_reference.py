@@ -1,7 +1,10 @@
 """The plain reference against the program's CPU path (this test imports
-both; the reference imports nothing of the program)."""
+both; the reference imports nothing of the program), and the bits of the
+BERT architecture against digests of them taken before the architecture
+was looked up by name."""
 
 import ast
+import hashlib
 import os
 import time
 
@@ -12,6 +15,7 @@ import torch
 from gpubench import corpus, generate, run, weights
 from gpubench.reference import bert as ref_bert
 from gpubench.reference.wordpiece import Tokenizer
+from gpubench.registry import PKG, Registry
 
 from .conftest import LIMIT, tiny_config
 
@@ -22,7 +26,7 @@ def test_wordpiece_matches_the_program():
     from bert_tpu_torch.tokenizer import WordPieceTokenizer
     from bert_tpu_torch.vocab import Vocab
 
-    corp = corpus.load()
+    corp = corpus.load(tiny_config())
     vocab = list(corp.vocab)
     # sub-word pieces, so that the longest-match path is exercised too
     for i, piece in enumerate(["##ing", "##s", "##ed", "run", "##ning",
@@ -100,7 +104,7 @@ def test_weights_file_loads_in_the_program():
     path = os.path.join(os.environ.get("TMPDIR", "/tmp"),
                         f"gpubench-test-{os.getpid()}.bin")
     try:
-        weights.write_ggml(path, cfg, corpus.load().vocab, w)
+        weights.write_ggml(path, cfg, corpus.load(cfg).vocab, w)
         mf = read_ggml(path)
         name = "encoder.layer.1.intermediate.dense.weight"
         nib, scale, shape = w[name]
@@ -112,23 +116,101 @@ def test_weights_file_loads_in_the_program():
         os.unlink(path)
 
 
-def test_reference_imports_nothing_of_the_program():
-    here = os.path.join(os.path.dirname(ref_bert.__file__))
-    for name in os.listdir(here):
-        if not name.endswith(".py"):
-            continue
-        with open(os.path.join(here, name)) as f:
-            tree = ast.parse(f.read())
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                mods = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                mods = [node.module or ""]
-            else:
-                continue
-            for m in mods:
-                assert m.split(".")[0] not in ("bert_tpu_torch", "bert_tpu",
-                                               "jax", "gpubench"), (name, m)
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("part", ["reference", "archs"])
+def test_reference_imports_nothing_of_the_program(part):
+    """The references import neither the program nor the harness, and an
+    architecture's module imports neither the program nor any module of
+    the harness that does."""
+    here = os.path.join(PKG, part)
+    names = sorted(n for n in os.listdir(here) if n.endswith(".py"))
+    assert names
+    program = ("bert_tpu_torch", "bert_tpu", "jax", "flax")
+    for name in names:
+        todo, seen = [os.path.join(here, name)], set()
+        while todo:
+            path = todo.pop()
+            seen.add(path)
+            for m in _imports(path):
+                top = m.split(".")[0]
+                assert top not in program, (name, path, m)
+                if top != "gpubench":
+                    continue
+                assert part == "archs", (name, m)
+                sub = os.path.join(os.path.dirname(PKG), *m.split("."))
+                nxt = (sub + ".py" if os.path.exists(sub + ".py") else
+                       os.path.join(sub, "__init__.py"))
+                if nxt not in seen:
+                    todo.append(nxt)
+
+
+# sha256 of the BERT architecture's bits at the parent of the change that
+# made architectures files of their own (412486c), from the code then:
+# bert_base_q4_0's ggml file (weight seed 20261018, drawn on the CPU), the
+# vocabulary (tokens joined by newlines) of both configurations, and the
+# tiny configuration's reference embeddings (weight seed 777) of the first
+# 40 corpus sentences and three passages of 30 sentences (cut at 512
+# tokens), as f32 bytes
+BERT_MODEL_FILE = (68968545, "46dc9cd20a74a6028bf89a9674cfe0e7f1be20b06104"
+                             "9a6a39ee71b451fbce68")
+BERT_VOCAB = ("07497d7f0fbc17a25bc90641978e5f767757495e81807e5fdd3bc95e34fc"
+              "57ac")
+TINY_REFERENCE = ("2070aa1ce5a95beb6009bd2c39958446c27f275b2644e15c5da8d8aff"
+                  "1131e58")
+
+
+def _sha(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
+def test_bert_model_file_is_unchanged(tmp_path):
+    reg = Registry()
+    cfg = reg.config("bert_base_q4_0")
+    bert = reg.arch("bert")
+    w = bert.draw(cfg, 20261018, torch.device("cpu"))
+    path, n = bert.write(str(tmp_path), cfg, corpus.load(cfg).vocab, w)
+    with open(path, "rb") as f:
+        assert (n, _sha(f.read())) == BERT_MODEL_FILE
+
+
+@pytest.mark.parametrize("config", ["bert_base_q4_0", "minilm_l6_q4_0"])
+def test_bert_vocabulary_is_unchanged(config):
+    cfg = Registry().config(config)
+    assert "architecture" not in cfg
+    assert _sha("\n".join(corpus.load(cfg).vocab).encode()) == BERT_VOCAB
+
+
+def test_bert_reference_is_unchanged():
+    cfg = tiny_config()
+    corp = corpus.load(cfg)
+    tok = corp.tokenizer()
+    texts = corp.sentences[:40] + [" ".join(corp.sentences[i:i + 30])
+                                   for i in (0, 100, 500)]
+    lists = [tok(t, cfg["max_position_embeddings"]) for t in texts]
+    bert = Registry().arch("bert")
+    cpu = torch.device("cpu")
+    emb = bert.Reference(bert.draw(cfg, 777, cpu), cfg, cpu).embed(lists)
+    assert emb.dtype == torch.float32 and emb.shape == (43, 64)
+    assert _sha(emb.numpy().tobytes()) == TINY_REFERENCE
+
+
+def test_vocabulary_takes_the_configuration_size():
+    plain = corpus.load(tiny_config())
+    wide = corpus.load(dict(tiny_config(), vocab_size=50368))
+    assert len(plain.vocab) == 30522 and len(wide.vocab) == 50368
+    assert len(set(wide.vocab)) == 50368
+    assert wide.vocab[:30522] == plain.vocab
+    assert wide.tokenizer()("the cat", 512) == plain.tokenizer()("the cat",
+                                                                 512)
 
 
 def test_same_seed_same_inputs():

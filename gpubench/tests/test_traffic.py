@@ -5,13 +5,14 @@ import numpy as np
 import pytest
 
 from gpubench import corpus, generate
+from gpubench.registry import Registry
 
 SEED = 2 ** 31 + 12345
 
 
 @pytest.fixture(scope="module")
 def corp():
-    return corpus.load()
+    return corpus.load(Registry().config("bert_base_q4_0"))
 
 
 @pytest.mark.parametrize("spec,n", [
