@@ -73,6 +73,7 @@ counts, the capture does not, and each replay counts once.
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import time
 import warnings
@@ -85,10 +86,11 @@ import torch
 import torch.distributed as dist
 
 from .ops.attention import multi_head_attention
-from .ops.fused_attention import fused_qkv_attention
+from .ops.fused_attention import fused_qkv_attention, rope_qkv
 from .ops.int8_matmul import (int8_matmul, int8_matmul_gelu,
                               quantize_activations_i8)
-from .ops.layer_norm import fused_layer_norm, fused_layer_norm_codes
+from .ops.layer_norm import (fused_add_layer_norm, fused_layer_norm,
+                             fused_layer_norm_codes)
 from .ops.q4_matmul import q4_matmul
 from .parallel.collectives import Collective, recording
 
@@ -96,16 +98,26 @@ from .parallel.collectives import Collective, recording
 # wgmma instance
 COUNTERS = (q4_matmul, fused_layer_norm, fused_layer_norm_codes,
             fused_qkv_attention, multi_head_attention, int8_matmul,
-            int8_matmul_gelu, quantize_activations_i8, q4_matmul.wgmma)
+            int8_matmul_gelu, quantize_activations_i8, q4_matmul.wgmma,
+            fused_add_layer_norm, rope_qkv)
 
 
 def capture_counted(counters: Sequence, capture: Callable[[], None]
                     ) -> List[int]:
     """Run ``capture`` and take back what it added to each counter (a
     capture launches nothing); returns those deltas, what one replay of
-    the captured work launches."""
+    the captured work launches. The garbage collector is off while it
+    runs: a collection inside a capture that frees a dead graph
+    (``cudaGraphExecDestroy``) is refused by the capturing stream, and the
+    capture fails."""
     before = [c.launches for c in counters]
-    capture()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        capture()
+    finally:
+        if collecting:
+            gc.enable()
     delta = [c.launches - b for c, b in zip(counters, before)]
     for c, b in zip(counters, before):
         c.launches = b

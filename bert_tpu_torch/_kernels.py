@@ -50,11 +50,24 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         **{f"layer_norm_codes_{t}": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _F, _P]
            for t in ("f32", "bf16", "f32_bf16")},
+        # the add form: x, residual, scale, bias, out, sum_out, M, D, eps,
+        # stream
+        **{f"layer_norm_add_{t}": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]
+           for t in ("f32", "bf16", "f32_bf16")},
     },
     "fused_attention": {
         # qkv, bias, out, B, T, H, d_head, pairwise, scale, stream
-        f"fused_attention_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
-        for t in ("f32", "bf16")
+        **{f"fused_attention_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
+           for t in ("f32", "bf16")},
+        # qkv, bias, out, B, T, H, d_head, pairwise, window, scale, tiles
+        # (nullable), stream
+        **{f"fused_attention_band_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                         _F, _P, _P]
+           for t in ("f32", "bf16")},
+        # qkv (rotated in place), cos, sin, pos (nullable), B, T, H, d_head,
+        # stream
+        **{f"rope_qkv_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+           for t in ("f32", "bf16")},
     },
     "attention": {
         # q, k, v, bias, out, B, H, T, d_head, pairwise, scale, stream

@@ -57,6 +57,9 @@ class BucketPlan:
     # (seq_bucket, batch_bucket) -> list of index-groups; each group has
     # ≤ batch_bucket entries and is executed as one padded batch.
     groups: List[Tuple[int, int, List[int]]] = field(default_factory=list)
+    # sequence buckets whose inputs the token budget split into more
+    # batches than max_batch alone would have
+    budget_splits: int = 0
 
 
 # Extra padded-row-equivalents charged per additional dispatched batch when
@@ -104,6 +107,20 @@ def plan_batch_sizes(n: int, max_batch: int, min_batch: int = 1
     return sizes
 
 
+# A batch holds at most max_batch x ROW_TOKENS padded tokens: every batch
+# a model of up to 512 positions forms keeps max_batch rows, and a longer
+# one's rows at T are cut to the same tokens (8 rows at 8,192 of 128 at 512)
+ROW_TOKENS = 512
+
+
+def row_cap(seq: int, max_batch: int, min_batch: int = 1) -> int:
+    """The most rows a batch at T = ``seq`` holds: ``max_batch``, cut to
+    ``max_batch * ROW_TOKENS // seq`` rounded down to a multiple of
+    ``min_batch``, never below ``min_batch``."""
+    rows = max_batch * ROW_TOKENS // seq // min_batch * min_batch
+    return min(max_batch, max(min_batch, rows))
+
+
 def plan_buckets(
     lengths: Sequence[int],
     seq_buckets: Sequence[int],
@@ -117,7 +134,8 @@ def plan_buckets(
     awkward group sizes.
 
     ``min_batch`` forces every batch bucket to a multiple of the DP degree
-    so batches shard evenly over the data axis.
+    so batches shard evenly over the data axis. Rows at T take at most
+    :func:`row_cap` (the token budget).
     """
     by_bucket: Dict[int, List[int]] = {}
     for idx, n in enumerate(lengths):
@@ -128,7 +146,12 @@ def plan_buckets(
     for sb in sorted(by_bucket):
         idxs = by_bucket[sb]
         start = 0
-        for bb in plan_batch_sizes(len(idxs), max_batch, min_batch):
+        cap = row_cap(sb, max_batch, min_batch)
+        sizes = plan_batch_sizes(len(idxs), cap, min_batch)
+        if cap < max_batch and len(sizes) > len(
+                plan_batch_sizes(len(idxs), max_batch, min_batch)):
+            plan.budget_splits += 1
+        for bb in sizes:
             chunk = idxs[start : start + bb]
             start += bb
             plan.groups.append((sb, bb, chunk))

@@ -33,7 +33,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from .params import BertConfig
+from .params import BertConfig, config_class
 from .quant import QuantTensor
 
 _FORMAT_VERSION = 1
@@ -83,7 +83,7 @@ def load_params_and_vocab(path: str):
         if version != _FORMAT_VERSION:
             raise ValueError(f"unsupported weight-cache version {version}")
         pooling = meta.pop("__pooling__", None)
-        config = BertConfig(**meta)
+        config = config_class(meta)(**meta)
         vocab_tokens = ([str(t) for t in z["__vocab__"]]
                         if "__vocab__" in z else None)
         params: Dict[str, Dict[str, Any]] = {}

@@ -74,6 +74,28 @@
 // products again. The bound in f32 is max(bytes / 3.35 TB/s, 6 x the
 // bf16 FLOPs / 989 TFLOP/s), beside 4*B*H*T^2*dh / 67 TFLOP/s on the CUDA
 // cores.
+//
+// The band form (ModernBERT's local layers; bert_tpu_torch/modernbert.py),
+// a kernel of its own (fused_attention_band_*) so that BERT's instances
+// above compile as they did and a trace tells it apart: it attends over the
+// keys within `window` positions of the query, inclusive (|i - j| <=
+// window). A band block visits only the key tiles that meet [q0 - window,
+// q1 + window] of its rows q0..q1 (at BQ = BKV = 64 and window 64: 3 of
+// the 128 tiles of T = 8,192) and drops the keys past the window inside
+// them to -FLT_MAX, as it drops keys past T; a nullable counter adds up the
+// tiles the blocks visit. ModernBERT's global layers run the instances
+// above unchanged.
+//
+// RoPE (rope_qkv_*): one pass that rotates q and k of every head in place
+// in qkv before the attention reads it (rotate-half: x'[d] = x[d] cos -
+// x[d + dh/2] sin and x'[d + dh/2] = x[d + dh/2] cos + x[d] sin for d <
+// dh/2, in f32, products and sum each rounded, then rounded to qkv's
+// type), from f32 tables cos, sin [P, dh/2] and an optional int32 position
+// array [B, T] (null: the row's index). A thread takes 16 bytes of lanes d
+// and the matching 16 bytes of lanes d + dh/2 of one head's q or k. It
+// reads and writes 2/3 of qkv once (0.4 GB at 8 x 8,192 in bf16); rotating
+// inside the attention instead would rotate each k tile again for every
+// query block that visits it (128 times a tile at T = 8,192).
 
 #include <cfloat>
 #include <cuda_bf16.h>
@@ -125,22 +147,30 @@ __device__ __forceinline__ void load_bias(float (&bv)[NT][4],
   }
 }
 
-// S's tile into scores: add the bias, drop keys past T to -FLT_MAX (in
-// place), and move the running max m of rows g and g + 8 past the tile's;
-// the sum l is rescaled by corr = exp(m_old - m_new), which the caller
-// applies to the context.
+// S's tile into scores: add the bias, drop keys past T (and, in the band
+// form, keys more than `window` from the lane's rows qg and qg + 8) to
+// -FLT_MAX (in place), and move the running max m of rows g and g + 8 past
+// the tile's; the sum l is rescaled by corr = exp(m_old - m_new), which the
+// caller applies to the context.
+template <bool BAND = false>
 __device__ __forceinline__ void online_max(float (&sa)[NT][4],
                                            const float (&sv)[NT][4],
                                            float (&m)[2], float (&l)[2],
                                            float (&corr)[2], int k0, int seq,
-                                           int t) {
+                                           int t, int qg = 0,
+                                           int window = 0) {
   float mx[2] = {-FLT_MAX, -FLT_MAX};
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = k0 + nt * 8 + 2 * t + (e & 1);
-      const float v = key < seq ? sa[nt][e] + sv[nt][e] : -FLT_MAX;
+      bool in = key < seq;
+      if constexpr (BAND) {
+        const int dist = key - (qg + 8 * (e >> 1));
+        in = in && dist <= window && dist >= -window;
+      }
+      const float v = in ? sa[nt][e] + sv[nt][e] : -FLT_MAX;
       sa[nt][e] = v;
       mx[e >> 1] = fmaxf(mx[e >> 1], v);
     }
@@ -152,6 +182,23 @@ __device__ __forceinline__ void online_max(float (&sa)[NT][4],
     corr[i] = expf(m[i] - m_new);
     l[i] *= corr[i];
     m[i] = m_new;
+  }
+}
+
+// The key tiles a block visits: every tile, or in the band form those
+// that meet [q0 - window, q1 + window] for its rows q0..q1; the visits are
+// added to `tiles` where it is given.
+template <bool BAND>
+__device__ __forceinline__ void tile_range(int seq, int window, int* tiles,
+                                           int& lo, int& hi) {
+  lo = 0;
+  hi = (seq + BKV - 1) / BKV - 1;
+  if constexpr (BAND) {
+    const int q0 = blockIdx.x * BQ;
+    const int q1 = min(seq, q0 + BQ) - 1;
+    lo = max(0, q0 - window) / BKV;
+    hi = min(seq - 1, q1 + window) / BKV;
+    if (tiles != nullptr && threadIdx.x == 0) atomicAdd(tiles, hi - lo + 1);
   }
 }
 
@@ -183,12 +230,12 @@ __device__ __forceinline__ void load_tile(Smem<DH>& s, int st, int k0,
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(32 * WARPS)
-    fused_attention_bf16_kernel(const bf16* __restrict__ qkv,
-                                const float* __restrict__ bias,
-                                bf16* __restrict__ out, int seq, int H,
-                                int pairwise, float scale) {
+template <int DH, bool BAND>
+__device__ __forceinline__ void attend(const bf16* __restrict__ qkv,
+                                       const float* __restrict__ bias,
+                                       bf16* __restrict__ out, int seq, int H,
+                                       int pairwise, float scale, int window,
+                                       int* tiles) {
   constexpr int KS = DH / 16;  // k16 steps over dh
   constexpr int OT = DH / 8;   // n8 tiles of the context
   __shared__ __align__(16) Smem<DH> s;
@@ -199,10 +246,11 @@ __global__ void __launch_bounds__(32 * WARPS)
   const int D = H * DH;
   const size_t row_stride = 3 * (size_t)D;
   const bf16* base = qkv + (size_t)b * seq * row_stride + (size_t)h * 3 * DH;
-  const int n_tiles = (seq + BKV - 1) / BKV;
+  int t_lo, t_hi;
+  tile_range<BAND>(seq, window, tiles, t_lo, t_hi);
   const int g = lane >> 2, t = lane & 3;
 
-  load_tile(s, 0, 0, base, row_stride, seq);
+  load_tile(s, 0, t_lo * BKV, base, row_stride, seq);
   hopper::cp_async_commit();
 
   // q's A fragments, pre-scaled in bf16 as the Pallas kernel does:
@@ -234,15 +282,15 @@ __global__ void __launch_bounds__(32 * WARPS)
   // part of the running sum, for rows g and g + 8
   float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f};
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it & 1, k0 = it * BKV;
-    if (it + 1 < n_tiles) {
+  for (int it = t_lo; it <= t_hi; ++it) {
+    const int st = (it - t_lo) & 1, k0 = it * BKV;
+    if (it < t_hi) {
       load_tile(s, st ^ 1, k0 + BKV, base, row_stride, seq);
       hopper::cp_async_commit();
     }
     float sv[NT][4];
     load_bias(sv, bias, b, seq, pairwise, row0, k0, lane);
-    if (it + 1 < n_tiles)
+    if (it < t_hi)
       hopper::cp_async_wait<1>();
     else
       hopper::cp_async_wait<0>();
@@ -265,7 +313,7 @@ __global__ void __launch_bounds__(32 * WARPS)
         hopper::mma_bf16(sa[2 * np + 1], qa[kk], r[2], r[3]);
       }
     float corr[2];
-    online_max(sa, sv, m, l, corr, k0, seq, t);
+    online_max<BAND>(sa, sv, m, l, corr, k0, seq, t, row0 + g, window);
 #pragma unroll
     for (int j = 0; j < OT; ++j) {
       o[j][0] *= corr[0];
@@ -316,6 +364,25 @@ __global__ void __launch_bounds__(32 * WARPS)
       *reinterpret_cast<uint32_t*>(dst + 8 * j) = hopper::pack_bf16(
           o[j][2 * hf] / l[hf], o[j][2 * hf + 1] / l[hf]);
   }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(32 * WARPS)
+    fused_attention_bf16_kernel(const bf16* __restrict__ qkv,
+                                const float* __restrict__ bias,
+                                bf16* __restrict__ out, int seq, int H,
+                                int pairwise, float scale) {
+  attend<DH, false>(qkv, bias, out, seq, H, pairwise, scale, 0, nullptr);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(32 * WARPS)
+    fused_attention_band_bf16_kernel(const bf16* __restrict__ qkv,
+                                     const float* __restrict__ bias,
+                                     bf16* __restrict__ out, int seq, int H,
+                                     int pairwise, float scale, int window,
+                                     int* tiles) {
+  attend<DH, true>(qkv, bias, out, seq, H, pairwise, scale, window, tiles);
 }
 
 }  // namespace tc
@@ -375,12 +442,12 @@ __device__ __forceinline__ void split_tile(Smem<DH>& s, int bf) {
   asm volatile("" ::: "memory");
 }
 
-template <int DH>
-__global__ void __launch_bounds__(32 * WARPS)
-    fused_attention_f32_kernel(const float* __restrict__ qkv,
-                               const float* __restrict__ bias,
-                               float* __restrict__ out, int seq, int H,
-                               int pairwise, float scale) {
+template <int DH, bool BAND>
+__device__ __forceinline__ void attend(const float* __restrict__ qkv,
+                                       const float* __restrict__ bias,
+                                       float* __restrict__ out, int seq,
+                                       int H, int pairwise, float scale,
+                                       int window, int* tiles) {
   constexpr int KS = DH / 16;  // k16 steps over dh
   constexpr int OT = DH / 8;   // n8 tiles of the context
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -393,10 +460,11 @@ __global__ void __launch_bounds__(32 * WARPS)
   const size_t row_stride = 3 * (size_t)D;
   const float* base =
       qkv + (size_t)b * seq * row_stride + (size_t)h * 3 * DH;
-  const int n_tiles = (seq + BKV - 1) / BKV;
+  int t_lo, t_hi;
+  tile_range<BAND>(seq, window, tiles, t_lo, t_hi);
   const int g = lane >> 2, t = lane & 3;
 
-  load_tile(s, 0, base, row_stride, seq);
+  load_tile(s, t_lo * BKV, base, row_stride, seq);
 
   // q's A fragments: q * scale in f32, as the Pallas kernel scales q in
   // q's type, split three ways
@@ -426,12 +494,15 @@ __global__ void __launch_bounds__(32 * WARPS)
   float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f};
 
   split_tile(s, 0);
-  if (n_tiles > 1) load_tile(s, BKV, base, row_stride, seq);
+  if (t_lo < t_hi) load_tile(s, (t_lo + 1) * BKV, base, row_stride, seq);
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int bf = it & 1, k0 = it * BKV;
+  for (int it = t_lo; it <= t_hi; ++it) {
+    const int bf = (it - t_lo) & 1, k0 = it * BKV;
+    // the band instance reads the bias after the products: its 32
+    // registers would otherwise be live across them, and it spilled
     float sv[NT][4];
-    load_bias(sv, bias, b, seq, pairwise, row0, k0, lane);
+    if constexpr (!BAND)
+      load_bias(sv, bias, b, seq, pairwise, row0, k0, lane);
     __syncthreads();  // buffer bf is split; buffer bf^1 (tile it-1) is free
 
     // S = q k^T in six products, plus the bias
@@ -457,8 +528,10 @@ __global__ void __launch_bounds__(32 * WARPS)
           hopper::mma_bf16(sa[2 * np + 1], qa[pa][kk], r[pb][2], r[pb][3]);
         }
       }
+    if constexpr (BAND)
+      load_bias(sv, bias, b, seq, pairwise, row0, k0, lane);
     float corr[2];
-    online_max(sa, sv, m, l, corr, k0, seq, t);
+    online_max<BAND>(sa, sv, m, l, corr, k0, seq, t, row0 + g, window);
     // e = exp(s - m) in f32, in place
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -509,9 +582,9 @@ __global__ void __launch_bounds__(32 * WARPS)
         o[j][e] = __fmaf_rn(o[j][e], corr[e >> 1], ot[j][e]);
     // the next tile: split it (every thread finished tile it-1 with
     // buffer bf^1 at the barrier above) and start the copy after it
-    if (it + 1 < n_tiles) {
+    if (it < t_hi) {
       split_tile(s, bf ^ 1);
-      if (it + 2 < n_tiles)
+      if (it + 1 < t_hi)
         load_tile(s, k0 + 2 * BKV, base, row_stride, seq);
     }
   }
@@ -533,18 +606,34 @@ __global__ void __launch_bounds__(32 * WARPS)
   }
 }
 
-// Launch the DH instance; its shared memory (above 48 KB) needs the limit
-// raised, once per instance.
 template <int DH>
-int launch(const float* qkv, const float* bias, float* out, dim3 grid,
-           int seq, int H, int pairwise, float scale, cudaStream_t st) {
+__global__ void __launch_bounds__(32 * WARPS)
+    fused_attention_f32_kernel(const float* __restrict__ qkv,
+                               const float* __restrict__ bias,
+                               float* __restrict__ out, int seq, int H,
+                               int pairwise, float scale) {
+  attend<DH, false>(qkv, bias, out, seq, H, pairwise, scale, 0, nullptr);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(32 * WARPS)
+    fused_attention_band_f32_kernel(const float* __restrict__ qkv,
+                                    const float* __restrict__ bias,
+                                    float* __restrict__ out, int seq, int H,
+                                    int pairwise, float scale, int window,
+                                    int* tiles) {
+  attend<DH, true>(qkv, bias, out, seq, H, pairwise, scale, window, tiles);
+}
+
+// Launch a kernel of the DH instance; its shared memory (above 48 KB)
+// needs the limit raised, once per kernel.
+template <int DH, typename K, typename... A>
+int launch(K kernel, dim3 grid, cudaStream_t st, A... args) {
   constexpr int smem = sizeof(Smem<DH>);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      fused_attention_f32_kernel<DH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
-  fused_attention_f32_kernel<DH><<<grid, 32 * WARPS, smem, st>>>(
-      qkv, bias, out, seq, H, pairwise, scale);
+  kernel<<<grid, 32 * WARPS, smem, st>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -556,11 +645,11 @@ int launch_f32(const void* qkv, const void* bias, void* out, int B, int seq,
   const auto* q = (const float*)qkv;
   const auto* bp = (const float*)bias;
   if (dh == 32)
-    return x6::launch<32>(q, bp, (float*)out, grid, seq, H, pairwise, scale,
-                          st);
+    return x6::launch<32>(x6::fused_attention_f32_kernel<32>, grid, st, q,
+                          bp, (float*)out, seq, H, pairwise, scale);
   if (dh == 64)
-    return x6::launch<64>(q, bp, (float*)out, grid, seq, H, pairwise, scale,
-                          st);
+    return x6::launch<64>(x6::fused_attention_f32_kernel<64>, grid, st, q,
+                          bp, (float*)out, seq, H, pairwise, scale);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -582,6 +671,124 @@ int launch_bf16(const void* qkv, const void* bias, void* out, int B, int seq,
   return (int)cudaGetLastError();
 }
 
+// The band form (dh 64, ModernBERT's local layers)
+int launch_band_f32(const void* qkv, const void* bias, void* out, int B,
+                    int seq, int H, int dh, int pairwise, int window,
+                    float scale, int* tiles, cudaStream_t st) {
+  const dim3 grid((seq + BQ - 1) / BQ, H, B);
+  if (dh != 64) return (int)cudaErrorInvalidValue;
+  return x6::launch<64>(x6::fused_attention_band_f32_kernel<64>, grid, st,
+                        (const float*)qkv, (const float*)bias, (float*)out,
+                        seq, H, pairwise, scale, window, tiles);
+}
+
+int launch_band_bf16(const void* qkv, const void* bias, void* out, int B,
+                     int seq, int H, int dh, int pairwise, int window,
+                     float scale, int* tiles, cudaStream_t st) {
+  const dim3 grid((seq + BQ - 1) / BQ, H, B);
+  if (dh != 64) return (int)cudaErrorInvalidValue;
+  tc::fused_attention_band_bf16_kernel<64><<<grid, 32 * WARPS, 0, st>>>(
+      (const __nv_bfloat16*)qkv, (const float*)bias, (__nv_bfloat16*)out,
+      seq, H, pairwise, scale, window, tiles);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// RoPE on q and k, in place
+// ---------------------------------------------------------------------------
+
+// The rotation of a pair of values (lane d and lane d + dh/2 of a head) by
+// (c, s): (x c - y s, y c + x s), each product and the sum rounded (no
+// fused multiply-add), as the plain version computes it
+__device__ __forceinline__ void rotate(float& x, float& y, float c,
+                                       float s) {
+  const float x2 = __fsub_rn(__fmul_rn(x, c), __fmul_rn(y, s));
+  y = __fadd_rn(__fmul_rn(y, c), __fmul_rn(x, s));
+  x = x2;
+}
+
+// Eight values of either type as f32: a 16-byte chunk of bf16, or two of
+// f32
+template <typename T>
+struct Lanes;
+
+template <>
+struct Lanes<bf16> {
+  static __device__ __forceinline__ void load(const bf16* p, float (&v)[8]) {
+    uint32_t w[4];
+    *reinterpret_cast<uint4*>(w) = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = hopper::unpack_bf16(w[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(bf16* p, const float (&v)[8]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = hopper::pack_bf16(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(w);
+  }
+};
+
+template <>
+struct Lanes<float> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[8]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = p[i];
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[8]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) p[i] = v[i];
+  }
+};
+
+// One item: eight lanes d..d+7 (d < dh/2) of q or k of one head of one
+// row, with their partners d + dh/2..; items run over (row, head, q/k,
+// chunk), chunk fastest, so neighbouring threads touch neighbouring bytes
+template <typename T>
+__global__ void __launch_bounds__(256)
+    rope_qkv_kernel(T* __restrict__ qkv, const float* __restrict__ cos,
+                    const float* __restrict__ sin,
+                    const int* __restrict__ pos, long long items, int seq,
+                    int H, int dh) {
+  const int chunks = dh / 16;  // eight-lane chunks of a half head
+  for (long long it = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       it < items; it += (long long)gridDim.x * blockDim.x) {
+    const int c = (int)(it % chunks) * 8;
+    const long long hq = it / chunks;  // (row, head, q/k)
+    const int which = (int)(hq % 2), h = (int)(hq / 2 % H);
+    const long long row = hq / (2 * H);  // b * seq + i
+    const int p = pos != nullptr ? pos[row] : (int)(row % seq);
+    T* x = qkv + row * 3 * H * dh + (size_t)h * 3 * dh + which * dh + c;
+    float lo[8], hi[8];
+    Lanes<T>::load(x, lo);
+    Lanes<T>::load(x + dh / 2, hi);
+    const float* cs = cos + (size_t)p * (dh / 2) + c;
+    const float* sn = sin + (size_t)p * (dh / 2) + c;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) rotate(lo[i], hi[i], cs[i], sn[i]);
+    Lanes<T>::store(x, lo);
+    Lanes<T>::store(x + dh / 2, hi);
+  }
+}
+
+template <typename T>
+int launch_rope(void* qkv, const void* cos, const void* sin, const void* pos,
+                int B, int seq, int H, int dh, cudaStream_t st) {
+  if (dh % 16) return (int)cudaErrorInvalidValue;
+  const long long items = (long long)B * seq * H * 2 * (dh / 16);
+  const int threads = 256;
+  const long long want = (items + threads - 1) / threads;
+  const int blocks = (int)(want < (1 << 20) ? want : (1 << 20));
+  rope_qkv_kernel<T><<<blocks, threads, 0, st>>>(
+      (T*)qkv, (const float*)cos, (const float*)sin, (const int*)pos, items,
+      seq, H, dh);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int fused_attention_f32(const void* qkv, const void* bias,
@@ -598,4 +805,48 @@ extern "C" int fused_attention_bf16(const void* qkv, const void* bias,
   if (B <= 0 || seq <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   return launch_bf16(qkv, bias, out, B, seq, H, dh, pairwise, scale,
                      (cudaStream_t)stream);
+}
+
+// The band |i - j| <= window (window > 0); tiles (nullable): the key tiles
+// the blocks visit are added to it
+extern "C" int fused_attention_band_f32(const void* qkv, const void* bias,
+                                        void* out, int B, int seq, int H,
+                                        int dh, int pairwise, int window,
+                                        float scale, void* tiles,
+                                        void* stream) {
+  if (B <= 0 || seq <= 0 || H <= 0 || window <= 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_band_f32(qkv, bias, out, B, seq, H, dh, pairwise, window,
+                         scale, (int*)tiles, (cudaStream_t)stream);
+}
+
+extern "C" int fused_attention_band_bf16(const void* qkv, const void* bias,
+                                         void* out, int B, int seq, int H,
+                                         int dh, int pairwise, int window,
+                                         float scale, void* tiles,
+                                         void* stream) {
+  if (B <= 0 || seq <= 0 || H <= 0 || window <= 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_band_bf16(qkv, bias, out, B, seq, H, dh, pairwise, window,
+                          scale, (int*)tiles, (cudaStream_t)stream);
+}
+
+// RoPE on q and k of qkv [B, T, 3D], in place, from cos, sin [P, dh/2] f32
+// and positions [B, T] int32 (nullable: the index)
+extern "C" int rope_qkv_f32(void* qkv, const void* cos, const void* sin,
+                            const void* pos, int B, int seq, int H, int dh,
+                            void* stream) {
+  if (B <= 0 || seq <= 0 || H <= 0 || cos == nullptr || sin == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_rope<float>(qkv, cos, sin, pos, B, seq, H, dh,
+                            (cudaStream_t)stream);
+}
+
+extern "C" int rope_qkv_bf16(void* qkv, const void* cos, const void* sin,
+                             const void* pos, int B, int seq, int H, int dh,
+                             void* stream) {
+  if (B <= 0 || seq <= 0 || H <= 0 || cos == nullptr || sin == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_rope<__nv_bfloat16>(qkv, cos, sin, pos, B, seq, H, dh,
+                                    (cudaStream_t)stream);
 }

@@ -67,6 +67,15 @@
 // The outputs are the plain form's bit for bit: the same expression, in
 // instances of their own (CODES), so that the extra registers the codes
 // take are not the plain form's.
+//
+// The add form (entries layer_norm_add_*; kernels ln_add_*), for pre-LN
+// blocks (ModernBERT's): x is a sublayer's product y and residual the
+// stream; it writes the new stream s = y + residual, rounded to the output
+// type, to sum_out, and LN(s) to out, in one pass: the same registers, s
+// formed as the plain form forms x + residual and rounded once more before
+// the statistics. One store of s a row more than the plain form, and no
+// launch or read of s to normalise it. Kernels of their own, so that BERT's
+// compile as they did.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -188,15 +197,13 @@ constexpr int vmax(int N) { return N >= 8 ? 32 / N : 8; }
 // One block an SM is enough: without that bound, ptxas spilled in two
 // instances to fit a lower register count. CODES: the codes form, which
 // also writes codes[M, Kp] and sx[M] of the rounded output.
-template <typename Tin, typename Tout, int N, int V, bool CODES>
-__global__ void __launch_bounds__(256, 1)
-    ln_rows_kernel(const Tin* __restrict__ x,
-                   const Tout* __restrict__ residual,
-                   const float* __restrict__ pre_bias,
-                   const float* __restrict__ scale,
-                   const float* __restrict__ bias, Tout* __restrict__ out,
-                   int8_t* __restrict__ codes, float* __restrict__ sx,
-                   int M, int D, int G, float eps) {
+template <typename Tin, typename Tout, int N, int V, bool CODES, bool ADD>
+__device__ __forceinline__ void ln_rows(
+    const Tin* __restrict__ x, const Tout* __restrict__ residual,
+    const float* __restrict__ pre_bias, const float* __restrict__ scale,
+    const float* __restrict__ bias, Tout* __restrict__ out,
+    int8_t* __restrict__ codes, float* __restrict__ sx,
+    Tout* __restrict__ sum_out, int M, int D, int G, float eps) {
   const int nv = D / N;  // vectors a row
   const int lane = threadIdx.x & 31;
   const int gl = lane & (G - 1);  // lane within the row's group
@@ -243,15 +250,27 @@ __global__ void __launch_bounds__(256, 1)
 
     float v[V][N];
     float sum = 0.f;
+    [[maybe_unused]] Vec<Tout, N> so[V];
 #pragma unroll
     for (int i = 0; i < V; ++i)
 #pragma unroll
       for (int e = 0; e < N; ++e) {
         float t = widen<Tin, Tout>(xr[i].v[e]) + pb[i][e];
         if (residual != nullptr) t += to_f32(rr[i].v[e]);
+        if constexpr (ADD) {  // the stream, as stored
+          so[i].v[e] = from_f32<Tout>(t);
+          t = to_f32(so[i].v[e]);
+        }
         v[i][e] = has(i) ? t : 0.f;
         sum += v[i][e];
       }
+    if constexpr (ADD) {
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        if (live && has(i))
+          *reinterpret_cast<Vec<Tout, N>*>(sum_out + base +
+                                           (size_t)(i * G + gl) * N) = so[i];
+    }
     const float mean = group_sum(sum, G) / (float)D;
 
     float sq = 0.f;
@@ -310,6 +329,34 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
+template <typename Tin, typename Tout, int N, int V, bool CODES>
+__global__ void __launch_bounds__(256, 1)
+    ln_rows_kernel(const Tin* __restrict__ x,
+                   const Tout* __restrict__ residual,
+                   const float* __restrict__ pre_bias,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ bias, Tout* __restrict__ out,
+                   int8_t* __restrict__ codes, float* __restrict__ sx,
+                   int M, int D, int G, float eps) {
+  ln_rows<Tin, Tout, N, V, CODES, false>(x, residual, pre_bias, scale, bias,
+                                         out, codes, sx, nullptr, M, D, G,
+                                         eps);
+}
+
+// the add form: sum_out = x + residual as stored, out = LN(sum_out)
+template <typename Tin, typename Tout, int N, int V>
+__global__ void __launch_bounds__(256, 1)
+    ln_add_rows_kernel(const Tin* __restrict__ x,
+                       const Tout* __restrict__ residual,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ bias, Tout* __restrict__ out,
+                       Tout* __restrict__ sum_out, int M, int D, int G,
+                       float eps) {
+  ln_rows<Tin, Tout, N, V, false, true>(x, residual, nullptr, scale, bias,
+                                        out, nullptr, nullptr, sum_out, M, D,
+                                        G, eps);
+}
+
 // ---------------------------------------------------------------------------
 // wide rows: one block per row, v formed anew on each of three passes
 // ---------------------------------------------------------------------------
@@ -336,15 +383,15 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 // CODES: the codes form. The third pass also takes the max |output| as
 // rounded; a fourth reads the block's own stores back (visible to it
 // after block_max's barrier) and writes the codes.
-template <typename Tin, typename Tout, int N, bool CODES>
-__global__ void __launch_bounds__(ROW_BLOCK)
-    ln_block_kernel(const Tin* __restrict__ x,
-                    const Tout* __restrict__ residual,
-                    const float* __restrict__ pre_bias,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ bias, Tout* __restrict__ out,
-                    int8_t* __restrict__ codes, float* __restrict__ sx,
-                    int M, int D, float eps) {
+// ADD: the add form; v is rounded to the output type as formed, and the
+// third pass also stores it to sum_out.
+template <typename Tin, typename Tout, int N, bool CODES, bool ADD>
+__device__ __forceinline__ void ln_block(
+    const Tin* __restrict__ x, const Tout* __restrict__ residual,
+    const float* __restrict__ pre_bias, const float* __restrict__ scale,
+    const float* __restrict__ bias, Tout* __restrict__ out,
+    int8_t* __restrict__ codes, float* __restrict__ sx,
+    Tout* __restrict__ sum_out, int M, int D, float eps) {
   __shared__ float red[32];
   const int nv = D / N;
   for (int row = blockIdx.x; row < M; row += gridDim.x) {
@@ -363,6 +410,7 @@ __global__ void __launch_bounds__(ROW_BLOCK)
       for (int e = 0; e < N; ++e) {
         v[e] = widen<Tin, Tout>(xv.v[e]) + p[e];
         if (residual != nullptr) v[e] += to_f32(rv.v[e]);
+        if constexpr (ADD) v[e] = to_f32(from_f32<Tout>(v[e]));
       }
     };
     float v[N];
@@ -396,6 +444,13 @@ __global__ void __launch_bounds__(ROW_BLOCK)
         if constexpr (CODES) amax = fmaxf(amax, fabsf(to_f32(o.v[e])));
       }
       *reinterpret_cast<Vec<Tout, N>*>(out + base + (size_t)c * N) = o;
+      if constexpr (ADD) {
+        Vec<Tout, N> so;
+#pragma unroll
+        for (int e = 0; e < N; ++e) so.v[e] = from_f32<Tout>(v[e]);
+        *reinterpret_cast<Vec<Tout, N>*>(sum_out + base + (size_t)c * N) =
+            so;
+      }
     }
     if constexpr (CODES) {
       const float s = scale_of(block_max(amax, red));
@@ -413,6 +468,31 @@ __global__ void __launch_bounds__(ROW_BLOCK)
   }
 }
 
+template <typename Tin, typename Tout, int N, bool CODES>
+__global__ void __launch_bounds__(ROW_BLOCK)
+    ln_block_kernel(const Tin* __restrict__ x,
+                    const Tout* __restrict__ residual,
+                    const float* __restrict__ pre_bias,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ bias, Tout* __restrict__ out,
+                    int8_t* __restrict__ codes, float* __restrict__ sx,
+                    int M, int D, float eps) {
+  ln_block<Tin, Tout, N, CODES, false>(x, residual, pre_bias, scale, bias,
+                                       out, codes, sx, nullptr, M, D, eps);
+}
+
+template <typename Tin, typename Tout, int N>
+__global__ void __launch_bounds__(ROW_BLOCK)
+    ln_add_block_kernel(const Tin* __restrict__ x,
+                        const Tout* __restrict__ residual,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ bias,
+                        Tout* __restrict__ out, Tout* __restrict__ sum_out,
+                        int M, int D, float eps) {
+  ln_block<Tin, Tout, N, false, true>(x, residual, nullptr, scale, bias, out,
+                                      nullptr, nullptr, sum_out, M, D, eps);
+}
+
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
@@ -425,6 +505,7 @@ struct Args {
   cudaStream_t st;
   void* codes = nullptr;  // the codes form: codes[M, Kp] int8 and sx[M]
   void* sx = nullptr;
+  void* sum_out = nullptr;  // the add form: the stream x + residual
 };
 
 template <typename Tin, typename Tout, int N, int V>
@@ -440,6 +521,13 @@ int launch_rows(const Args& a, int G) {
   const int grid = (int)(blocks < (long long)sms * (2048 / tb)
                              ? blocks
                              : (long long)sms * (2048 / tb));
+  if (a.sum_out != nullptr) {
+    ln_add_rows_kernel<Tin, Tout, N, V><<<grid, tb, 0, a.st>>>(
+        (const Tin*)a.x, (const Tout*)a.residual, (const float*)a.scale,
+        (const float*)a.bias, (Tout*)a.out, (Tout*)a.sum_out, a.M, a.D, G,
+        a.eps);
+    return (int)cudaGetLastError();
+  }
   auto kernel = a.codes != nullptr ? ln_rows_kernel<Tin, Tout, N, V, true>
                                    : ln_rows_kernel<Tin, Tout, N, V, false>;
   kernel<<<grid, tb, 0, a.st>>>(
@@ -465,6 +553,13 @@ int launch_n(const Args& a) {
   if (nv > 32 * vmax(N)) {  // wider than a row in registers
     const int sms = hopper::sm_count();
     const int grid = a.M < sms * 8 ? a.M : sms * 8;
+    if (a.sum_out != nullptr) {
+      ln_add_block_kernel<Tin, Tout, N><<<grid, ROW_BLOCK, 0, a.st>>>(
+          (const Tin*)a.x, (const Tout*)a.residual, (const float*)a.scale,
+          (const float*)a.bias, (Tout*)a.out, (Tout*)a.sum_out, a.M, a.D,
+          a.eps);
+      return (int)cudaGetLastError();
+    }
     auto kernel = a.codes != nullptr ? ln_block_kernel<Tin, Tout, N, true>
                                      : ln_block_kernel<Tin, Tout, N, false>;
     kernel<<<grid, ROW_BLOCK, 0, a.st>>>(
@@ -507,7 +602,8 @@ int launch(const Args& a) {
       !aligned(a.residual, need(sizeof(Tout))) ||
       !aligned(a.out, need(sizeof(Tout))) || !aligned(a.scale, need(4)) ||
       !aligned(a.bias, need(4)) || !aligned(a.pre_bias, need(4)) ||
-      !aligned(a.codes, n))  // rows of Kp bytes: n-byte code stores
+      !aligned(a.codes, n) ||  // rows of Kp bytes: n-byte code stores
+      !aligned(a.sum_out, need(sizeof(Tout))))
     return (int)cudaErrorMisalignedAddress;
   if constexpr (std::is_same<Tout, bf16>::value) {
     if (n == 8) return launch_n<Tin, Tout, 8>(a);
@@ -577,4 +673,43 @@ extern "C" int layer_norm_codes_f32_bf16(const void* x, const void* residual,
   if (codes == nullptr || sx == nullptr) return (int)cudaErrorInvalidValue;
   return launch<float, bf16>({x, residual, pre_bias, scale, bias, out, M, D,
                               eps, (cudaStream_t)stream, codes, sx});
+}
+
+// The add form of each: sum_out = x + residual rounded to the output type
+// (the new stream), out = LN(sum_out); residual required, no pre_bias
+extern "C" int layer_norm_add_f32(const void* x, const void* residual,
+                                  const void* scale, const void* bias,
+                                  void* out, void* sum_out, int M, int D,
+                                  float eps, void* stream) {
+  if (residual == nullptr || sum_out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Args a{x, residual, nullptr, scale, bias, out, M, D, eps,
+         (cudaStream_t)stream};
+  a.sum_out = sum_out;
+  return launch<float, float>(a);
+}
+
+extern "C" int layer_norm_add_bf16(const void* x, const void* residual,
+                                   const void* scale, const void* bias,
+                                   void* out, void* sum_out, int M, int D,
+                                   float eps, void* stream) {
+  if (residual == nullptr || sum_out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Args a{x, residual, nullptr, scale, bias, out, M, D, eps,
+         (cudaStream_t)stream};
+  a.sum_out = sum_out;
+  return launch<bf16, bf16>(a);
+}
+
+// y f32 (a matmul's product), the stream and both outputs bf16
+extern "C" int layer_norm_add_f32_bf16(const void* x, const void* residual,
+                                       const void* scale, const void* bias,
+                                       void* out, void* sum_out, int M, int D,
+                                       float eps, void* stream) {
+  if (residual == nullptr || sum_out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Args a{x, residual, nullptr, scale, bias, out, M, D, eps,
+         (cudaStream_t)stream};
+  a.sum_out = sum_out;
+  return launch<float, bf16>(a);
 }

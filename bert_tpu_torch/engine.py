@@ -37,7 +37,9 @@ through the plain PyTorch versions on any device; True is refused off the
 card, at construction.
 
 ``from_file`` takes a ggml-bin file, an HF checkpoint directory or a
-``.npz`` weight cache (``save_cache`` writes one). ``encode_iter`` /
+``.npz`` weight cache (``save_cache`` writes one). A ModernBERT checkpoint
+(``modernbert.py``) runs through the same engine: the loaded config picks
+the model and its forward, on one device. ``encode_iter`` /
 ``eval_tokens_iter`` stream a corpus with bounded memory. ``warmup``
 captures each (rows, T) shape's program before the first request, or
 only the shapes a previous run recorded in its manifest; on the card that
@@ -46,6 +48,9 @@ cache of ``_kernels.py`` stand in for bert_tpu's XLA compilation cache;
 graphs do not outlive the process. ``int8_eval=True`` adds bert_tpu's
 opt-in W8A8 regime: batches of at least ``int8_threshold`` padded tokens
 run on a per-column int8 weight tree (ops/int8_matmul.py).
+A batch holds at most ``max_batch`` × 512 padded tokens (rows at T: at
+most that // T, ``batching.row_cap``), so every batch of a model of up to
+512 positions keeps ``max_batch`` rows.
 
 Multi-device execution (``mesh=`` or ``dp=``/``tp=``, as BertTPU takes
 them): one process per rank (parallel/multihost.py), every rank calling
@@ -79,10 +84,13 @@ from .batching import (
     default_seq_buckets,
     pick_bucket,
     plan_buckets,
+    row_cap,
     size_bucket as _size_bucket,
 )
 from .loader import LoadedModel, load_model
 from .model import BertModel, bert_forward, bert_forward_packed
+from .modernbert import (ModernBertModel, modernbert_forward,
+                         modernbert_forward_packed)
 from .ops.common import round_up as _round_up
 from .ops.int8_matmul import Int8Tensor
 from .packing import PackPlan, Placement, pack_batch, plan_packing
@@ -91,7 +99,8 @@ from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, axis_group, axis_size,
                             local_rows, make_mesh, rank_device)
 from .parallel.sharding import check_tp_divisibility
 from .parallel.spmd import shard_params
-from .params import BertConfig, params_to_int8, params_to_torch
+from .params import (BertConfig, ModernBertConfig, params_to_int8,
+                     params_to_torch)
 from .profiling import PhaseTimers
 from .quant import QuantTensor
 from .tokenizer import WordPieceTokenizer
@@ -141,6 +150,11 @@ class BertTorch:
         tp: Optional[int] = None,
     ):
         self.device = resolve_device(device, use_kernels)
+        if isinstance(loaded.config, ModernBertConfig) and (
+                mesh is not None or dp or tp):
+            raise NotImplementedError(
+                "ModernBERT runs on one device: a mesh (dp/tp) is not "
+                "supported for it")
         # multi-device execution: mesh OR dp/tp build a (data, model) mesh
         # over the process group's ranks; this rank computes on its device
         if mesh is None and (dp or tp):
@@ -163,6 +177,8 @@ class BertTorch:
         self.compute_dtype = compute_dtype
         self.use_kernels = use_kernels
         self.max_batch = max_batch
+        self._modern = modern = isinstance(self.config, ModernBertConfig)
+        model_cls = ModernBertModel if modern else BertModel
         self.seq_buckets = list(seq_buckets) if seq_buckets is not None else \
             default_seq_buckets(self.config.n_max_tokens)
         # Wire dtype of the device→host result copy. bf16 compute keeps 8
@@ -210,7 +226,11 @@ class BertTorch:
         state = self._place(loaded.params, compute_dtype)
         tp_group = axis_group(mesh, MODEL_AXIS)
         self._dp_group = axis_group(mesh, DATA_AXIS)
-        self.model = BertModel(state, self.config, tp_group).eval()
+        self.model = model_cls(state, self.config, tp_group).eval()
+        # attention launches of one batch, (full, band), counted for
+        # ModernBERT's readers
+        self._attention_per_batch = (self.model.attention_launches()
+                                     if modern else None)
         # W8A8 regime (ops/int8_matmul.py), opt-in as in bert_tpu: batches
         # of at least int8_threshold padded tokens run on a tree whose
         # matmul weights are per-column int8. With a nonzero threshold the
@@ -227,7 +247,7 @@ class BertTorch:
                     k: v for k, v in host_i8.items()
                     if isinstance(v, Int8Tensor)}},
                 torch.float32)["layers"]
-            self.model_int8 = BertModel(
+            self.model_int8 = model_cls(
                 {"embeddings": state["embeddings"],
                  "layers": {**state["layers"], **int8_layers}},
                 self.config, tp_group).eval()
@@ -348,6 +368,8 @@ class BertTorch:
                     plan = plan_buckets([lengths[i] for i in bucket_idx],
                                         self.seq_buckets, self.max_batch,
                                         min_batch=self._dp)
+                if plan.budget_splits:
+                    self.timers.add_budget_splits(plan.budget_splits)
                 for seq_b, batch_b, sub in plan.groups:
                     with self.timers.phase("dispatch.pack"):
                         idxs = [bucket_idx[j] for j in sub]
@@ -359,6 +381,9 @@ class BertTorch:
                         host, done = self._copy_to_host(
                             self._forward(ids, mask)[: len(idxs)])
                     self.timers.record_bucket(batch_b, seq_b)
+                    if self._attention_per_batch:
+                        self.timers.record_attention(
+                            batch_b, seq_b, *self._attention_per_batch)
                     pending.append((np.asarray(idxs), host, done))
         return pending
 
@@ -411,7 +436,7 @@ class BertTorch:
             plan = plan_packing([len(t) for t in tl], self._pack_seq,
                                 self._pack_segments)
         pending = []
-        row_cap = self.max_batch
+        row_cap = self._row_cap(self._pack_seq, self._min_rows)
         for start in range(0, plan.n_rows, row_cap):
             with self.timers.phase("dispatch.pack"):
                 end = min(plan.n_rows, start + row_cap)
@@ -427,6 +452,9 @@ class BertTorch:
                 host, done = self._copy_to_host(
                     self._forward_packed(ids, seg, pos, flat))
             self.timers.record_bucket(n_rows, self._pack_seq, kind="packed")
+            if self._attention_per_batch:
+                self.timers.record_attention(n_rows, self._pack_seq,
+                                             *self._attention_per_batch)
             orig = np.asarray([idxs[p.index] for p in pls])
             pending.append((orig, host, done))
         return pending
@@ -443,8 +471,12 @@ class BertTorch:
             ids = ids.astype(np.int64)
         r = local_rows(self.mesh, ids.shape[0])
 
+        # the forward is looked up at each capture: a test's recorder may
+        # stand in for bert_forward after the engine is built
+        fwd = modernbert_forward if self._modern else bert_forward
+
         def encode(ids, mask):
-            return self._wire(bert_forward(
+            return self._wire(fwd(
                 model, ids, mask, compute_dtype=self.compute_dtype,
                 use_kernels=self.use_kernels, pooling=self.pooling))
         if self._programs is None:
@@ -471,8 +503,11 @@ class BertTorch:
         d = self.config.n_embd
         r = local_rows(self.mesh, ids.shape[0])
 
+        fwd = (modernbert_forward_packed if self._modern
+               else bert_forward_packed)
+
         def encode_packed(ids, seg, pos):
-            return bert_forward_packed(
+            return fwd(
                 model, ids, seg, pos, n_segments=self._pack_segments,
                 compute_dtype=self.compute_dtype,
                 use_kernels=self.use_kernels, pooling=self.pooling)
@@ -496,6 +531,12 @@ class BertTorch:
         gather = self._programs.get((*key, flat_pad.size), gather_segments,
                                     {"flat": flat_pad})
         return gather(flat=flat_pad)[:n]
+
+    def _row_cap(self, seq: int, minimum: int) -> int:
+        """The most rows a batch at T = ``seq`` may hold (``row_cap``),
+        never below ``minimum``, the smallest batch the route forms: dp
+        bucketed, max(8, dp) packed."""
+        return row_cap(seq, self.max_batch, minimum)
 
     def _model_for(self, n_tokens: int) -> BertModel:
         """The model for a batch of ``n_tokens`` padded tokens (rows × T):
@@ -585,8 +626,17 @@ class BertTorch:
     def stats(self) -> dict:
         """Host-side phase timings + bucket execution counts, plus the
         load-phase breakdown (parse / emb_dequant / repack / quantize /
-        to_device, seconds)."""
+        to_device, seconds; ModernBERT: parse / relayout / quantize /
+        to_device). A ModernBERT engine adds its attention launches by
+        kind and shape (``attention``: "full 8x8192" / "band 8x8192"),
+        and any engine the row groups its token budget split
+        (``budget_splits``), where there are any."""
         out = self.timers.summary()
+        attention = self.timers.attention_summary()
+        if attention:
+            out["attention"] = attention
+        if self.timers.budget_splits:
+            out["budget_splits"] = self.timers.budget_splits
         out["load_phases"] = dict(self.load_phases)
         return out
 
@@ -637,10 +687,14 @@ class BertTorch:
                                       self.max_batch)
                                   for b in batch_sizes})
         for t in self.seq_buckets:
-            for b in batch_sizes:
+            # the token budget's row cap stands in for larger sizes: no
+            # batch above it can form
+            cap_t = self._row_cap(t, self._dp)
+            for b in sorted({min(b, cap_t) for b in batch_sizes}):
                 self._warm_shape(b, t, "bucketed")
         if self._packing:
-            cap = min(max_rows or self.max_batch, self.max_batch)
+            cap = min(max_rows or self.max_batch,
+                      self._row_cap(self._pack_seq, self._min_rows))
             for r in sorted({min(_size_bucket(r, self._min_rows), cap)
                              for r in range(1, cap + 1)}):
                 self._warm_shape(r, self._pack_seq, "packed")
@@ -681,6 +735,9 @@ class BertTorch:
                 rows = min(_round_up(rows, self._dp), self.max_batch)
                 seq = (self._pack_seq if kind == "packed"
                        else pick_bucket(seq, self.seq_buckets))
+                if rows > self._row_cap(seq, self._min_rows if kind ==
+                                        "packed" else self._dp):
+                    continue  # over the token budget: no such batch forms
                 shapes.add((rows, seq, kind))
         except (TypeError, KeyError, ValueError, AttributeError) as exc:
             _logger.warning("malformed warmup manifest shapes: %r", exc)

@@ -10,7 +10,9 @@ bit-exactly (no dequant/requant) into the group-local
 :class:`~bert_tpu_torch.quant.QuantTensor` layout; embedding tables are
 densified (gathers want dense rows; the values equal ggml's per-use
 dequantization). HF directories are read from ``model.safetensors`` (by the
-port's own reader, formats/safetensors.py) or ``pytorch_model.bin``.
+port's own reader, formats/safetensors.py) or ``pytorch_model.bin``; a
+directory whose ``config.json`` says ``"model_type": "modernbert"`` loads
+as ModernBERT (:func:`load_modernbert`, ``modernbert.py``).
 """
 
 from __future__ import annotations
@@ -204,6 +206,8 @@ def load_hf_model(model_dir: str,
     phases: Dict[str, float] = {}
     with open(os.path.join(model_dir, "config.json"), encoding="utf-8") as f:
         hf_cfg = json.load(f)
+    if hf_cfg.get("model_type") == "modernbert":
+        return load_modernbert(model_dir, hf_cfg, quantize_ftype)
     # the tanh-approximate GELU variants; plain "gelu" is exact erf
     approx_acts = ("gelu_new", "gelu_fast", "gelu_pytorch_tanh")
     config = BertConfig(
@@ -228,12 +232,40 @@ def load_hf_model(model_dir: str,
                                        quantize_ftype=quantize_ftype)
     phases["repack" if quantize_ftype is None else "quantize"] = round(
         time.perf_counter() - t0, 3)
+    return LoadedModel(config=config, params=params,
+                       vocab=_hf_vocab(model_dir, config),
+                       pooling=_detect_pooling(model_dir),
+                       load_phases=phases)
+
+
+def _hf_vocab(model_dir: str, config: BertConfig) -> Vocab:
     vocab = Vocab.from_vocab_txt(os.path.join(model_dir, "vocab.txt"))
     if len(vocab) > config.n_vocab:
         # added tokens beyond config vocab_size would emit ids past the
         # embedding table: truncate as the converter does
         vocab = Vocab.from_tokens(vocab.tokens[: config.n_vocab])
-    return LoadedModel(config=config, params=params, vocab=vocab,
+    return vocab
+
+
+def load_modernbert(model_dir: str, hf_cfg: dict,
+                    quantize_ftype: Optional[int] = None) -> LoadedModel:
+    """A ModernBERT checkpoint directory (``ModernBertModel`` or
+    ``ModernBertForMaskedLM`` tensors, with or without the ``model.``
+    prefix; the MaskedLM head is ignored). ``Wqkv``'s rows go to the
+    head-interleaved order (``relayout``); ``quantize_ftype`` quantizes
+    ``Wqkv``, ``Wo``, ``Wi`` and ``mlp.Wo`` (``quantize``). The front end
+    is WordPiece over the directory's ``vocab.txt`` (a byte-level BPE
+    ``tokenizer.json`` is not read)."""
+    from .modernbert import config_from_hf, params_from_named
+
+    phases: Dict[str, float] = {}
+    config = config_from_hf(hf_cfg, quantize_ftype or 0)
+    t0 = time.perf_counter()
+    named = _hf_state_dict(model_dir)
+    phases["parse"] = round(time.perf_counter() - t0, 3)
+    params = params_from_named(named, config, quantize_ftype, phases)
+    return LoadedModel(config=config, params=params,
+                       vocab=_hf_vocab(model_dir, config),
                        pooling=_detect_pooling(model_dir),
                        load_phases=phases)
 

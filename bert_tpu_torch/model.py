@@ -75,7 +75,7 @@ from .ops.layer_norm import (fused_layer_norm, fused_layer_norm_codes,
                              layer_norm_codes_plain, layer_norm_plain)
 from .ops.q4_matmul import q4_matmul, q4_matmul_plain
 from .parallel.collectives import copy_to_model, reduce_from_model
-from .params import BertConfig
+from .params import BertConfig, ModernBertConfig
 from .quant import QuantTensor
 
 
@@ -460,6 +460,10 @@ class TrainableBertModel(nn.Module):
     def __init__(self, params: Dict[str, Dict[str, torch.Tensor]],
                  config: BertConfig, tp_group=None):
         super().__init__()
+        if isinstance(config, ModernBertConfig):
+            raise NotImplementedError(
+                "training runs BERT encoders only; ModernBERT (modernbert.py)"
+                " is served, not fine-tuned, by this package")
         self.config = config
         self.tp_group = tp_group
         for group in ("embeddings", "layers"):

@@ -35,6 +35,13 @@ per-row int8 activation codes and scales, as
 rounded output, from the same registers: one more reduction a row, and
 no launch or read of the output to quantize it. Its plain version is
 :func:`layer_norm_plain`, then ``quantize_activations_i8_plain``.
+
+The add form (:func:`fused_add_layer_norm`, for pre-LN blocks:
+``modernbert.py``) takes a sublayer's product y (f32, or the stream's
+dtype) and the stream x and writes both the new stream ``s = y + x``, y
+rounded to the stream's dtype first and the sum rounded to it, and
+``LN(s)``, in one pass. Its plain version, :func:`add_layer_norm_plain`,
+computes the same bits.
 """
 
 from __future__ import annotations
@@ -198,3 +205,57 @@ def fused_layer_norm_codes(x: torch.Tensor, scale: torch.Tensor,
 
 fused_layer_norm.launches = 0  # kernel launches, counted where they happen
 fused_layer_norm_codes.launches = 0
+
+
+def add_layer_norm_plain(y, x, scale, bias, eps):
+    """Plain version of the add form: ``s = y.to(x.dtype) + x``, then
+    :func:`layer_norm_plain` of s; returns (s, LN(s))."""
+    s = y.to(x.dtype) + x
+    return s, layer_norm_plain(s, scale, bias, eps)
+
+
+def fused_add_layer_norm(y: torch.Tensor, x: torch.Tensor,
+                         scale: torch.Tensor, bias: torch.Tensor, *,
+                         eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pre-LN step: the new stream ``s = y + x`` (y rounded to x's
+    dtype, the sum rounded to it) and ``LN(s)``, both in x's dtype, from
+    one launch; y is x's dtype or an f32 product. CPU tensors take
+    :func:`add_layer_norm_plain`; CUDA tensors launch the kernel or
+    raise."""
+    if x.device.type == "cpu":
+        return add_layer_norm_plain(y, x, scale, bias, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_add_layer_norm: unsupported device "
+                         f"{x.device}")
+    d = x.shape[-1]
+    fn = _ENTRY.get((y.dtype, x.dtype))
+    if fn is None:
+        raise TypeError(f"fused_add_layer_norm: {y.dtype} -> {x.dtype} not "
+                        "in (f32 -> f32, bf16 -> bf16, f32 -> bf16)")
+    if (y.shape != x.shape or y.device != x.device
+            or not (y.is_contiguous() and x.is_contiguous())):
+        raise ValueError(f"fused_add_layer_norm: y and x must be contiguous "
+                         f"{tuple(x.shape)} on {x.device}")
+    for name, p in (("scale", scale), ("bias", bias)):
+        if (tuple(p.shape) != (d,) or p.dtype != torch.float32
+                or p.device != x.device or not p.is_contiguous()):
+            raise ValueError(f"fused_add_layer_norm: {name} must be "
+                             f"contiguous f32 [{d}] on {x.device}")
+    _check_alignment(y, x, None, scale, bias, x.dtype)
+    out = torch.empty_like(x)
+    s = torch.empty_like(x)
+    m = x.numel() // d
+    if m == 0:
+        return s, out
+    fn = fn.replace("layer_norm_", "layer_norm_add_")
+    lib = _kernels.library("layer_norm")
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, fn)(y.data_ptr(), x.data_ptr(), scale.data_ptr(),
+                              bias.data_ptr(), out.data_ptr(), s.data_ptr(),
+                              m, d, float(eps), _kernels.stream_of(x))
+    _kernels.check(rc, fn)
+    fused_add_layer_norm.launches += 1
+    return s, out
+
+
+fused_add_layer_norm.launches = 0

@@ -62,6 +62,40 @@ class BertConfig:
         )
 
 
+@dataclass(frozen=True)
+class ModernBertConfig(BertConfig):
+    """A ModernBERT encoder (answerdotai/ModernBERT-base's architecture;
+    ``bert_tpu_torch/modernbert.py``): pre-LN blocks, GeGLU of width
+    ``n_intermediate``, RoPE, and every ``global_attn_every``-th layer
+    (0, every, 2·every, ...) attending over all keys with θ
+    ``rope_theta_global``, the others over the keys within
+    ``local_window // 2`` positions either side, inclusive, with θ
+    ``rope_theta_local``. ``layer_norm_eps`` is its ``norm_eps``."""
+
+    arch: str = "modernbert"
+    global_attn_every: int = 3
+    local_window: int = 128
+    rope_theta_global: float = 160000.0
+    rope_theta_local: float = 10000.0
+
+    def is_global(self, layer: int) -> bool:
+        return layer % self.global_attn_every == 0
+
+    def window(self, layer: int) -> int:
+        """Layer ``layer``'s band half-width: 0 = every key."""
+        return 0 if self.is_global(layer) else self.local_window // 2
+
+    def rope_theta(self, layer: int) -> float:
+        return (self.rope_theta_global if self.is_global(layer)
+                else self.rope_theta_local)
+
+
+def config_class(meta: Dict[str, Any]):
+    """The config class of a saved config's fields."""
+    return ModernBertConfig if meta.get("arch") == "modernbert" else \
+        BertConfig
+
+
 # The params tree is a plain nested dict:
 # {
 #   "embeddings": {word [V,D], token_type [2,D], position [P,D],

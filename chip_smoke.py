@@ -183,6 +183,7 @@ import socket
 import statistics
 import struct
 import subprocess
+import tempfile
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -231,7 +232,19 @@ TOL = {"q4_matmul": {"f32": 1e-3, "bf16": 5e-2},
        "fused_layer_norm_codes": {"f32": 0.0, "bf16": 0.0},
        "fused_qkv_attention": {"f32": 2e-4, "bf16": 2e-2},
        "fused_layer_norm": {"f32": 1e-4, "bf16": 3e-2},
-       "multi_head_attention": {"f32": 1e-4, "bf16": 2e-2}}
+       "multi_head_attention": {"f32": 1e-4, "bf16": 2e-2},
+       # ModernBERT's forms: the fused attention's and the LayerNorm's
+       # tolerances; RoPE's pass and the add form's stream are held bit for
+       # bit
+       "rope_attention": {"f32": 2e-4, "bf16": 2e-2},
+       "rope_qkv": {"f32": 0.0, "bf16": 0.0},
+       "fused_add_layer_norm": {"f32": 1e-4, "bf16": 3e-2},
+       "add_layer_norm_stream": {"f32": 0.0, "bf16": 0.0}}
+
+# gte-modernbert-base's attention and stream at the doc_bulk cell's batches
+# (rows, T): H 12, dh 64, the local layers' band +-64
+MODERNBERT_SHAPES = ((8, 8192), (8, 1024))
+MODERNBERT_H, MODERNBERT_DH, MODERNBERT_WINDOW = 12, 64, 64
 
 REPLACES = {
     "q4_matmul": "bert_tpu/ops/q4_matmul.py:75 (_q4_matmul_kernel)",
@@ -677,10 +690,15 @@ def kernel_phase(dev, rng):
     # against the plain version and, bit for bit, the mma.sync instance (the
     # same products, each output summed in the same order), under graph
     # replay; two replays on the same input bit for bit; one launch by
-    # instance; at bert-base's shapes at M = 8,192 and 32,768, ragged edges
+    # instance; at bert-base's shapes at M = 8,192 and 32,768, ModernBERT's
+    # (gte-modernbert-base: K 768 -> N 2,304 for Wqkv and Wi, mlp.Wo's K
+    # 1,152 -> 768) at the doc_bulk cell's M, ragged edges
     log("kernel 1b: q4_matmul's wgmma instance (bf16, graph replay)")
     wg_shapes = [(m, k, n, what) for m in (8192, 32768)
                  for (k, n, what) in BERT_BASE_Q4]
+    wg_shapes += [(65536, 768, 2304, "ModernBERT Wqkv / Wi, 8 x 8,192"),
+                  (65536, 1152, 768, "ModernBERT mlp.Wo, 8 x 8,192"),
+                  (8192, 1152, 768, "ModernBERT mlp.Wo, 8 x 1,024")]
     wg_shapes += [(8192 + 37, 768, 784, "ragged M and N"),
                   (300, 3072, 784, "ragged, K 3,072"),
                   (4100, 768, 144, "N 144, a half-tile tail"),
@@ -881,6 +899,330 @@ def attention_f32_timing(dev, rng):
             f"{f64_err['kernel']:.3e}, plain {f64_err['plain']:.3e}")
         rows.append(r)
     return rows
+
+
+def band_tiles(t: int, window: int, bq: int = 64, bkv: int = 64) -> int:
+    """The key tiles of bkv that meet [q0 - window, q1 + window] for each
+    query block q0..q1 of bq rows: what the band kernel should visit for
+    one (batch row, head)."""
+    n = 0
+    for q0 in range(0, t, bq):
+        q1 = min(t, q0 + bq) - 1
+        n += min(t - 1, q1 + window) // bkv - max(0, q0 - window) // bkv + 1
+    return n
+
+
+def modernbert_kernel_phase(dev, rng):
+    """ModernBERT's kernel forms (bert_tpu_torch/modernbert.py), each held
+    against its plain version through the public wrappers: RoPE's pass on
+    q and k (in place in qkv, bit for bit), then the fused attention over
+    every key (the global layers: BERT's kernel) and over the band +-64
+    (the local layers), bf16 and f32, key-side padding, RoPE at the index
+    and, on packed rows (pairwise bias), at positions that restart per
+    segment; the band's visited key tiles against its launch geometry (an
+    atomic counter in the kernel); and the LayerNorm's add form (the new
+    stream bit for bit, its LN within the LayerNorm's tolerance). At the
+    doc_bulk cell's batches (8 x 8,192 and 8 x 1,024, H 12, dh 64) each is
+    timed in bf16 by graph replay (eager beside it) with its bound
+    (attention: operations 4·B·H·dh a pair the mask admits, bytes q, k, v
+    read and the context written once; RoPE: q and k read and written
+    once; the add form's y f32, x, s and LN(s) once) and SDPA on the
+    rotated q, k, v (the band as a boolean mask). Rows of 8,192 are
+    compared one batch row at a time: the plain version's scores of a row
+    are 3.2 GB."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from bert_tpu_torch.ops import fused_attention as FA
+    from bert_tpu_torch.ops import layer_norm as L
+    from gpubench.costs.attention import pairs as band_pairs
+
+    log("ModernBERT: RoPE, the band / full attention and the LayerNorm's "
+        "add form")
+    h, dh, w = MODERNBERT_H, MODERNBERT_DH, MODERNBERT_WINDOW
+    d = h * dh
+    heads = dict(n_head=h, d_head=dh)
+    scale = 1.0 / dh ** 0.5
+    rope = {th: FA.rope_tables(th, dh, 8192, dev)
+            for th in (160000.0, 10000.0)}
+    out = {"attention": [], "rope": [], "layer_norm": [], "max_abs_err": {}}
+
+    def qkv_of(b, t, dtype):
+        return torch.from_numpy(rng.standard_normal(
+            (b, t, 3 * d)).astype(np.float32)).to(dev).to(dtype)
+
+    def check_attention(b, t, dtype, window, pairwise=False):
+        dn = "f32" if dtype == torch.float32 else "bf16"
+        qkv = qkv_of(b, t, dtype)
+        bias = torch.from_numpy(attention_bias(rng, b, t, pairwise)).to(dev)
+        pos = None
+        if pairwise:  # two segments a row, positions restarting
+            half = np.arange(t) % (t // 2)
+            pos = torch.from_numpy(np.tile(half, (b, 1)).astype(
+                np.int32)).to(dev)
+        tab = rope[160000.0 if window == 0 else 10000.0]
+        what = (f"B={b} T={t} {'band' if window else 'full'} "
+                f"{'pairwise, positions' if pairwise else 'key-side'}")
+        plain_qkv = FA.rope_qkv_plain(qkv, *tab, pos, **heads)
+        before = FA.rope_qkv.launches
+        rot = FA.rope_qkv(qkv, *tab, pos, **heads)
+        require(FA.rope_qkv.launches == before + 1
+                and rot.data_ptr() == qkv.data_ptr(),
+                f"rope_qkv {what}: not one launch, in place")
+        compare("rope_qkv", rot, plain_qkv, dn, f"{what} RoPE")
+        del plain_qkv
+        tiles = torch.zeros(1, dtype=torch.int32, device=dev)
+        before = FA.fused_qkv_attention.launches
+        got = FA.fused_qkv_attention(
+            rot, bias, scale=scale, window=window,
+            tiles=tiles if window else None, **heads)
+        require(FA.fused_qkv_attention.launches == before + 1,
+                "rope attention: the wrapper did not launch the kernel")
+        err = 0.0
+        for r in sorted({0, b - 1}):  # the plain version a row at a time
+            want = FA.attention_plain(rot[r:r + 1], bias[r:r + 1],
+                                      scale=scale, window=window, **heads)
+            err = max(err, compare("rope_attention", got[r:r + 1], want, dn,
+                                   f"{what} row {r}"))
+            del want
+        if window:
+            want_tiles = b * h * band_tiles(t, window)
+            require(int(tiles.item()) == want_tiles,
+                    f"band {what}: the blocks visited {int(tiles.item())} "
+                    f"key tiles, the band meets {want_tiles}")
+            log(f"  ok  band tiles {what}: {int(tiles.item())} visited = "
+                f"launch geometry's {want_tiles} (full: "
+                f"{b * h * ((t + 63) // 64) ** 2})")
+        out["max_abs_err"][f"{dn} {what}"] = err
+        return rot, bias, tab
+
+    for b, t, pairwise in ((16, 64, True), (2, 1024, False),
+                           (1, 8192, False)):
+        for window in (0, w):
+            check_attention(b, t, torch.float32, window, pairwise)
+    for b, t in MODERNBERT_SHAPES:
+        for window in (0, w):
+            rot, bias, tab = check_attention(b, t, torch.bfloat16, window)
+
+            def kernel(rot=rot, bias=bias, window=window):
+                return FA.fused_qkv_attention(rot, bias, scale=scale,
+                                              window=window, **heads)
+            pairs = band_pairs(t, window)
+            flops = 4.0 * b * h * dh * pairs
+            nbytes = 2.0 * b * t * 4 * d
+            b_ms, b_by = bound(nbytes, flops, "bf16")
+            q5 = rot.view(b, t, h, 3, dh).permute(0, 2, 3, 1, 4)
+            q, k, v = (q5[:, :, i].contiguous() for i in range(3))
+            mask = (None if not window else
+                    torch.isfinite(FA.band_bias(t, window, dev)))
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale), reps=5, rounds=5)
+            r = dict(shape=f"B={b} T={t} H={h} dh={dh} "
+                     f"{'band +-%d' % window if window else 'full'} bf16",
+                     ms=time_ms(kernel, reps=5, rounds=5),
+                     eager_ms=eager_ms(kernel, reps=5, rounds=5),
+                     bound_ms=b_ms, bound_by=b_by, sdpa_ms=sdpa,
+                     pairs=pairs, roofline_pct=None)
+            r["roofline_pct"] = 100.0 * b_ms / r["ms"]
+            if t <= 1024:
+                r["plain_ms"] = time_ms(lambda: FA.attention_plain(
+                    rot, bias, scale=scale, window=window, **heads),
+                    reps=2, rounds=3)
+            out["attention"].append(r)
+            log(f"  {r['shape']}: kernel {r['ms']:.5f} ms (eager "
+                f"{r['eager_ms']:.5f}), bound {b_ms:.5f} ({b_by}, "
+                f"{r['roofline_pct']:.1f}%), SDPA {sdpa:.5f}"
+                + (f", plain {r['plain_ms']:.5f}" if "plain_ms" in r
+                   else ""))
+            del q, k, v, q5
+            if window:
+                continue
+            # RoPE's pass at the shape (it rotates in place: the timing
+            # rotates the same buffer again and again)
+            r = dict(shape=f"B={b} T={t} H={h} dh={dh} bf16",
+                     ms=time_ms(lambda: FA.rope_qkv(rot, *tab, **heads),
+                                reps=5, rounds=5),
+                     plain_ms=time_ms(lambda: FA.rope_qkv_plain(
+                         rot, *tab, **heads), reps=2, rounds=3))
+            r["bound_ms"], r["bound_by"] = bound(2.0 * b * t * 2 * d * 2,
+                                                 6.0 * b * t * d, "f32")
+            out["rope"].append(r)
+            log(f"  RoPE {r['shape']}: kernel {r['ms']:.5f} ms, bound "
+                f"{r['bound_ms']:.5f} ({r['bound_by']}), plain "
+                f"{r['plain_ms']:.5f}")
+            del rot
+
+    for m in (b * t for b, t in MODERNBERT_SHAPES):
+        for y_dtype, x_dtype in ((torch.float32, torch.bfloat16),
+                                 (torch.float32, torch.float32),
+                                 (torch.bfloat16, torch.bfloat16)):
+            dn = "f32" if x_dtype == torch.float32 else "bf16"
+            y = torch.from_numpy(rng.standard_normal((m, d)).astype(
+                np.float32)).to(dev).to(y_dtype)
+            x = torch.from_numpy(rng.standard_normal((m, d)).astype(
+                np.float32)).to(dev).to(x_dtype)
+            sc = torch.from_numpy(rng.standard_normal(d).astype(
+                np.float32)).to(dev)
+            zero = torch.zeros(d, device=dev)
+            before = L.fused_add_layer_norm.launches
+            s_k, ln_k = L.fused_add_layer_norm(y, x, sc, zero, eps=1e-5)
+            require(L.fused_add_layer_norm.launches == before + 1,
+                    "fused_add_layer_norm: the wrapper did not launch")
+            s_p, ln_p = L.add_layer_norm_plain(y, x, sc, zero, 1e-5)
+            what = f"M={m} D={d} {str(y_dtype)[6:]}->{str(x_dtype)[6:]}"
+            compare("add_layer_norm_stream", s_k, s_p, dn, what + " stream")
+            err = compare("fused_add_layer_norm", ln_k, ln_p, dn, what)
+            out["max_abs_err"][f"add {what}"] = err
+            if y_dtype == torch.float32 and x_dtype == torch.bfloat16:
+                nbytes = m * d * (4 + 2 + 2 + 2) + 2 * d * 4
+                b_ms, b_by = bound(nbytes, 12.0 * m * d, "f32")
+                r = dict(shape=what, bound_ms=b_ms, bound_by=b_by,
+                         ms=time_ms(lambda: L.fused_add_layer_norm(
+                             y, x, sc, zero, eps=1e-5)),
+                         eager_ms=eager_ms(lambda: L.fused_add_layer_norm(
+                             y, x, sc, zero, eps=1e-5)),
+                         plain_ms=time_ms(lambda: L.add_layer_norm_plain(
+                             y, x, sc, zero, 1e-5)),
+                         library_ms=time_ms(lambda: F.layer_norm(
+                             y.to(x_dtype) + x, (d,), sc.to(x_dtype))))
+                out["layer_norm"].append(r)
+                log(f"  add form {what}: kernel {r['ms']:.5f} ms (eager "
+                    f"{r['eager_ms']:.5f}), bound {b_ms:.5f} ({b_by}), "
+                    f"plain {r['plain_ms']:.5f}, cast + add + "
+                    f"F.layer_norm {r['library_ms']:.5f}")
+    log(f"modernbert kernels: {json.dumps(out)}")
+    return out
+
+
+def modernbert_engine_phase(dev):
+    """A ModernBERT checkpoint directory (gpubench's writer, random dense
+    weights: D 256, 4 heads of 64, 6 layers, every third global, band
+    +-8, 2,048 positions) through ``BertTorch.from_file(...,
+    quantize_ftype=2)`` on the card: ``encode_batch`` over texts of 3 to
+    2,000 tokens (the packed route for the short ones, the bucketed one
+    for the rest), ``encode_iter`` and ``EmbeddingServer``'s batch, in
+    bf16 and with ``int8_eval``, each against the plain reference
+    (tests/plain_modernbert.py, f32 with the same Q4_0 round trip) on the
+    card: the widest L2 gap of the embeddings. In bf16 a second
+    ``encode_batch`` (its programs captured by the first) launches per
+    batch what the route implies: 4·L ``q4_matmul`` (none of them the plain
+    version), L RoPE passes, L attentions (the global layers' full, the
+    others' band, as ``stats()["attention"]`` counts them), 2·L of the
+    LayerNorm's add form and one LayerNorm (the embeddings')."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from plain_modernbert import Reference
+
+    from bert_tpu_torch import BertTorch
+    from bert_tpu_torch._graphs import COUNTERS
+    from gpubench import corpus
+    from gpubench.archs import modernbert as arch
+
+    cfg = {"architectures": ["ModernBertModel"], "model_type": "modernbert",
+           "hidden_size": 256, "intermediate_size": 384,
+           "num_attention_heads": 4, "num_hidden_layers": 6,
+           "vocab_size": 30522, "max_position_embeddings": 2048,
+           "norm_eps": 1e-5, "global_attn_every_n_layers": 3,
+           "local_attention": 16, "global_rope_theta": 160000.0,
+           "local_rope_theta": 10000.0, "hidden_activation": "gelu",
+           "pooling": "cls",
+           "weights": {"ftype": "q4_0", "table_std": 0.05,
+                       "matrix_std": 0.04, "ln_weight_std": 0.1}}
+    log("ModernBERT engine: from_file(HF directory, quantize_ftype=2)")
+    w = arch.draw(cfg, 31, dev)
+    corp = corpus.load(cfg)
+    tok = corp.tokenizer()
+    sent = corp.sentences
+    texts = ([sent[i] for i in range(0, 60, 3)]
+             + [" ".join(sent[i:i + k]) for i, k in
+                ((0, 40), (50, 90), (200, 170), (400, 8))])
+    ref = Reference(w, cfg, dev).embed(
+        [tok(t, cfg["max_position_embeddings"]) for t in texts]
+    ).cpu().numpy()
+    gaps = {}
+    with tempfile.TemporaryDirectory() as d:
+        path, _ = arch.write(d, cfg, corp.vocab, w)
+        for label, kw in (("bf16", {}),
+                          ("int8_eval", {"int8_eval": True,
+                                         "int8_threshold": 0})):
+            eng = BertTorch.from_file(path, quantize_ftype=2, **kw)
+            got = eng.encode_batch(texts)
+            if label == "bf16":
+                got = modernbert_launches(eng, texts, cfg, COUNTERS)
+            it = np.concatenate(list(eng.encode_iter(texts, window=7)))
+            gaps[label] = float(np.linalg.norm(got - ref, axis=1).max())
+            require(np.abs(it - got).max() < 2e-3,
+                    f"modernbert {label}: encode_iter differs from "
+                    "encode_batch")
+            st = eng.stats()
+            log(f"  {label}: widest L2 gap to the plain reference "
+                f"{gaps[label]:.5f}; buckets {st['buckets']}; attention "
+                f"{st['attention']}; load {st['load_phases']}")
+            if label == "bf16":  # a text on the reference wire
+                from bert_tpu_torch.server import ServerThread
+
+                n = cfg["hidden_size"]
+                with ServerThread(eng) as st, socket.create_connection(
+                        ("127.0.0.1", st.port)) as sock:
+                    require(struct.unpack("<i", sock.recv(4)) == (n,),
+                            "modernbert server: n_embd")
+                    sock.sendall(texts[-2].encode("utf-8"))
+                    buf = b""
+                    while len(buf) < 4 * n:
+                        buf += sock.recv(4 * n - len(buf))
+                gaps["server"] = float(np.linalg.norm(
+                    np.frombuffer(buf, "<f4") - ref[-2]))
+            del eng
+            torch.cuda.empty_cache()
+    require(gaps["bf16"] < 0.05, f"modernbert bf16: gap {gaps['bf16']}")
+    require(gaps["int8_eval"] < 0.2,
+            f"modernbert int8_eval: gap {gaps['int8_eval']}")
+    log(f"modernbert engine: {json.dumps(gaps)}")
+    return gaps
+
+
+def modernbert_launches(eng, texts, cfg, counters):
+    """``encode_batch(texts)`` again, on the programs the first call
+    captured, with every launch counter zeroed first: the counts against
+    those the route implies for the batches it dispatched. Returns the
+    embeddings."""
+    st0 = eng.stats()
+    for c in counters:
+        c.launches = 0
+    got = eng.encode_batch(texts)
+    st1 = eng.stats()
+
+    def delta(key):
+        return {k: n - st0.get(key, {}).get(k, 0)
+                for k, n in st1.get(key, {}).items()
+                if n - st0.get(key, {}).get(k, 0)}
+    batches = sum(delta("buckets").values())
+    layers = cfg["num_hidden_layers"]
+    n_global = len(range(0, layers, cfg["global_attn_every_n_layers"]))
+    ran = {c.__name__: c.launches for c in counters}
+    want = {name: 0 for name in ran}
+    want.update({"q4_matmul": 4 * layers * batches,
+                 "rope_qkv": layers * batches,
+                 "fused_qkv_attention": layers * batches,
+                 "fused_add_layer_norm": 2 * layers * batches,
+                 "fused_layer_norm": batches,
+                 "q4_matmul.wgmma": ran["q4_matmul.wgmma"]})
+    kinds = {}
+    for key, n in delta("attention").items():
+        kinds[key.split()[0]] = kinds.get(key.split()[0], 0) + n
+    log(f"  launches of {batches} batches: {ran}; attention by kind "
+        f"{kinds}")
+    require(batches > 0 and ran == want,
+            f"modernbert engine: launches {ran}, the route implies {want}")
+    require(kinds == {"full": n_global * batches,
+                      "band": (layers - n_global) * batches},
+            f"modernbert engine: attention by kind {kinds}, not "
+            f"{n_global} full and {layers - n_global} band a batch")
+    return got
 
 
 def ln_kernel_phase(dev, rng):
@@ -1538,6 +1880,8 @@ PROFILE_NAMES = {
     "fused_layer_norm_codes": (("ln_rows_kernel", ", true>("),
                                ("ln_block_kernel", ", true>(")),
     "fused_qkv_attention": (("fused_attention_",),),
+    "fused_add_layer_norm": (("ln_add_",),),
+    "rope_qkv": (("rope_qkv_kernel",),),
     "multi_head_attention": (("mha_", "_kernel<"),),
     # forms (a) and (b), and form (c) (int8_matmul_gelu), are one kernel
     "int8_matmul": (("int8_matmul_kernel",),),
@@ -4574,6 +4918,14 @@ def main() -> int:
                 f"{name}: an instance spills: {line.strip()}")
 
     dev = torch.device("cuda")
+    # ModernBERT's kernel forms and engine (python3 chip_smoke.py
+    # --modernbert runs only these, after the build)
+    modernbert = {"kernels": modernbert_kernel_phase(
+        dev, np.random.default_rng(23)),
+        "engine": modernbert_engine_phase(dev)}
+    if "--modernbert" in sys.argv[1:]:
+        print(json.dumps({"ok": True, "modernbert": modernbert}), flush=True)
+        return 0
     # one generator per phase, so that checks added to one phase leave the
     # requests of the others as they were
     results = kernel_phase(dev, np.random.default_rng(17))

@@ -24,6 +24,7 @@ runs:
 """
 
 import contextlib
+import gc
 import sys
 import threading
 from types import SimpleNamespace
@@ -191,6 +192,20 @@ def test_capture_counted_takes_the_capture_back():
     for _ in range(4):  # each replay counts once
         _graphs.add_launches(counters, delta)
     assert [c.launches for c in counters] == [20, 5, 2]
+
+
+def test_capture_runs_with_the_collector_off():
+    """No garbage collection inside a capture (it could free a dead graph
+    there); the collector is on again after it, also when it raises."""
+    seen = []
+    _graphs.capture_counted([], lambda: seen.append(gc.isenabled()))
+    assert seen == [False] and gc.isenabled()
+
+    def fails():
+        raise RuntimeError("capture invalidated")
+    with pytest.raises(RuntimeError):
+        _graphs.capture_counted([], fails)
+    assert gc.isenabled()
 
 
 class _FakeGraph:
