@@ -94,12 +94,12 @@ from .ops.layer_norm import (fused_add_layer_norm, fused_layer_norm,
 from .ops.q4_matmul import q4_matmul
 from .parallel.collectives import Collective, recording
 
-# every kernel wrapper's launch counter, and q4_matmul's count of its
-# wgmma instance
+# every kernel wrapper's launch counter, and q4_matmul's counts of its
+# wgmma instance and of that instance's bf16 epilogue
 COUNTERS = (q4_matmul, fused_layer_norm, fused_layer_norm_codes,
             fused_qkv_attention, multi_head_attention, int8_matmul,
             int8_matmul_gelu, quantize_activations_i8, q4_matmul.wgmma,
-            fused_add_layer_norm, rope_qkv)
+            fused_add_layer_norm, rope_qkv, q4_matmul.wgmma_bf16)
 
 
 def capture_counted(counters: Sequence, capture: Callable[[], None]

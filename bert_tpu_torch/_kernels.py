@@ -38,8 +38,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "q4_matmul": {
         # x, packed, scales, mins (nullable), out, M, K, N, stream
-        f"q4_matmul_{t}": [_P, _P, _P, _P, _P, _I, _I, _I, _P]
-        for t in ("f32", "bf16", "bf16_wgmma")
+        **{f"q4_matmul_{t}": [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+           for t in ("f32", "bf16", "bf16_wgmma")},
+        # the wgmma instance's bf16 form: x, packed, scales, mins, bias
+        # (nullable), out, M, K, N, stream
+        "q4_matmul_bf16_wgmma_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _P],
     },
     "layer_norm": {
         # x, residual (nullable), pre_bias (nullable), scale, bias, out,

@@ -1,5 +1,6 @@
 // Fused Q4 dequantize + matmul for Hopper (sm_90a): out[M,N] (f32) =
-// x[M,K] @ dequant(W)[K,N], with W in the group-local layout of
+// x[M,K] @ dequant(W)[K,N] (the bulk-M instance also in a bf16 form with
+// the bias in its epilogue, below), with W in the group-local layout of
 // bert_tpu_torch/quant.py: packed[K/2,N] uint8, where packed row 32g+r holds
 // logical row 64g+r in its low nibble and row 64g+32+r in its high nibble;
 // scales[K/32,N] f32 and, for Q4_1, mins[K/32,N] f32.
@@ -122,6 +123,20 @@
 //    128-byte swizzle, and one thread stores them by TMA; the warps go on
 //    while the copy engine drains, so the next tile's products overlap the
 //    f32 output's write.
+//  - The bf16 form (q4_matmul_bf16_wgmma_bf16): the epilogue rounds each
+//    accumulator to bf16 and, given a bf16 bias [N], adds it in f32 and
+//    rounds again, r(r(p) + b): bit for bit the f32 form, then the cast,
+//    then the bias add, the three launches it replaces after the QKV and
+//    FFN-up products. A thread's columns are two W^T rows, so it loads
+//    two bias values a tile, before the tile's products. Tokens come in
+//    pairs of a column, rounded by one cvt a pair; the half tile is one
+//    box of 128-byte rows in the same swizzle, one TMA store, and the
+//    consumer's two boxes alternate, so a box is written while the other
+//    drains: half the staged bytes and half the stored ones. At bert-base's
+//    QKV and FFN-up at M = 8,192 it took 0.054 and 0.067 ms against the f32
+//    form's 0.063 and 0.079 (PERF.md). GELU does not go here: in this
+//    epilogue (erff on every output, on the consumers' critical path) it
+//    took 1.3-1.5x the bf16 form then F.gelu's launch.
 //  - Tail: where the last round of tiles would fill at most half the SMs,
 //    its tiles are cut into 128-token halves (wgmma.m64n128k16) so that
 //    twice as many SMs share it.
@@ -641,9 +656,9 @@ constexpr int THREADS = 3 * 128;  // two consumer warpgroups, the producer
 // registers a thread after setmaxnreg: 168 each at launch (65,536 / 384);
 // the producer's go to the consumers
 constexpr int REG_P = 40, REG_C = 232;
-// an epilogue box: 128 tokens x 32 columns of f32, rows of 128 bytes in
-// the 128-byte swizzle, as the output's tensor map stores it
-constexpr int OUT_T = 128, OUT_N = 32;
+// an epilogue box: 128 tokens x 32 columns of f32 or 64 of bf16, rows of
+// 128 bytes in the 128-byte swizzle, as the output's tensor map stores it
+constexpr int OUT_T = 128, OUT_N = 32, BOX_BYTES = OUT_T * 128;
 
 struct Smem {
   // as TMA writes them: x tiles in 128-byte rows (one row a token) and the
@@ -651,8 +666,9 @@ struct Smem {
   // j ^ (r % 8)); the x tile is what the wgmma's B descriptor reads
   alignas(1024) bf16 x[STAGES][BT][BK];
   alignas(1024) uint8_t band[STAGES][QK][WBN];
-  // each consumer's half tile of output (its 64 columns as two boxes)
-  alignas(1024) float out[2][2][OUT_T][OUT_N];
+  // each consumer's two boxes: in f32 the two halves of its 64 columns of
+  // half a tile; in bf16 a whole half tile each, used in turns
+  alignas(1024) uint8_t out[2][2][BOX_BYTES];
   alignas(128) float sc[STAGES][2][WBN];
   alignas(128) float mn[STAGES][2][WBN];
   uint64_t full[STAGES], empty[STAGES];
@@ -837,7 +853,7 @@ __device__ __forceinline__ void store_half(Smem& s, const float (&acc)[BT / 2],
       const float v0 = acc[a], v1 = acc[a + 1];
       const float got = __shfl_xor_sync(~0u, odd ? v0 : v1, 4);
       const int t = 8 * j + 2 * q + odd, c = n + 8 * r - odd;
-      float* box = &s.out[w][c >> 5][0][0];
+      float* box = reinterpret_cast<float*>(s.out[w][c >> 5]);
       *reinterpret_cast<float2*>(
           box + t * OUT_N + ((((c & 31) >> 2) ^ (t & 7)) << 2) + (c & 3)) =
           odd ? make_float2(got, v1) : make_float2(v0, got);
@@ -845,12 +861,76 @@ __device__ __forceinline__ void store_half(Smem& s, const float (&acc)[BT / 2],
   hopper::fence_proxy_async();
   hopper::named_bar_sync(1 + w, 128);
   if (lead) {
-    hopper::tma_store_2d(map, &s.out[w][0][0][0], n0 + 64 * w,
-                         t0 + H * OUT_T);
-    hopper::tma_store_2d(map, &s.out[w][1][0][0], n0 + 64 * w + OUT_N,
+    hopper::tma_store_2d(map, s.out[w][0], n0 + 64 * w, t0 + H * OUT_T);
+    hopper::tma_store_2d(map, s.out[w][1], n0 + 64 * w + OUT_N,
                          t0 + H * OUT_T);
     hopper::bulk_commit();
   }
+}
+
+// The bf16 form's outputs of one column at two tokens, as a bf16 pair
+// (the first token in the low half): r(p), or with the bias r(r(p) + b),
+// b a bf16 and so exact as a float; r rounds to nearest even, one
+// instruction a pair. The cast and the bias add launched after the f32
+// form compute the same.
+template <bool HAS_B>
+__device__ __forceinline__ uint32_t finish(float p0, float p1, float b) {
+  const uint32_t r = hopper::pack_bf16(p0, p1);
+  if constexpr (!HAS_B) return r;
+  const float2 f = hopper::unpack_bf16(r);
+  return hopper::pack_bf16(__fadd_rn(f.x, b), __fadd_rn(f.y, b));
+}
+
+// The bf16 form's store_half: tokens 128 H.. of the consumer's tile in one
+// box of 128 tokens x its 64 columns (rows of 128 bytes), stored by one TMA
+// store; the consumer's two boxes in turns (`stores` counts its stores),
+// so that a box is written while the other's store drains. The thread
+// finishes its own outputs of each 8 tokens (columns n and n + 8, bias
+// bv[0] and bv[1]), a pair of tokens a column, then lanes g and g ^ 1 swap
+// a word of two bf16, one a column, as store_half swaps its floats: each
+// then writes pairs of neighbouring columns, a warp eight tokens x 16
+// bytes, all banks.
+template <int H, bool HAS_B>
+__device__ __forceinline__ void store_half_bf16(
+    Smem& s, const float (&acc)[BT / 2], const CUtensorMap* map, int t0,
+    int n0, const float (&bv)[2], uint32_t& stores) {
+  const int w = threadIdx.x >> 7, lane = threadIdx.x & 31, q = lane & 3;
+  const bool odd = (lane >> 2) & 1, lead = (threadIdx.x & 127) == 0;
+  const int n = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);  // 0..63
+  uint8_t* box = s.out[w][stores & 1];
+  // the store that last read this box (two stores ago) is done with it
+  if (lead) hopper::bulk_wait_read<1>();
+  hopper::named_bar_sync(1 + w, 128);
+#pragma unroll
+  for (int j = 0; j < OUT_T / 8; ++j) {
+    const int a = 4 * (j + H * OUT_T / 8);
+    // columns n and n + 8 at tokens 8j + 2q (low halves) and + 1 (high)
+    const uint32_t y0 = finish<HAS_B>(acc[a], acc[a + 1], bv[0]);
+    const uint32_t y1 = finish<HAS_B>(acc[a + 2], acc[a + 3], bv[1]);
+    // the even lane keeps token 8j + 2q and sends the high halves; the odd
+    // one keeps 8j + 2q + 1 and sends the low halves
+    const uint32_t got = __shfl_xor_sync(
+        ~0u, odd ? __byte_perm(y0, y1, 0x5410) : __byte_perm(y0, y1, 0x7632),
+        4);
+    const uint32_t word[2] = {
+        odd ? __byte_perm(got, y0, 0x7610) : __byte_perm(y0, got, 0x5410),
+        odd ? __byte_perm(got, y1, 0x7632) : __byte_perm(y1, got, 0x7610)};
+    const int t = 8 * j + 2 * q + odd;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int c = n + 8 * r - odd;  // the pair's first column, even
+      *reinterpret_cast<uint32_t*>(
+          box + t * 128 + (((c >> 3) ^ (t & 7)) << 4) + ((c & 7) << 1)) =
+          word[r];
+    }
+  }
+  hopper::fence_proxy_async();
+  hopper::named_bar_sync(1 + w, 128);
+  if (lead) {
+    hopper::tma_store_2d(map, box, n0 + 64 * w, t0 + H * OUT_T);
+    hopper::bulk_commit();
+  }
+  ++stores;
 }
 
 // The block's tiles, the same order for every role: t = blockIdx.x, +
@@ -871,19 +951,32 @@ struct Tiles {
   }
 };
 
-template <bool Q41>
+template <bool Q41, bool BF16>
 __device__ __forceinline__ void consumer(Smem& s, const CUtensorMap* map,
-                                         const Tiles& tl, int groups) {
+                                         const Tiles& tl, int groups,
+                                         const bf16* __restrict__ bias,
+                                         int N) {
   // this thread's W^T rows: 64 a consumer warpgroup, 16 a warp
   const int n_in = 64 * (threadIdx.x >> 7) + 16 * ((threadIdx.x >> 5) & 3) +
                    ((threadIdx.x & 31) >> 2);
+  const bool has_b = bias != nullptr;
   float acc[BT / 2];
   uint32_t fa[4][4], fb[4][4];
   int q = 0;
+  uint32_t stores = 0;
   for (int v = blockIdx.x; v < tl.count; v += gridDim.x) {
     int t0, n0;
     bool half;
     tl.at(v, t0, n0, half);
+    // the bias of this thread's two columns, loaded before the products
+    // so that its latency hides behind them
+    float bv[2] = {0.f, 0.f};
+    if (BF16 && has_b) {
+      for (int r = 0; r < 2; ++r) {
+        const int n = n0 + n_in + 8 * r;
+        bv[r] = n < N ? __bfloat162float(bias[n]) : 0.f;
+      }
+    }
     for (int g = 0; g < groups; g += 2) {
       group<Q41>(s, acc, fa, fb, n_in, g, half, q);
       if (g + 1 < groups) group<Q41>(s, acc, fb, fa, n_in, g + 1, half, q);
@@ -895,8 +988,16 @@ __device__ __forceinline__ void consumer(Smem& s, const CUtensorMap* map,
       hopper::mbar_arrive(&s.empty[(q + STAGES - 1) % STAGES]);
 #pragma unroll
     for (int j = 0; j < BT / 2; ++j) hopper::fence_operand(acc[j]);
-    store_half<0>(s, acc, map, t0, n0);
-    if (!half) store_half<1>(s, acc, map, t0, n0);
+    if constexpr (!BF16) {
+      store_half<0>(s, acc, map, t0, n0);
+      if (!half) store_half<1>(s, acc, map, t0, n0);
+    } else if (has_b) {
+      store_half_bf16<0, true>(s, acc, map, t0, n0, bv, stores);
+      if (!half) store_half_bf16<1, true>(s, acc, map, t0, n0, bv, stores);
+    } else {
+      store_half_bf16<0, false>(s, acc, map, t0, n0, bv, stores);
+      if (!half) store_half_bf16<1, false>(s, acc, map, t0, n0, bv, stores);
+    }
   }
   if ((threadIdx.x & 127) == 0) hopper::bulk_wait<0>();
 }
@@ -908,10 +1009,12 @@ struct Maps {  // TMA descriptors: Q4 operands as above, and the output
 // Roles (threads): consumers 0-255, then the producer's warpgroup, of which
 // one thread works. Tiles t = blockIdx.x, + gridDim.x, ..., token-block
 // major; q counts the block's K groups over its tiles, and group q uses
-// ring stage q % STAGES.
+// ring stage q % STAGES. BF16: the output's form (below); bias (bf16
+// form; null: none) is the output columns' [N].
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
     q4_matmul_wgmma_kernel(const __grid_constant__ Maps maps, Tiles tl, int K,
-                           int q4_1) {
+                           int N, int q4_1, const bf16* __restrict__ bias) {
   extern __shared__ unsigned char smem_raw[];
   // aligned by an offset from smem_raw, not through an integer, so that
   // the compiler still knows it for shared memory (LDS, not generic loads)
@@ -955,19 +1058,23 @@ __global__ void __launch_bounds__(THREADS, 1)
   } else {
     hopper::setmaxnreg_inc<REG_C>();
     if (q4_1)
-      consumer<true>(s, &maps.out, tl, groups);
+      consumer<true, BF16>(s, &maps.out, tl, groups, bias, N);
     else
-      consumer<false>(s, &maps.out, tl, groups);
+      consumer<false, BF16>(s, &maps.out, tl, groups, bias, N);
   }
 }
 
+// The output's forms: the f32 product (BF16 false); or the product rounded
+// to bf16, plus a bf16 bias rounded again, r(r(p) + b): what the cast and
+// the bias add after the f32 form compute, bit for bit.
+template <bool BF16>
 int launch(const void* x, const void* packed, const void* scales,
-           const void* mins, void* out, int M, int K, int N,
-           cudaStream_t stream) {
+           const void* mins, const void* bias, void* out, int M, int K,
+           int N, cudaStream_t stream) {
   constexpr int smem = sizeof(Smem) + 1024;
+  const auto kernel = q4_matmul_wgmma_kernel<BF16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      q4_matmul_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   Maps maps;
   memset(&maps, 0, sizeof(maps));
@@ -984,9 +1091,13 @@ int launch(const void* x, const void* packed, const void* scales,
        hopper::encode_map(&maps.mn, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, mins, N,
                           K / QK, (uint64_t)N * 4, WBN, 2,
                           CU_TENSOR_MAP_SWIZZLE_NONE)) &&
-      hopper::encode_map(&maps.out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, out, N,
-                         M, (uint64_t)N * 4, OUT_N, OUT_T,
-                         CU_TENSOR_MAP_SWIZZLE_128B);
+      (!BF16
+           ? hopper::encode_map(&maps.out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                out, N, M, (uint64_t)N * 4, OUT_N, OUT_T,
+                                CU_TENSOR_MAP_SWIZZLE_128B)
+           : hopper::encode_map(&maps.out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                out, N, M, (uint64_t)N * 2, 2 * OUT_N, OUT_T,
+                                CU_TENSOR_MAP_SWIZZLE_128B));
   if (!ok) return (int)cudaErrorInvalidValue;
   // the last round's tiles are cut in halves where that round would fill
   // at most half the SMs
@@ -998,8 +1109,8 @@ int launch(const void* x, const void* packed, const void* scales,
   tl.split = 2 * last <= sms ? tiles - last : tiles;
   tl.count = tl.split + 2 * (tiles - tl.split);
   const int grid = tl.count < sms ? tl.count : sms;
-  q4_matmul_wgmma_kernel<<<grid, THREADS, smem, stream>>>(maps, tl, K,
-                                                         mins != nullptr);
+  kernel<<<grid, THREADS, smem, stream>>>(maps, tl, K, N, mins != nullptr,
+                                          (const bf16*)bias);
   return (int)cudaGetLastError();
 }
 
@@ -1029,6 +1140,17 @@ extern "C" int q4_matmul_bf16_wgmma(const void* x, const void* packed,
                                     void* out, int M, int K, int N,
                                     void* stream) {
   if (!valid(M, K, N) || N % 16 != 0) return (int)cudaErrorInvalidValue;
-  return wg::launch(x, packed, scales, mins, out, M, K, N,
-                    (cudaStream_t)stream);
+  return wg::launch<false>(x, packed, scales, mins, nullptr, out, M, K, N,
+                           (cudaStream_t)stream);
+}
+
+// The same instance writing bf16 out[M, N] with the bias (bf16 [N],
+// nullable) in its epilogue: r(r(p) + b), or r(p) without one.
+extern "C" int q4_matmul_bf16_wgmma_bf16(const void* x, const void* packed,
+                                         const void* scales, const void* mins,
+                                         const void* bias, void* out, int M,
+                                         int K, int N, void* stream) {
+  if (!valid(M, K, N) || N % 16 != 0) return (int)cudaErrorInvalidValue;
+  return wg::launch<true>(x, packed, scales, mins, bias, out, M, K, N,
+                          (cudaStream_t)stream);
 }

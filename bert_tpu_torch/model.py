@@ -116,30 +116,27 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
     first and the bias added after, in x's dtype, as
     ``bert_tpu.model.dense`` does. ``f32_out`` (no bias)
     hands back the f32 product unrounded, for a consumer that rounds it
-    itself: the LayerNorm's f32-input form saves the cast's launch. An
-    Int8Weight's product does the cast and the bias add in the kernel's
-    epilogue (the same bits, two launches fewer)."""
+    itself: the LayerNorm's f32-input form saves the cast's launch. A
+    QuantTensor's or an Int8Weight's product takes the bias and x's dtype
+    to its wrapper, whose kernel does the cast and the bias add in its
+    epilogue where it can (the same bits, two launches fewer); a bias
+    already in x's dtype (the serving model holds it so) is not cast."""
     if f32_out and b is not None:
         raise ValueError("dense: f32_out takes no bias")
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    if isinstance(w, Int8Weight):
-        y = (int8_matmul_plain if _plain(use_kernels, x2) else int8_matmul)(
-            x2, w, None if b is None else b.to(x.dtype),
-            torch.float32 if f32_out else x.dtype)
-        return y.reshape(*shape[:-1], w.n)
-    if isinstance(w, QuantTensor):
-        y = (q4_matmul_plain if _plain(use_kernels, x2) else q4_matmul)(x2, w)
-        n = w.n
-    else:
-        y = torch.matmul(x2.float(), w.to(x.dtype).float())
-        n = w.shape[-1]
-    if not f32_out:
-        y = y.to(x.dtype)
-    y = y.reshape(*shape[:-1], n)
-    if b is not None:
-        y = y + b.to(x.dtype)
-    return y
+    b = None if b is None else b.to(x.dtype)
+    out_dtype = torch.float32 if f32_out else x.dtype
+    if isinstance(w, (Int8Weight, QuantTensor)):
+        plain = _plain(use_kernels, x2)
+        if isinstance(w, QuantTensor):
+            fn = q4_matmul_plain if plain else q4_matmul
+        else:
+            fn = int8_matmul_plain if plain else int8_matmul
+        return fn(x2, w, b, out_dtype).reshape(*shape[:-1], w.n)
+    y = torch.matmul(x2.float(), w.to(x.dtype).float()).to(out_dtype)
+    y = y.reshape(*shape[:-1], w.shape[-1])
+    return y if b is None else y + b
 
 
 def dense_codes(x: torch.Tensor, codes: Codes, w: Int8Weight,

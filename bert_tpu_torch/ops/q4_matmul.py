@@ -1,4 +1,5 @@
-"""Fused INT4-dequant + matmul: ``x[M, K] @ dequant(W)[K, N] → f32[M, N]``.
+"""Fused INT4-dequant + matmul: ``x[M, K] @ dequant(W)[K, N] → f32[M, N]``,
+or rounded to bf16 with a bias added.
 
 Counterpart of ``bert_tpu/ops/q4_matmul.py``. On the H100 the fused kernel
 is ``bert_tpu_torch/csrc/q4_matmul.cu`` (it replaces the Pallas
@@ -13,9 +14,19 @@ which is what the JAX model runs on a CPU. Its rounding differs from the
 kernel's in one place: it multiplies code and scale in x's dtype (so a
 bf16 x rounds the scale to bf16 first), where the kernel dequantizes in
 f32 and rounds the weight once, as the Pallas kernel does.
+
+Both take ``bias`` and ``out_dtype`` as ``int8_matmul`` does: the f32
+product rounded to ``out_dtype`` (f32 by default), then ``+ bias`` in that
+dtype, rounded again: the cast and the bias add bert_tpu's ``dense`` runs
+after its product. Where :func:`fused_epilogue` says so (the wgmma
+instance, bf16 out) the kernel does both in its epilogue, bit for bit the
+same, and writes bf16; elsewhere the wrapper launches them after the f32
+product.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -28,8 +39,9 @@ from ..quant import GROUP, QK, QuantTensor
 #   At bulk M the product is bound by operations (bert-base's QKV at M =
 #   8,192: 29 GFLOP, 29 us at 989 TFLOP/s, against 15 us of bytes), and
 #   only wgmma reaches the tensor cores' full rate: persistent blocks whose
-#   consumers dequantize W into wgmma's register operand and store the f32
-#   output by TMA while the next tile's products run.
+#   consumers dequantize W into wgmma's register operand and store the
+#   output by TMA while the next tile's products run: f32, or (bf16 out)
+#   rounded to bf16 with the bias added in the epilogue.
 # - Below WGMMA_MIN_M, at N % 16 != 0 (no TMA), and for f32: the mma.sync
 #   instances, 64-row tiles, one a block, whose many small blocks suit
 #   small M, where the grid and the per-group latency set the time.
@@ -71,12 +83,23 @@ def q4_dequantize(qt: QuantTensor, dtype: torch.dtype = torch.float32
     return w3.reshape(half * 2, n)
 
 
-def q4_matmul_plain(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+def _finish(y: torch.Tensor, bias: Optional[torch.Tensor],
+            out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The f32 product ``y`` rounded to ``out_dtype`` (None: f32), then
+    ``+ bias`` in that dtype, each a launch of its own on the card."""
+    y = y if out_dtype is None else y.to(out_dtype)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def q4_matmul_plain(x: torch.Tensor, qt: QuantTensor,
+                    bias: Optional[torch.Tensor] = None,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version: dequantize in x's dtype, multiply with f32
-    accumulation (mirrors ``_q4_matmul_jnp``). TF32 is off package-wide,
-    so on the card this is a true f32 product."""
+    accumulation (mirrors ``_q4_matmul_jnp``), then round to ``out_dtype``
+    and add ``bias`` (the module docstring). TF32 is off package-wide, so
+    on the card this is a true f32 product."""
     w = q4_dequantize(qt, dtype=x.dtype)
-    return torch.matmul(x.float(), w.float())
+    return _finish(torch.matmul(x.float(), w.float()), bias, out_dtype)
 
 
 def _check_operands(x: torch.Tensor, qt: QuantTensor) -> None:
@@ -102,6 +125,22 @@ def _check_operands(x: torch.Tensor, qt: QuantTensor) -> None:
                              f"{x.device}")
     if not x.is_contiguous():
         raise ValueError("q4_matmul: x must be contiguous")
+
+
+def _check_out(bias: Optional[torch.Tensor], out_dtype: torch.dtype, n: int,
+               device: torch.device) -> None:
+    """``out_dtype`` f32 or bf16, and a bias, if any, contiguous ``[N]`` in
+    ``out_dtype`` on x's device."""
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q4_matmul: out_dtype {out_dtype} not in (f32, "
+                        "bf16)")
+    if bias is not None and (tuple(bias.shape) != (n,)
+                             or bias.dtype != out_dtype
+                             or bias.device != device
+                             or not bias.is_contiguous()):
+        raise ValueError(f"q4_matmul: bias must be contiguous {out_dtype} "
+                         f"({n},) on {device}, got {bias.dtype} "
+                         f"{tuple(bias.shape)} on {bias.device}")
 
 
 def load_alignment(n: int) -> dict:
@@ -132,25 +171,36 @@ _ENTRY = {(torch.float32, "mma"): "q4_matmul_f32",
           (torch.bfloat16, "wgmma"): "q4_matmul_bf16_wgmma"}
 
 
-def _launch(x: torch.Tensor, qt: QuantTensor, instance: str = "mma"
-            ) -> torch.Tensor:
+def _launch(x: torch.Tensor, qt: QuantTensor, instance: str = "mma",
+            bias: Optional[torch.Tensor] = None,
+            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One launch into a new [M, N] ``out_dtype``: the f32 product, or (the
+    wgmma instance only) its bf16 form with ``bias`` in the epilogue."""
     m, k = x.shape
     n = qt.packed.shape[-1]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
     _check_alignment(x, qt)
-    fn = _ENTRY[x.dtype, instance]
+    ptrs = (x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
+            None if qt.mins is None else qt.mins.data_ptr())
+    stream = _kernels.stream_of(x)
     lib = _kernels.library("q4_matmul")
     with torch.cuda.device(x.device):
-        rc = getattr(lib, fn)(
-            x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
-            None if qt.mins is None else qt.mins.data_ptr(), out.data_ptr(),
-            m, k, n, _kernels.stream_of(x))
+        if out_dtype == torch.float32:
+            fn = _ENTRY[x.dtype, instance]
+            rc = getattr(lib, fn)(*ptrs, out.data_ptr(), m, k, n, stream)
+        else:
+            fn = "q4_matmul_bf16_wgmma_bf16"
+            rc = getattr(lib, fn)(
+                *ptrs, None if bias is None else bias.data_ptr(),
+                out.data_ptr(), m, k, n, stream)
     _kernels.check(rc, fn)
     q4_matmul.launches += 1
     if instance == "wgmma":
         q4_matmul.wgmma.launches += 1
+    if out_dtype == torch.bfloat16:
+        q4_matmul.wgmma_bf16.launches += 1
     return out
 
 
@@ -167,22 +217,42 @@ def route(m: int, n: int, dtype: torch.dtype, device_type: str) -> str:
     return "mma"
 
 
-def q4_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
-    """``x[M, K] @ dequant(qt)[K, N] → f32[M, N]``.
+def fused_epilogue(m: int, n: int, dtype: torch.dtype,
+                   out_dtype: torch.dtype, device_type: str) -> bool:
+    """Whether ``q4_matmul`` on x[m, K] of ``dtype`` against N = ``n``
+    columns writes ``out_dtype`` with the bias from the kernel's epilogue
+    (one launch), rather than casting its f32 product and adding the bias
+    after it: the wgmma instance's bf16 form, bf16 out where
+    :func:`route` gives ``"wgmma"``."""
+    return (out_dtype == torch.bfloat16
+            and route(m, n, dtype, device_type) == "wgmma")
+
+
+def q4_matmul(x: torch.Tensor, qt: QuantTensor,
+              bias: Optional[torch.Tensor] = None,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x[M, K] @ dequant(qt)[K, N]`` rounded to ``out_dtype`` (None: the
+    f32 product as it is), plus ``bias`` (``[N]`` in ``out_dtype``).
 
     CPU tensors take :func:`q4_matmul_plain`. CUDA tensors launch a kernel
-    (or raise), the instance :func:`route` picks; only an f32 x of more
-    than :func:`fused_max_m` rows takes the router's other branch,
-    dequantize-then-matmul, as the JAX package sends it to XLA's dot."""
-    if x.device.type == "cpu":
-        return q4_matmul_plain(x, qt)
-    if x.device.type != "cuda":
+    (or raise), the instance :func:`route` picks, with the cast and the
+    bias in its epilogue where :func:`fused_epilogue` says so, else
+    launched after it; only an f32 x of more than :func:`fused_max_m` rows
+    takes the router's other branch, dequantize-then-matmul, as the JAX
+    package sends it to XLA's dot."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"q4_matmul: unsupported device {x.device}")
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    _check_out(bias, out_dtype, qt.packed.shape[-1], x.device)
+    if x.device.type == "cpu":
+        return q4_matmul_plain(x, qt, bias, out_dtype)
     _check_operands(x, qt)
-    where = route(x.shape[0], qt.packed.shape[-1], x.dtype, "cuda")
-    if where == "plain":
-        return q4_matmul_plain(x, qt)
-    return _launch(x, qt, where)
+    m, n = x.shape[0], qt.packed.shape[-1]
+    if fused_epilogue(m, n, x.dtype, out_dtype, "cuda"):
+        return _launch(x, qt, "wgmma", bias, out_dtype)
+    where = route(m, n, x.dtype, "cuda")
+    y = q4_matmul_plain(x, qt) if where == "plain" else _launch(x, qt, where)
+    return _finish(y, bias, out_dtype)
 
 
 def fused_max_m(dtype: torch.dtype) -> int:
@@ -201,3 +271,5 @@ class _Count:
 
 q4_matmul.launches = 0  # kernel launches, counted where they happen
 q4_matmul.wgmma = _Count("q4_matmul.wgmma")  # of them, the wgmma instance's
+# of those, the launches whose epilogue wrote bf16 (and added the bias)
+q4_matmul.wgmma_bf16 = _Count("q4_matmul.wgmma_bf16")

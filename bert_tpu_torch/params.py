@@ -156,6 +156,9 @@ _LAYER_WEIGHTS = {
     "ln_out_bias": "encoder.layer.{i}.output.LayerNorm.bias",
 }
 _MATMUL_KEYS = {"qkv_w", "o_w", "ff_i_w", "ff_o_w"}
+# the biases model.dense adds to a product in the compute dtype; o_b and
+# ff_o_b are the LayerNorms' f32 pre-biases
+_PRODUCT_BIASES = {"qkv_b", "ff_i_b"}
 
 _EMB_WEIGHTS = {
     "word": "embeddings.word_embeddings.weight",
@@ -386,8 +389,10 @@ def params_to_torch(params: Dict[str, Dict[str, WeightLike]], *,
     gives the same numbers in less memory. QuantTensor leaves keep their
     uint8 codes and f32 scales/mins; Int8Tensor leaves become
     :class:`~bert_tpu_torch.ops.int8_matmul.Int8Weight`s (codes transposed
-    to the kernel's [N, Kp] layout, f32 scales); biases and LayerNorm
-    parameters stay f32."""
+    to the kernel's [N, Kp] layout, f32 scales). The biases that ``dense``
+    adds to a product in the compute dtype (QKV's and FFN-up's) are
+    stored in ``dtype`` too, so that no call casts them; the LayerNorms'
+    pre-biases and parameters stay f32."""
     emb = {}
     for k, v in params["embeddings"].items():
         emb[k] = _to_tensor(v, device,
@@ -404,7 +409,8 @@ def params_to_torch(params: Dict[str, Dict[str, WeightLike]], *,
             layers[k] = to_device(v, device)
         else:
             layers[k] = _to_tensor(
-                v, device, dtype if k in _MATMUL_KEYS else torch.float32)
+                v, device, dtype if k in _MATMUL_KEYS | _PRODUCT_BIASES
+                else torch.float32)
     return {"embeddings": emb, "layers": layers}
 
 

@@ -19,7 +19,11 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    32,768 and at ragged edges, Q4_0 and Q4_1, under graph replay, against
    the plain version and bit for bit the mma.sync instance, and times it
    beside its bound, the mma.sync instance, the plain version and cuBLAS
-   bf16; sweeps the q4 router (bf16: both instances and the plain version
+   bf16; holds its bf16 form (the cast and the bias in the epilogue) bit
+   for bit to the f32 form, then the cast, then the bias add, at bert-base's
+   QKV and FFN-up (M = 512-32,768, ragged), ModernBERT's Wqkv / Wi and
+   edges, and times it beside the f32 form and the three launches it
+   replaces (gate: under both); sweeps the q4 router (bf16: both instances and the plain version
    at bert-base's shapes, M = 512-65,536; f32: kernel against plain, M =
    1,024-16,384) and checks that bf16 past 16,384 rows launches one wgmma
    kernel and f32 takes the plain branch; holds
@@ -46,9 +50,10 @@ toolkit (nvcc). It imports only the port (never JAX or bert_tpu), and:
    if a kernel of the path was not launched, or if the per-(batch, head)
    attention kernel was (d_head 32 takes the fused kernel), or if the q4
    products' wgmma launches are not what the route gives for the batches'
-   M; profiles one
+   M, or half of those (QKV and FFN-up) not in the bf16 form; profiles one
    more request (device busy, the LayerNorm's time, the f32 -> bf16
-   casts) and times its q4_matmul and attention calls bucket by bucket;
+   casts, which must be 0) and times its q4_matmul and attention calls
+   bucket by bucket;
    fails unless the LayerNorm launched 2L + 1 times a batch; checks the
    result against the same file on the CPU in f32 (card f32: cos > 0.9999
    and atol 5e-3; card bf16: cos > 0.999); the card's f32 engine answers
@@ -766,7 +771,9 @@ def kernel_phase(dev, rng):
             timed_wg.append(r)
             del x, w_dense
     results["q4_matmul"].update(max_abs_err=errs["bf16"],
-                                timed_shapes_wgmma=timed_wg)
+                                timed_shapes_wgmma=timed_wg,
+                                timed_shapes_bf16_form=q4_bf16_form_phase(
+                                    dev, rng))
 
     # -- kernel 3: fused QKV attention -------------------------------------
     log("kernel 3: fused_qkv_attention")
@@ -834,6 +841,155 @@ def kernel_phase(dev, rng):
     results["fused_layer_norm"] = ln_kernel_phase(dev, rng)
     results["multi_head_attention"] = mha_kernel_phase(dev, rng)
     return results
+
+
+# The GELU fold of FFN-up into the bf16 form's epilogue, measured once and
+# deleted (PERF.md): graph-replay ms at bert-base's FFN-up (K 768, N 3,072)
+# with a bias, at M = 8,192 and 32,768, on an NVIDIA H100 80GB HBM3 at
+# 700 W; the bias form then F.gelu took 0.1160 and 0.4295
+GELU_FOLD_MS = {8192: {"erf": 0.1707, "tanh": 0.1583},
+                32768: {"erf": 0.5633, "tanh": 0.5048}}
+
+
+def q4_bf16_form_phase(dev, rng):
+    """Kernel 1c: the wgmma instance's bf16 form (the product rounded to
+    bf16, the bias added in its epilogue), bit for bit the f32 form, then
+    the cast, then the bias add: bert-base's QKV and FFN-up with a bias at
+    M = 512, 777 (ragged), 8,192 and 32,768 (a halved last round), Q4_0
+    (and Q4_1 at the ragged shapes), each with and without the bias;
+    ModernBERT's Wqkv / Wi without one at the doc_bulk cell's M; ragged M
+    and N, a half-tile tail and M under the router's crossover. Each under
+    graph replay (two replays, and the eager launch, bit for bit), one
+    launch by each counter (q4_matmul, its wgmma instance, the bf16
+    form's), and through the wrapper: one bf16-form launch where
+    ``fused_epilogue`` says so, else the wrapper's cast and add after the
+    mma.sync instance, the same bits. Times bert-base's QKV and FFN-up at
+    M = 8,192 and 32,768: the bf16 form by graph replay and eager beside
+    its bound, the f32 form, and the three launches it replaces (f32 form,
+    cast, add), gating on the bf16 form below both; FFN-up also with
+    F.gelu after it, logged beside the GELU fold's figures."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from bert_tpu_torch.ops import q4_matmul as Q
+
+    bf16 = torch.bfloat16
+    counters = (Q.q4_matmul, Q.q4_matmul.wgmma, Q.q4_matmul.wgmma_bf16)
+
+    def counts():
+        return tuple(c.launches for c in counters)
+
+    def moved(before):
+        return tuple(a - b for a, b in zip(counts(), before))
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev).to(dtype)
+
+    log("kernel 1c: q4_matmul's wgmma instance, bf16 form (the cast and the "
+        "bias in its epilogue; graph replay)")
+    shapes = [(m, 768, n, what, True) for m in (512, 777, 8192, 32768)
+              for (n, what) in ((2304, "QKV"), (3072, "FFN-up"))]
+    shapes += [(m, 768, 2304, f"ModernBERT Wqkv / Wi, 8 x {m // 8:,}", False)
+               for m in (65536, 8192)]
+    shapes += [(8192 + 37, 768, 784, "ragged M and N", True),
+               (4100, 768, 144, "N 144, a half-tile tail", True),
+               (300, 3072, 784, "under the crossover", True)]
+    checked = 0
+    for (m, k, n, what, with_bias) in shapes:
+        for ftype in ((2, 3) if m % 64 else (2,)):
+            qd = q4_weights(rng, k, n, ftype, dev)
+            x = t(rng.standard_normal((m, k)).astype(np.float32), bf16)
+            bias = t(rng.standard_normal(n).astype(np.float32) * 0.5, bf16)
+            for b in ((bias, None) if with_bias else (None,)):
+                label = (f"M,K,N={m},{k},{n} q4_{ftype - 2} "
+                         f"{'bias' if b is not None else 'no bias'} ({what})")
+                want = Q._launch(x, qd, "wgmma").to(bf16)
+                if b is not None:
+                    want = want + b
+                before = counts()
+                eager = Q._launch(x, qd, "wgmma", b, bf16)
+                require(moved(before) == (1, 1, 1),
+                        f"q4_matmul bf16 form {label}: launches {moved(before)}"
+                        " (all, wgmma, bf16 form), not one of each")
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    replayed = Q._launch(x, qd, "wgmma", b, bf16)
+                graph.replay()
+                torch.cuda.synchronize()
+                first = replayed.clone()
+                graph.replay()
+                torch.cuda.synchronize()
+                require(first.dtype == bf16 and torch.equal(first, want)
+                        and torch.equal(replayed, want)
+                        and torch.equal(eager, want),
+                        f"q4_matmul bf16 form {label}: not the f32 form's "
+                        f"cast (+ bias) bit for bit (max|Δ| "
+                        f"{float((first.float() - want.float()).abs().max()):.3e})")
+                fused = Q.fused_epilogue(m, n, bf16, bf16, "cuda")
+                before = counts()
+                routed = Q.q4_matmul(x, qd, b, bf16)
+                ran = moved(before)
+                other = Q.route(m, n, bf16, "cuda")
+                routed_want = (want if fused else _finish_apart(
+                    Q._launch(x, qd, other), b))
+                require(ran == ((1, 1, 1) if fused else
+                                (1, int(other == "wgmma"), 0))
+                        and torch.equal(routed, routed_want),
+                        f"q4_matmul {label}: the wrapper launched "
+                        f"{ran} (all, wgmma, bf16 form) or changed "
+                        f"the bits (fused_epilogue {fused})")
+                checked += 1
+                log(f"  ok  q4_matmul bf16 form {label}: bit for bit, "
+                    f"wrapper {'one bf16-form launch' if fused else other + ' + cast + add'}")
+                del graph, replayed, first, eager, want, routed
+            del x
+            torch.cuda.synchronize()
+
+    timed = []
+    for m in (8192, 32768):
+        for (k, n, what) in BERT_BASE_Q4[::2]:  # QKV, FFN-up
+            qd = q4_weights(rng, k, n, 2, dev)
+            x = t(rng.standard_normal((m, k)).astype(np.float32), bf16)
+            b = t(rng.standard_normal(n).astype(np.float32) * 0.5, bf16)
+            b_ms, b_by = bound(m * k * 2 + k // 2 * n + k // 32 * n * 4
+                               + m * n * 2 + n * 2, 2.0 * m * n * k, "bf16")
+            r = dict(shape=f"M={m} K={k} N={n} q4_0 bf16 ({what}, bias)",
+                     ms=time_ms(lambda: Q._launch(x, qd, "wgmma", b, bf16)),
+                     eager_ms=eager_ms(
+                         lambda: Q._launch(x, qd, "wgmma", b, bf16)),
+                     f32_form_ms=time_ms(lambda: Q._launch(x, qd, "wgmma")),
+                     three_launch_ms=time_ms(
+                         lambda: Q._launch(x, qd, "wgmma").to(bf16) + b),
+                     bound_ms=b_ms, bound_by=b_by)
+            line = (f"  {r['shape']}: bf16 form {r['ms']:.5f} ms (eager "
+                    f"{r['eager_ms']:.5f}), f32 form {r['f32_form_ms']:.5f}, "
+                    f"f32 form + cast + add {r['three_launch_ms']:.5f}, bound "
+                    f"{b_ms:.5f} ({b_by}; {100 * b_ms / r['ms']:.1f}% of it)")
+            if what == "FFN-up":
+                r["then_gelu_ms"] = time_ms(lambda: F.gelu(
+                    Q._launch(x, qd, "wgmma", b, bf16)))
+                line += (f"; then F.gelu {r['then_gelu_ms']:.5f} (the GELU "
+                         f"fold, deleted, measured {GELU_FOLD_MS[m]['erf']} "
+                         f"erf / {GELU_FOLD_MS[m]['tanh']} tanh: PERF.md)")
+            log(line)
+            require(r["ms"] < r["f32_form_ms"] and r["ms"]
+                    < r["three_launch_ms"],
+                    f"q4_matmul bf16 form {r['shape']}: {r['ms']:.5f} ms, not "
+                    f"under the f32 form ({r['f32_form_ms']:.5f}) and the "
+                    f"three launches ({r['three_launch_ms']:.5f})")
+            timed.append(r)
+            del x
+    log(f"kernel 1c: {checked} cases bit for bit ({gpu_line()})")
+    return timed
+
+
+def _finish_apart(y, bias):
+    """The f32 product cast to bf16, then the bias added: two launches."""
+    import torch
+
+    y = y.to(torch.bfloat16)
+    return y if bias is None else y + bias
 
 
 def attention_f32_timing(dev, rng):
@@ -1210,7 +1366,9 @@ def modernbert_launches(eng, texts, cfg, counters):
                  "fused_qkv_attention": layers * batches,
                  "fused_add_layer_norm": 2 * layers * batches,
                  "fused_layer_norm": batches,
-                 "q4_matmul.wgmma": ran["q4_matmul.wgmma"]})
+                 "q4_matmul.wgmma": ran["q4_matmul.wgmma"],
+                 # QKV and Wi, two of the four products, write bf16
+                 "q4_matmul.wgmma_bf16": ran["q4_matmul.wgmma"] // 2})
     kinds = {}
     for key, n in delta("attention").items():
         kinds[key.split()[0]] = kinds.get(key.split()[0], 0) + n
@@ -1875,6 +2033,7 @@ def graphs_phase(model, label: str, request, prof, timed: dict,
 PROFILE_NAMES = {
     "q4_matmul": (("q4_matmul_kernel",), ("q4_matmul_wgmma_kernel",)),
     "q4_matmul.wgmma": (("q4_matmul_wgmma_kernel",),),
+    "q4_matmul.wgmma_bf16": (("q4_matmul_wgmma_kernel<true>",),),
     "fused_layer_norm": (("ln_rows_kernel", ", false>("),
                          ("ln_block_kernel", ", false>(")),
     "fused_layer_norm_codes": (("ln_rows_kernel", ", true>("),
@@ -1940,9 +2099,10 @@ def kernels_agree_with_counters(model, label: str, request, prof) -> None:
 
 def q4_instances(model, batches0: dict, per_batch: int, label: str) -> None:
     """The q4 products' instances since ``batches0`` (bucket counts) and the
-    wgmma counter set to 0: each batch of M = rows x T launches
+    wgmma counters set to 0: each batch of M = rows x T launches
     ``per_batch`` products, on the wgmma instance where the route says so
-    (every weight's N here is a multiple of 16)."""
+    (every weight's N here is a multiple of 16), and half of those (QKV
+    and FFN-up) in its bf16 form."""
     import torch
 
     from bert_tpu_torch.ops import q4_matmul as Q
@@ -1953,11 +2113,14 @@ def q4_instances(model, batches0: dict, per_batch: int, label: str) -> None:
         if Q.route(rows * seq, 16, torch.bfloat16, "cuda") == "wgmma":
             want += (n - batches0.get(key, 0)) * per_batch
     got = Q.q4_matmul.wgmma.launches
+    bf16_form = Q.q4_matmul.wgmma_bf16.launches
     log(f"{label}: q4_matmul instances: mma.sync "
-        f"{Q.q4_matmul.launches - got}, wgmma {got} (by the route at "
-        f"WGMMA_MIN_M = {Q.WGMMA_MIN_M}: {want} wgmma)")
-    require(got == want, f"{label}: {got} wgmma launches, the route gives "
-            f"{want}")
+        f"{Q.q4_matmul.launches - got}, wgmma {got}, of them {bf16_form} in "
+        f"the bf16 form (by the route at WGMMA_MIN_M = {Q.WGMMA_MIN_M}: "
+        f"{want} wgmma, {want // 2} bf16 form)")
+    require(got == want and 2 * bf16_form == want,
+            f"{label}: {got} wgmma launches ({bf16_form} bf16 form), the "
+            f"route gives {want} ({want // 2})")
 
 
 def main_path(dev, rng, counters):
@@ -2014,7 +2177,7 @@ def main_path(dev, rng, counters):
     timed = timed_start(model)
     for c in counters:
         c.launches = 0
-    q4_matmul.wgmma.launches = 0
+    q4_matmul.wgmma.launches = q4_matmul.wgmma_bf16.launches = 0
     outs, lat = [], []
     for r in requests:
         t0 = time.perf_counter()
@@ -2044,6 +2207,11 @@ def main_path(dev, rng, counters):
             f"in {batches} batches, not {2 * cfg.n_layer + 1} a batch")
     before = dict(model.timers.bucket_counts)
     prof = profile_request(model, requests[0], "main path")
+    # every batch here takes the wgmma instance, whose bf16 form rounds the
+    # QKV and FFN-up products and adds their bf16 biases: no cast is left
+    require(prof is None or prof["bf16_casts"] == 0,
+            f"main path: {prof and prof['bf16_casts']} bf16 casts in the "
+            "profiled request, not 0")
     one = {k: n - before.get(k, 0) for k, n in
            model.timers.bucket_counts.items() if n > before.get(k, 0)}
     split = main_split(one, model, rng)
@@ -3384,13 +3552,15 @@ def int8_path(dev, rng, counters):
                 f"int8 path: {prof['quantize_i8_launches']} quantize "
                 "launches in the profiled request, not 2L: a standalone "
                 "quantize of a QKV or FFN-up input is left")
-        # a Q4 batch casts its QKV and FFN-up products and their biases to
-        # bf16 (4 casts a layer); the int8 batch's epilogue rounds the
-        # products itself, so only the two bias casts a layer remain
-        require(prof["bf16_casts"] == q4_prof["bf16_casts"] - 2 * cfg.n_layer,
+        # the biases are held in bf16, and both engines' 64x128 batch
+        # rounds its QKV and FFN-up products in the kernel's epilogue (the
+        # int8 matmul's form (b), the Q4 wgmma instance's bf16 form): that
+        # batch casts nothing on either, and the packed Q4 batch is the
+        # same on both
+        require(prof["bf16_casts"] == q4_prof["bf16_casts"],
                 f"int8 path: {prof['bf16_casts']} bf16 casts with int8_eval "
-                f"on, {q4_prof['bf16_casts']} off: the int8 products are "
-                "still cast apart")
+                f"on, {q4_prof['bf16_casts']} off: a product of the 64x128 "
+                "batch is still cast apart")
 
     for req, emb, ref in zip(counted, outs, q4_outs):
         require(emb.shape == (len(req), cfg.n_embd)

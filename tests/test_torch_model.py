@@ -30,6 +30,7 @@ from bert_tpu.params import random_named_tensors as j_random_named
 from bert_tpu.tokenizer import WordPieceTokenizer as JTokenizer
 from bert_tpu_torch import model as tmodel
 from bert_tpu_torch.ops.fused_attention import fused_route
+from bert_tpu_torch.ops.q4_matmul import q4_matmul_plain
 from bert_tpu_torch.params import BertConfig as TConfig
 from bert_tpu_torch.params import (
     params_from_jax,
@@ -325,4 +326,84 @@ def test_encoder_layer_hands_the_layer_norm_the_f32_product(monkeypatch,
                         real_dense(x, w, b, use_kernels=use_kernels))
     with torch.inference_mode():
         want = layer(x, mask_bias)
+    assert torch.equal(got, want)
+
+
+def _dense_before(x, w, b=None, f32_out=False):
+    """``dense`` on a QuantTensor as it ran before its product took the
+    bias and the dtype: the f32 product, cast to x's dtype (unless
+    ``f32_out``), then ``+ b`` in x's dtype, each a launch of its own."""
+    y = q4_matmul_plain(x.reshape(-1, x.shape[-1]), w)
+    if not f32_out:
+        y = y.to(x.dtype)
+    y = y.reshape(*x.shape[:-1], w.n)
+    return y if b is None else y + b.to(x.dtype)
+
+
+# dense's Q4 call sites: (K, N, bias, f32_out)
+DENSE_SITES = {"bert_qkv": (128, 384, True, False),
+               "bert_ffn_up": (128, 256, True, False),
+               "modernbert_qkv": (128, 384, False, False),
+               "modernbert_wi": (128, 512, False, False),
+               "attention_out_f32": (128, 128, False, True)}
+
+
+@pytest.mark.parametrize("bias_dtype", ["f32", "compute"])
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("site", sorted(DENSE_SITES))
+def test_dense_q4_gives_what_it_gave_before(site, dname, bias_dtype):
+    """At each call site, with the bias held in f32 (a training tree) or
+    in the compute dtype (the serving tree), ``dense`` returns bit for bit
+    the tensor of the cast and the add launched after the product."""
+    from bert_tpu.quant import quantize_tensor_tpu
+    from bert_tpu_torch.quant import QuantTensor
+
+    k, n, has_b, f32_out = DENSE_SITES[site]
+    rng = np.random.default_rng(len(site))
+    qt = quantize_tensor_tpu(
+        (rng.standard_normal((k, n)) * 0.02).astype(np.float32), 2)
+    w = QuantTensor(torch.from_numpy(qt.packed), torch.from_numpy(qt.scales),
+                    None)
+    dtype = DTYPES[dname][0]
+    x = torch.from_numpy(rng.standard_normal((2, 9, k)).astype(
+        np.float32)).to(dtype)
+    b = None
+    if has_b:
+        b = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+        b = b if bias_dtype == "f32" else b.to(dtype)
+    got = tmodel.dense(x, w, b, f32_out=f32_out)
+    want = _dense_before(x, w, b, f32_out)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_serving_tree_holds_the_product_biases_in_the_compute_dtype():
+    """``params_to_torch(dtype=bf16)`` (the engine's placement) stores QKV's
+    and FFN-up's biases in bf16, so that no call casts them; the
+    LayerNorms' pre-biases and parameters stay f32, and so does every
+    parameter of a TrainableBertModel. A bf16 forward gives the same bits
+    as on a tree that holds every bias in f32."""
+    c = TConfig(**SMALL)
+    named = random_named_tensors(c, 3)
+    host = params_from_named_tensors(named, c, quantize_ftype=2)
+    served = params_to_torch(host, device="cpu", dtype=torch.bfloat16)
+    layers = served["layers"]
+    assert {k: layers[k].dtype for k in ("qkv_b", "ff_i_b")} == {
+        "qkv_b": torch.bfloat16, "ff_i_b": torch.bfloat16}
+    for k in ("o_b", "ff_o_b", "ln_att_scale", "ln_att_bias",
+              "ln_out_scale", "ln_out_bias"):
+        assert layers[k].dtype == torch.float32, k
+    model = tmodel.BertModel(served, c)
+    assert model.layers[0].w("qkv_b").dtype == torch.bfloat16
+
+    trainable = tmodel.TrainableBertModel(params_to_torch(
+        params_from_named_tensors(named, c), device="cpu"), c)
+    assert {p.dtype for p in trainable.parameters()} == {torch.float32}
+
+    f32_biases = tmodel.BertModel(params_to_torch(host, device="cpu"), c)
+    ids = torch.from_numpy(_batch(np.random.default_rng(4))[0]).long()
+    mask = (ids != 0).float()
+    with torch.inference_mode():
+        got, want = (tmodel.bert_forward(m, ids, mask,
+                                         compute_dtype=torch.bfloat16)
+                     for m in (model, f32_biases))
     assert torch.equal(got, want)

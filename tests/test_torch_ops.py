@@ -47,7 +47,9 @@ from bert_tpu_torch.ops.q4_matmul import (
     WGMMA_MIN_M,
     _check_alignment as _check_q4_alignment,
     load_alignment,
+    fused_epilogue,
     fused_max_m,
+    q4_dequantize,
     q4_matmul,
     q4_matmul_plain,
     route,
@@ -148,7 +150,8 @@ def test_q4_router_sends_every_bf16_batch_to_a_kernel():
     assert fused_max_m(torch.bfloat16) >= 65536
 
 
-@pytest.mark.parametrize("m, n, dtype, device, want", [
+# (m, n, dtype, device, the route), one case a branch of the router
+ROUTES = [
     (WGMMA_MIN_M - 1, 768, torch.bfloat16, "cuda", "mma"),
     (WGMMA_MIN_M, 768, torch.bfloat16, "cuda", "wgmma"),
     (65536, 2304, torch.bfloat16, "cuda", "wgmma"),
@@ -164,13 +167,82 @@ def test_q4_router_sends_every_bf16_batch_to_a_kernel():
     (1, 768, torch.bfloat16, "cpu", "plain"),
     (65536, 768, torch.bfloat16, "cpu", "plain"),
     (16, 768, torch.float32, "cpu", "plain"),
-], ids=["bf16-below-crossover", "bf16-at-crossover", "bf16-largest-batch",
-        "bf16-past-f32-threshold", "bf16-one-row", "bf16-ragged-n",
-        "bf16-n8", "bf16-n16", "f32-at-threshold", "f32-past-threshold",
-        "f32-largest-batch", "f32-at-crossover", "cpu-bf16-one-row",
-        "cpu-bf16-largest", "cpu-f32"])
+]
+ROUTE_IDS = ["bf16-below-crossover", "bf16-at-crossover", "bf16-largest-batch",
+             "bf16-past-f32-threshold", "bf16-one-row", "bf16-ragged-n",
+             "bf16-n8", "bf16-n16", "f32-at-threshold", "f32-past-threshold",
+             "f32-largest-batch", "f32-at-crossover", "cpu-bf16-one-row",
+             "cpu-bf16-largest", "cpu-f32"]
+
+
+@pytest.mark.parametrize("m, n, dtype, device, want", ROUTES, ids=ROUTE_IDS)
 def test_q4_route(m, n, dtype, device, want):
     assert route(m, n, dtype, device) == want
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16-out", "f32-out"])
+@pytest.mark.parametrize("m, n, dtype, device, want", ROUTES, ids=ROUTE_IDS)
+def test_q4_epilogue_fused_exactly_on_the_wgmma_route(m, n, dtype, device,
+                                                      want, out_dtype):
+    # the kernel writes bf16 with the bias where the route gives the wgmma
+    # instance; everywhere else the f32 product is cast and the bias added
+    # after it
+    assert fused_epilogue(m, n, dtype, out_dtype, device) == (
+        want == "wgmma" and out_dtype == torch.bfloat16)
+
+
+def _q4_operands(m, k, n, dname, seed, bias=True):
+    """x [m, k] in dname, a Q4_0 weight and a bias [n] in x's dtype."""
+    rng = np.random.default_rng(seed)
+    qt = quantize_tensor_tpu(
+        (rng.standard_normal((k, n)) * 0.02).astype(np.float32), 2)
+    qt_t = QuantTensor(torch.from_numpy(qt.packed),
+                       torch.from_numpy(qt.scales), None)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        DTYPES[dname][0])
+    b = (torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+        x.dtype) if bias else None)
+    return x, qt_t, b
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 37, 64])
+def test_q4_matmul_bias_and_out_dtype_are_the_cast_then_the_add(m, dname,
+                                                                bias):
+    # the f32 product, .to(x's dtype), + bias in that dtype: what dense ran
+    # after the product, and what the kernel's bf16 epilogue computes
+    x, qt, b = _q4_operands(m, 128, 192, dname, 40 + m, bias)
+    y = torch.matmul(x.float(), q4_dequantize(qt, x.dtype).float())
+    want = y.to(x.dtype)
+    if b is not None:
+        want = want + b.to(x.dtype)
+    for fn in (q4_matmul_plain, q4_matmul):  # CPU tensors: the plain version
+        got = fn(x, qt, b, x.dtype)
+        assert got.dtype == x.dtype and torch.equal(got, want)
+    assert torch.equal(q4_matmul(x, qt), y)  # no out_dtype: the f32 product
+
+
+def test_q4_matmul_checks_its_bias_and_device():
+    x, qt, b = _q4_operands(4, 64, 32, "bf16", 7)
+    with pytest.raises(ValueError, match="bias must be"):
+        q4_matmul(x, qt, b[:16], torch.bfloat16)  # wrong length
+    with pytest.raises(ValueError, match="bias must be"):
+        q4_matmul(x, qt, b.float(), torch.bfloat16)  # not out_dtype
+    with pytest.raises(ValueError, match="bias must be"):
+        q4_matmul(x, qt, b, None)  # None is f32 out; the bias is bf16
+    with pytest.raises(TypeError, match="out_dtype"):
+        q4_matmul(x, qt, None, torch.float16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        q4_matmul(x.to("meta"), qt, None, torch.bfloat16)
+
+
+def test_q4_bf16_epilogue_has_a_counter_that_graphs_replay():
+    from bert_tpu_torch import _graphs
+
+    assert q4_matmul.wgmma_bf16.__name__ == "q4_matmul.wgmma_bf16"
+    assert q4_matmul.wgmma_bf16 in _graphs.COUNTERS
 
 
 @pytest.mark.parametrize("n, want", [
