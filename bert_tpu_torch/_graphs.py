@@ -64,10 +64,13 @@ run and capture) and ``dispatch.replay`` (on the CPU, the eager run). A
 table made without records none.
 
 The kernel wrappers count their launches in Python (``<wrapper>.launches``),
-and a replay runs no Python. :func:`capture_counted` therefore takes back
-what the capture counted and :meth:`Program.replay` adds it again, so a
-counter keeps meaning "kernels the card ran": the eager warm-up run
-counts, the capture does not, and each replay counts once.
+and a replay runs no Python. A program's counters are, by default, every
+counter the op layer registers (``ops.common.COUNTERS``, complete once
+``bert_tpu_torch.ops`` is imported, as importing ``ops.common`` does).
+:func:`capture_counted` takes back what the capture counted and
+:meth:`Program.replay` adds it again, so a counter keeps meaning "kernels
+the card ran": the eager warm-up run counts, the capture does not, and
+each replay counts once.
 """
 
 from __future__ import annotations
@@ -85,21 +88,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .ops.attention import multi_head_attention
-from .ops.fused_attention import fused_qkv_attention, rope_qkv
-from .ops.int8_matmul import (int8_matmul, int8_matmul_gelu,
-                              quantize_activations_i8)
-from .ops.layer_norm import (fused_add_layer_norm, fused_layer_norm,
-                             fused_layer_norm_codes)
-from .ops.q4_matmul import q4_matmul
+from .ops.common import COUNTERS
 from .parallel.collectives import Collective, recording
-
-# every kernel wrapper's launch counter, and q4_matmul's counts of its
-# wgmma instance and of that instance's bf16 epilogue
-COUNTERS = (q4_matmul, fused_layer_norm, fused_layer_norm_codes,
-            fused_qkv_attention, multi_head_attention, int8_matmul,
-            int8_matmul_gelu, quantize_activations_i8, q4_matmul.wgmma,
-            fused_add_layer_norm, rope_qkv, q4_matmul.wgmma_bf16)
 
 
 def capture_counted(counters: Sequence, capture: Callable[[], None]

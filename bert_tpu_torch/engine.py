@@ -38,9 +38,10 @@ card, at construction.
 
 ``from_file`` takes a ggml-bin file, an HF checkpoint directory or a
 ``.npz`` weight cache (``save_cache`` writes one). A ModernBERT checkpoint
-(``modernbert.py``) runs through the same engine: the loaded config picks
-the model and its forward, on one device. ``encode_iter`` /
-``eval_tokens_iter`` stream a corpus with bounded memory. ``warmup``
+(``modernbert.py``) runs through the same engine and the same pooled
+forwards: the loaded config picks the model class, on one device.
+``encode_iter`` / ``eval_tokens_iter`` stream a corpus with bounded
+memory. ``warmup``
 captures each (rows, T) shape's program before the first request, or
 only the shapes a previous run recorded in its manifest; on the card that
 also builds the kernels. The process's CUDA graphs and the kernel ``.so``
@@ -73,7 +74,7 @@ import logging
 import os
 import threading
 import time
-from collections import deque
+from collections import Counter, deque
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -89,8 +90,7 @@ from .batching import (
 )
 from .loader import LoadedModel, load_model
 from .model import BertModel, bert_forward, bert_forward_packed
-from .modernbert import (ModernBertModel, modernbert_forward,
-                         modernbert_forward_packed)
+from .modernbert import ModernBertModel
 from .ops.common import round_up as _round_up
 from .ops.int8_matmul import Int8Tensor
 from .packing import PackPlan, Placement, pack_batch, plan_packing
@@ -177,8 +177,9 @@ class BertTorch:
         self.compute_dtype = compute_dtype
         self.use_kernels = use_kernels
         self.max_batch = max_batch
-        self._modern = modern = isinstance(self.config, ModernBertConfig)
-        model_cls = ModernBertModel if modern else BertModel
+        model_cls = (ModernBertModel if isinstance(self.config,
+                                                   ModernBertConfig)
+                     else BertModel)
         self.seq_buckets = list(seq_buckets) if seq_buckets is not None else \
             default_seq_buckets(self.config.n_max_tokens)
         # Wire dtype of the device→host result copy. bf16 compute keeps 8
@@ -227,10 +228,6 @@ class BertTorch:
         tp_group = axis_group(mesh, MODEL_AXIS)
         self._dp_group = axis_group(mesh, DATA_AXIS)
         self.model = model_cls(state, self.config, tp_group).eval()
-        # attention launches of one batch, (full, band), counted for
-        # ModernBERT's readers
-        self._attention_per_batch = (self.model.attention_launches()
-                                     if modern else None)
         # W8A8 regime (ops/int8_matmul.py), opt-in as in bert_tpu: batches
         # of at least int8_threshold padded tokens run on a tree whose
         # matmul weights are per-column int8. With a nonzero threshold the
@@ -381,9 +378,6 @@ class BertTorch:
                         host, done = self._copy_to_host(
                             self._forward(ids, mask)[: len(idxs)])
                     self.timers.record_bucket(batch_b, seq_b)
-                    if self._attention_per_batch:
-                        self.timers.record_attention(
-                            batch_b, seq_b, *self._attention_per_batch)
                     pending.append((np.asarray(idxs), host, done))
         return pending
 
@@ -428,13 +422,11 @@ class BertTorch:
                 bucket_idx = [i for i in bucket_idx if i not in in_pack]
         return lengths, pack_idx, pack_plan, bucket_idx
 
-    def _dispatch_packed(self, token_lists, idxs, plan=None):
-        """Pack short sentences into fixed (rows, pack_seq) batches and
-        dispatch them; returns pending entries."""
+    def _dispatch_packed(self, token_lists, idxs, plan: PackPlan):
+        """Pack short sentences into fixed (rows, pack_seq) batches, as
+        ``plan`` places them, and dispatch them; returns pending
+        entries."""
         tl = [token_lists[i] for i in idxs]
-        if plan is None:
-            plan = plan_packing([len(t) for t in tl], self._pack_seq,
-                                self._pack_segments)
         pending = []
         row_cap = self._row_cap(self._pack_seq, self._min_rows)
         for start in range(0, plan.n_rows, row_cap):
@@ -452,9 +444,6 @@ class BertTorch:
                 host, done = self._copy_to_host(
                     self._forward_packed(ids, seg, pos, flat))
             self.timers.record_bucket(n_rows, self._pack_seq, kind="packed")
-            if self._attention_per_batch:
-                self.timers.record_attention(n_rows, self._pack_seq,
-                                             *self._attention_per_batch)
             orig = np.asarray([idxs[p.index] for p in pls])
             pending.append((orig, host, done))
         return pending
@@ -471,12 +460,10 @@ class BertTorch:
             ids = ids.astype(np.int64)
         r = local_rows(self.mesh, ids.shape[0])
 
-        # the forward is looked up at each capture: a test's recorder may
-        # stand in for bert_forward after the engine is built
-        fwd = modernbert_forward if self._modern else bert_forward
-
+        # bert_forward is looked up at each capture: a test's recorder may
+        # stand in for it after the engine is built
         def encode(ids, mask):
-            return self._wire(fwd(
+            return self._wire(bert_forward(
                 model, ids, mask, compute_dtype=self.compute_dtype,
                 use_kernels=self.use_kernels, pooling=self.pooling))
         if self._programs is None:
@@ -503,11 +490,8 @@ class BertTorch:
         d = self.config.n_embd
         r = local_rows(self.mesh, ids.shape[0])
 
-        fwd = (modernbert_forward_packed if self._modern
-               else bert_forward_packed)
-
         def encode_packed(ids, seg, pos):
-            return fwd(
+            return bert_forward_packed(
                 model, ids, seg, pos, n_segments=self._pack_segments,
                 compute_dtype=self.compute_dtype,
                 use_kernels=self.use_kernels, pooling=self.pooling)
@@ -627,14 +611,24 @@ class BertTorch:
         """Host-side phase timings + bucket execution counts, plus the
         load-phase breakdown (parse / emb_dequant / repack / quantize /
         to_device, seconds; ModernBERT: parse / relayout / quantize /
-        to_device). A ModernBERT engine adds its attention launches by
-        kind and shape (``attention``: "full 8x8192" / "band 8x8192"),
-        and any engine the row groups its token budget split
+        to_device). A model that counts its attention launches a batch
+        (ModernBERT's ``attention_launches``) adds them by kind and shape
+        (``attention``: "full 8x8192" / "band 8x8192"), each shape's
+        batch count, packed and bucketed together, times the launches a
+        batch; any engine adds the row groups its token budget split
         (``budget_splits``), where there are any."""
         out = self.timers.summary()
-        attention = self.timers.attention_summary()
-        if attention:
-            out["attention"] = attention
+        launches = getattr(self.model, "attention_launches", None)
+        if launches is not None:
+            per_batch = dict(zip(("full", "band"), launches()))
+            counts = Counter()
+            for (b, s, _), n in list(self.timers.bucket_counts.items()):
+                for kind, k in per_batch.items():
+                    counts[kind, b, s] += n * k
+            attention = {f"{kind} {b}x{s}": c
+                         for (kind, b, s), c in sorted(counts.items()) if c}
+            if attention:
+                out["attention"] = attention
         if self.timers.budget_splits:
             out["budget_splits"] = self.timers.budget_splits
         out["load_phases"] = dict(self.load_phases)

@@ -17,6 +17,14 @@ torch ops. On CPU tensors every op takes its plain version, which mirrors
 the JAX package's jnp path, so the two packages compute the same thing
 there.
 
+:func:`bert_forward` and :func:`bert_forward_packed` are the pooled
+forwards of every encoder class, ModernBERT's (``modernbert.py``)
+included: each builds the mask bias, calls the model's ``hidden`` (the
+embeddings, then the layers) and pools. ``hidden`` takes the rows'
+positions, which BERT's position table reads and ModernBERT's RoPE. The
+kernel wrappers count their launches in the op layer's registry
+(``ops.common.COUNTERS``).
+
 ``use_kernels`` is bert_tpu's ``use_pallas``: None (the default, what
 serving uses) launches the kernels for CUDA tensors and takes the plain
 versions for CPU ones; False takes the plain versions on any device, and
@@ -264,8 +272,7 @@ def encoder_layer(x: Union[torch.Tensor, Folded], w: Callable[[str], object],
     # pairwise bias (bert_tpu takes _mha_jnp), since the kernels' route
     # on the card has no plain path
     plain = _plain(use_kernels, qkv)
-    if not plain and fused_route(t, n_head, dh, qkv.dtype,
-                                 pairwise=mask_bias.dim() == 3):
+    if not plain and fused_route(dh):
         ctx = fused_qkv_attention(qkv, mask_bias, n_head=n_head,
                                   d_head=dh, scale=scale)
     else:
@@ -391,7 +398,34 @@ class EncoderLayer(_Weights):
                              tp_group=self.tp_group, fold=fold, last=last)
 
 
-class BertModel(nn.Module):
+def layer_slice(v, i: int):
+    """Layer ``i``'s weight of a layer-stacked dense tensor, QuantTensor
+    or Int8Weight: views, no copy."""
+    if isinstance(v, QuantTensor):
+        return QuantTensor(packed=v.packed[i], scales=v.scales[i],
+                           mins=None if v.mins is None else v.mins[i])
+    if isinstance(v, Int8Weight):
+        return Int8Weight(w_nk=v.w_nk[i], scale=v.scale[i], k=v.k)
+    return v[i]
+
+
+class _BertHidden:
+    """:meth:`hidden` of a BERT encoder, whose position table takes the
+    rows' positions (``embed``)."""
+
+    def hidden(self, token_ids: torch.Tensor, mask_bias: torch.Tensor,
+               position_ids: Optional[torch.Tensor] = None, *,
+               dtype: torch.dtype, use_kernels: Optional[bool] = None,
+               remat: bool = False) -> torch.Tensor:
+        """token_ids [B, T] at ``position_ids`` [B, T] (None: 0..T-1)
+        under the additive ``mask_bias`` → the last layer's output
+        [B, T, D]: what :func:`bert_forward` pools, the one call it makes
+        of every encoder class."""
+        x = self.embed(token_ids, dtype, position_ids, use_kernels=use_kernels)
+        return self.encode(x, mask_bias, use_kernels=use_kernels, remat=remat)
+
+
+class BertModel(_BertHidden, nn.Module):
     """The encoder, built from a layer-stacked device params tree
     (:func:`bert_tpu_torch.params.params_to_torch`). Layer l's weights are
     views ``[l]`` of the stacked tensors, so building it copies nothing:
@@ -409,15 +443,6 @@ class BertModel(nn.Module):
         self.embeddings = Embeddings(params["embeddings"], config)
         layers = params["layers"]
         self.fold = isinstance(layers["qkv_w"], Int8Weight)
-
-        def layer_slice(v, i):
-            if isinstance(v, QuantTensor):
-                return QuantTensor(packed=v.packed[i], scales=v.scales[i],
-                                   mins=None if v.mins is None else v.mins[i])
-            if isinstance(v, Int8Weight):
-                return Int8Weight(w_nk=v.w_nk[i], scale=v.scale[i], k=v.k)
-            return v[i]
-
         self.layers = nn.ModuleList(
             EncoderLayer({k: layer_slice(v, i) for k, v in layers.items()},
                          config, tp_group)
@@ -438,7 +463,7 @@ class BertModel(nn.Module):
                            self.fold)
 
 
-class TrainableBertModel(nn.Module):
+class TrainableBertModel(_BertHidden, nn.Module):
     """The encoder with every weight an ``nn.Parameter`` that an optimizer
     can own, built from a dense layer-stacked device params tree
     (:func:`bert_tpu_torch.params.params_to_torch`, f32 for the repo's
@@ -449,10 +474,11 @@ class TrainableBertModel(nn.Module):
     tensors, so training leaves the tree (and any array it shares memory
     with) as it was.
     :meth:`tree` hands them back as ``{"embeddings": {...}, "layers":
-    {...}}``. Same ``embed`` / ``encode`` interface as :class:`BertModel`,
-    so :func:`bert_forward` runs either. Built from one rank's shard on a
-    mesh (train.make_sharded_train_step), it runs tensor-parallel over
-    the mesh's ``model`` process group, ``tp_group``."""
+    {...}}``. Same ``embed`` / ``encode`` / ``hidden`` interface as
+    :class:`BertModel`, so :func:`bert_forward` runs either. Built from
+    one rank's shard on a mesh (train.make_sharded_train_step), it runs
+    tensor-parallel over the mesh's ``model`` process group,
+    ``tp_group``."""
 
     def __init__(self, params: Dict[str, Dict[str, torch.Tensor]],
                  config: BertConfig, tp_group=None):
@@ -571,13 +597,14 @@ def bert_forward(model, token_ids: torch.Tensor, mask: torch.Tensor, *,
                  use_kernels: Optional[bool] = None, remat: bool = False,
                  pooling: str = "mean") -> torch.Tensor:
     """token_ids [B, T] int, mask [B, T] → L2-normalized embeddings
-    [B, n_embd] f32 (``bert_tpu.model.bert_forward``), through a
-    :class:`BertModel` or a :class:`TrainableBertModel`."""
+    [B, n_embd] f32 (``bert_tpu.model.bert_forward``), through any encoder
+    class's ``hidden``: :class:`BertModel`, :class:`TrainableBertModel` or
+    ``modernbert.ModernBertModel``."""
     _check_pooling(pooling)
-    x = model.embed(token_ids, compute_dtype, use_kernels=use_kernels)
     # 0 for real tokens, NEG_INF for padding
     mask_bias = (mask.float() - 1.0) * (-NEG_INF)
-    x = model.encode(x, mask_bias, use_kernels=use_kernels, remat=remat)
+    x = model.hidden(token_ids, mask_bias, dtype=compute_dtype,
+                     use_kernels=use_kernels, remat=remat)
     if pooling == "cls":
         return cls_pool_l2(x)
     return mean_pool_l2(x, mask)
@@ -593,12 +620,12 @@ def bert_forward_packed(model, token_ids: torch.Tensor,
     """Packed-row forward: token_ids/segment_ids/position_ids [B, T] →
     per-segment L2-normalized embeddings [B, n_segments, n_embd] f32
     (``bert_tpu.model.bert_forward_packed``): per-segment positions,
-    block-diagonal attention, per-segment pooling."""
+    block-diagonal attention, per-segment pooling, through any encoder
+    class's ``hidden``, as :func:`bert_forward`."""
     _check_pooling(pooling)
-    x = model.embed(token_ids, compute_dtype, position_ids,
-                    use_kernels=use_kernels)
-    mask_bias = segment_attention_bias(segment_ids)
-    x = model.encode(x, mask_bias, use_kernels=use_kernels, remat=remat)
+    x = model.hidden(token_ids, segment_attention_bias(segment_ids),
+                     position_ids, dtype=compute_dtype,
+                     use_kernels=use_kernels, remat=remat)
     if pooling == "cls":
         return segment_cls_pool_l2(x, segment_ids, n_segments)
     return segment_mean_pool_l2(x, segment_ids, n_segments)

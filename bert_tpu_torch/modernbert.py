@@ -30,11 +30,13 @@ layer 0's missing attn_norm is no entry at all.
 
 The model shares BERT's ops: ``model.dense`` (Q4, dense or W8A8
 products), the fused attention's RoPE and band forms, the LayerNorm and
-its add form, CLS or mean pooling. GeGLU's elementwise ops are plain torch
-ops in the compute dtype. RoPE's cos and sin tables, one pair per θ, are
-built once on the device. In the int8 regime every product quantizes its
-input on its own: BERT's folding of the codes into its LayerNorms and of
-GELU into FFN-up does not apply to this block.
+its add form, and the pooled forwards (``model.bert_forward`` and
+``bert_forward_packed``, CLS or mean), which call :meth:`hidden`. GeGLU's
+elementwise ops are plain torch ops in the compute dtype. RoPE's cos and
+sin tables, one pair per θ, are built once on the device. In the int8
+regime every product quantizes its input on its own: BERT's folding of
+the codes into its LayerNorms and of GELU into FFN-up does not apply to
+this block.
 """
 
 from __future__ import annotations
@@ -47,16 +49,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .model import (_plain, _Weights, cls_pool_l2, dense, layer_norm,
-                    mean_pool_l2, segment_attention_bias, segment_cls_pool_l2,
-                    segment_mean_pool_l2, _check_pooling)
-from .ops.common import NEG_INF
+from .model import _plain, _Weights, dense, layer_norm, layer_slice
 from .ops.fused_attention import (attention_plain, fused_qkv_attention,
                                   rope_qkv, rope_qkv_plain, rope_tables)
-from .ops.int8_matmul import Int8Weight
 from .ops.layer_norm import add_layer_norm_plain, fused_add_layer_norm
 from .params import ModernBertConfig
-from .quant import GGML_FTYPE_Q4_0, GGML_FTYPE_Q4_1, QuantTensor
+from .quant import GGML_FTYPE_Q4_0, GGML_FTYPE_Q4_1
 
 # tensors of a checkpoint that the encoder does not use: the MaskedLM head
 IGNORED_PREFIXES = ("head.", "decoder.")
@@ -169,8 +167,10 @@ class ModernBertModel(nn.Module):
     """The encoder, from the layer-stacked device tree
     (:func:`bert_tpu_torch.params.params_to_torch` of
     :func:`params_from_named`'s tree, or its int8 tree). Same ``embed`` /
-    ``encode`` roles as :class:`bert_tpu_torch.model.BertModel`, with the
-    rows' positions passed to ``encode`` for RoPE."""
+    ``encode`` / ``hidden`` roles as
+    :class:`bert_tpu_torch.model.BertModel`, with the rows' positions
+    passed to ``encode`` for RoPE, so ``model.bert_forward`` and
+    ``bert_forward_packed`` run it."""
 
     def __init__(self, params: Dict[str, Dict[str, object]],
                  config: ModernBertConfig, tp_group=None):
@@ -184,15 +184,6 @@ class ModernBertModel(nn.Module):
         self.embeddings = _Weights()
         self.embeddings._register(params["embeddings"])
         layers = params["layers"]
-
-        def layer_slice(v, i):
-            if isinstance(v, QuantTensor):
-                return QuantTensor(packed=v.packed[i], scales=v.scales[i],
-                                   mins=None if v.mins is None else v.mins[i])
-            if isinstance(v, Int8Weight):
-                return Int8Weight(w_nk=v.w_nk[i], scale=v.scale[i], k=v.k)
-            return v[i]
-
         self.layers = nn.ModuleList()
         for i in range(config.n_layer):
             lw = _Weights()
@@ -263,43 +254,23 @@ class ModernBertModel(nn.Module):
             x, a = self._add_norm(y, x, w("ln_out_scale"), use_kernels)
         return a
 
+    def hidden(self, token_ids: torch.Tensor, mask_bias: torch.Tensor,
+               position_ids: Optional[torch.Tensor] = None, *,
+               dtype: torch.dtype, use_kernels: Optional[bool] = None,
+               remat: bool = False) -> torch.Tensor:
+        """``BertModel.hidden``'s call: the final norm's output [B, T, D],
+        RoPE at ``position_ids`` (None: 0..T-1). Packed rows' positions
+        restart at each segment, and the band is counted in rows, which
+        within a segment are its positions. The model is served, not
+        trained, so ``remat`` changes nothing."""
+        x = self.embed(token_ids, dtype, use_kernels=use_kernels)
+        return self.encode(x, mask_bias, positions=position_ids,
+                           use_kernels=use_kernels)
+
     def attention_launches(self):
-        """(full, band) attention launches of one batch."""
+        """(full, band) attention launches of one batch: times the batch
+        counts of each shape, ``BertTorch.stats()["attention"]``."""
         n_global = sum(self.config.is_global(i)
                        for i in range(self.config.n_layer))
         return n_global, self.config.n_layer - n_global
 
-
-def modernbert_forward(model: ModernBertModel, token_ids: torch.Tensor,
-                       mask: torch.Tensor, *,
-                       compute_dtype: torch.dtype = torch.float32,
-                       use_kernels: Optional[bool] = None,
-                       pooling: str = "cls") -> torch.Tensor:
-    """token_ids [B, T], mask [B, T] → L2-normalised embeddings [B, D]
-    f32 (``model.bert_forward``'s contract)."""
-    _check_pooling(pooling)
-    x = model.embed(token_ids, compute_dtype, use_kernels=use_kernels)
-    mask_bias = (mask.float() - 1.0) * (-NEG_INF)
-    h = model.encode(x, mask_bias, use_kernels=use_kernels)
-    return cls_pool_l2(h) if pooling == "cls" else mean_pool_l2(h, mask)
-
-
-def modernbert_forward_packed(model: ModernBertModel,
-                              token_ids: torch.Tensor,
-                              segment_ids: torch.Tensor,
-                              position_ids: torch.Tensor, *, n_segments: int,
-                              compute_dtype: torch.dtype = torch.float32,
-                              use_kernels: Optional[bool] = None,
-                              pooling: str = "cls") -> torch.Tensor:
-    """Packed rows → per-segment embeddings [B, S, D] f32
-    (``model.bert_forward_packed``'s contract): block-diagonal attention,
-    RoPE positions restarting at each segment. The band is counted in
-    rows, which within a segment are its positions."""
-    _check_pooling(pooling)
-    x = model.embed(token_ids, compute_dtype, use_kernels=use_kernels)
-    mask_bias = segment_attention_bias(segment_ids)
-    h = model.encode(x, mask_bias, positions=position_ids,
-                     use_kernels=use_kernels)
-    if pooling == "cls":
-        return segment_cls_pool_l2(h, segment_ids, n_segments)
-    return segment_mean_pool_l2(h, segment_ids, n_segments)

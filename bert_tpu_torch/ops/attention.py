@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+from .common import counted
 
 
 def _bias4(mask_bias: torch.Tensor) -> torch.Tensor:
@@ -113,6 +114,7 @@ def _launch(q, k, v, mask_bias, scale):
     return out
 
 
+@counted
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mask_bias: torch.Tensor, *, scale: float
                          ) -> torch.Tensor:
@@ -129,6 +131,3 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"multi_head_attention: unsupported device "
                          f"{q.device}")
     return _launch(q, k, v, mask_bias, scale)
-
-
-multi_head_attention.launches = 0  # kernel launches, counted where they happen

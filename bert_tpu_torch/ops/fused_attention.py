@@ -40,18 +40,16 @@ import torch
 
 from .. import _kernels
 from .attention import _mha_plain
+from .common import counted
 
 HEAD_DIMS = (32, 64)  # the kernel's template instances
 BAND_HEAD_DIMS = (64,)  # the band instances
 
 
-def fused_route(t: int, n_head: int, d_head: int, dtype: torch.dtype,
-                pairwise: bool) -> bool:
-    """Whether the fused kernel takes this attention (the port's
-    ``pick_head_chunk``): true exactly when ``d_head`` has an instance. The
-    kernel streams key tiles, so T, the head count, the dtype and the bias
-    form set no envelope; they are parameters so that the call reads like
-    bert_tpu's."""
+def fused_route(d_head: int) -> bool:
+    """Whether the fused kernel takes an attention of head dim ``d_head``:
+    exactly when it has an instance. The kernel streams key tiles, so T,
+    the head count, the dtype and the bias form set no envelope."""
     return d_head in HEAD_DIMS
 
 
@@ -86,6 +84,7 @@ def rope_qkv_plain(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                      dim=3).reshape(b, t, 3 * n_head * d_head)
 
 
+@counted
 def rope_qkv(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
              positions=None, *, n_head: int, d_head: int) -> torch.Tensor:
     """:func:`rope_qkv_plain`'s rotation. CUDA tensors: the ``rope_qkv_*``
@@ -131,9 +130,6 @@ def rope_qkv(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     _kernels.check(rc, fn)
     rope_qkv.launches += 1
     return qkv
-
-
-rope_qkv.launches = 0  # kernel launches, counted where they happen
 
 
 def band_bias(t: int, window: int, device=None) -> torch.Tensor:
@@ -219,6 +215,7 @@ def _launch(qkv, mask_bias, n_head, d_head, scale, window=0, tiles=None):
     return out
 
 
+@counted
 def fused_qkv_attention(qkv: torch.Tensor, mask_bias: torch.Tensor, *,
                         n_head: int, d_head: int, scale: float,
                         window: int = 0, tiles=None) -> torch.Tensor:
@@ -235,6 +232,3 @@ def fused_qkv_attention(qkv: torch.Tensor, mask_bias: torch.Tensor, *,
         raise ValueError(f"fused_qkv_attention: unsupported device "
                          f"{qkv.device}")
     return _launch(qkv, mask_bias, n_head, d_head, scale, window, tiles)
-
-
-fused_qkv_attention.launches = 0  # kernel launches, counted where they happen

@@ -57,7 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _kernels
-from .common import round_up
+from .common import counted, round_up
 
 KP_ALIGN = 32   # the s8 wgmma's depth: codes rows are padded to a multiple
 # the largest K whose int32 sum cannot overflow: K · 127² ≤ 2^31 - 1
@@ -238,6 +238,7 @@ def _quantize_launch(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return codes, sx
 
 
+@counted
 def quantize_activations_i8(x: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x[M, K] → (codes [M, Kp] int8, zero past K; sx [M] f32), per-row
@@ -341,6 +342,7 @@ def int8_matmul_codes(codes: torch.Tensor, sx: torch.Tensor, w: Int8Weight,
     return out
 
 
+@counted
 def int8_matmul_gelu(codes: torch.Tensor, sx: torch.Tensor, w: Int8Weight,
                      bias: Optional[torch.Tensor] = None,
                      out_dtype: torch.dtype = torch.float32,
@@ -358,6 +360,7 @@ def int8_matmul_gelu(codes: torch.Tensor, sx: torch.Tensor, w: Int8Weight,
     return h
 
 
+@counted
 def int8_matmul(x: torch.Tensor, w: Int8Weight,
                 bias: Optional[torch.Tensor] = None,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -377,8 +380,3 @@ def int8_matmul(x: torch.Tensor, w: Int8Weight,
     _check_device(x, "int8_matmul")
     codes, sx = _quantize_launch(x)
     return int8_matmul_codes(codes, sx, w, bias, out_dtype)
-
-
-quantize_activations_i8.launches = 0  # kernel launches, where they happen
-int8_matmul.launches = 0
-int8_matmul_gelu.launches = 0

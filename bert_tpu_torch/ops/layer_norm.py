@@ -52,7 +52,7 @@ import torch
 
 from .. import _kernels
 from . import int8_matmul as _i8
-from .common import round_up
+from .common import counted, round_up
 
 _ENTRY = {(torch.float32, torch.float32): "layer_norm_f32",
           (torch.bfloat16, torch.bfloat16): "layer_norm_bf16",
@@ -148,6 +148,7 @@ def _launch(x, scale, bias, eps, residual, pre_bias, out_dtype, codes=False):
     return out
 
 
+@counted
 def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, *, eps: float,
                      residual: Optional[torch.Tensor] = None,
@@ -179,6 +180,7 @@ def layer_norm_codes_plain(x, scale, bias, eps, residual=None, pre_bias=None
         out.reshape(-1, out.shape[-1])))
 
 
+@counted
 def fused_layer_norm_codes(x: torch.Tensor, scale: torch.Tensor,
                            bias: torch.Tensor, *, eps: float,
                            residual: Optional[torch.Tensor] = None,
@@ -203,10 +205,6 @@ def fused_layer_norm_codes(x: torch.Tensor, scale: torch.Tensor,
                    codes=True)
 
 
-fused_layer_norm.launches = 0  # kernel launches, counted where they happen
-fused_layer_norm_codes.launches = 0
-
-
 def add_layer_norm_plain(y, x, scale, bias, eps):
     """Plain version of the add form: ``s = y.to(x.dtype) + x``, then
     :func:`layer_norm_plain` of s; returns (s, LN(s))."""
@@ -214,6 +212,7 @@ def add_layer_norm_plain(y, x, scale, bias, eps):
     return s, layer_norm_plain(s, scale, bias, eps)
 
 
+@counted
 def fused_add_layer_norm(y: torch.Tensor, x: torch.Tensor,
                          scale: torch.Tensor, bias: torch.Tensor, *,
                          eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -256,6 +255,3 @@ def fused_add_layer_norm(y: torch.Tensor, x: torch.Tensor,
     _kernels.check(rc, fn)
     fused_add_layer_norm.launches += 1
     return s, out
-
-
-fused_add_layer_norm.launches = 0

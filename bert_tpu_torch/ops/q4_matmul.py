@@ -32,6 +32,7 @@ import torch
 
 from .. import _kernels
 from ..quant import GROUP, QK, QuantTensor
+from .common import Count, counted
 
 # Router. A CUDA tensor always launches a kernel (or raises), of one of
 # two designs in csrc/q4_matmul.cu, chosen by what the call's shape shows:
@@ -228,6 +229,7 @@ def fused_epilogue(m: int, n: int, dtype: torch.dtype,
             and route(m, n, dtype, device_type) == "wgmma")
 
 
+@counted
 def q4_matmul(x: torch.Tensor, qt: QuantTensor,
               bias: Optional[torch.Tensor] = None,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -260,16 +262,7 @@ def fused_max_m(dtype: torch.dtype) -> int:
     return BF16_MAX_M if dtype == torch.bfloat16 else FUSED_MAX_M_F32
 
 
-class _Count:
-    """The launches of one instance, kept as the wrappers keep theirs
-    (``.launches``, which the engine's CUDA graphs add at each replay)."""
-
-    def __init__(self, name: str):
-        self.__name__ = name
-        self.launches = 0
-
-
-q4_matmul.launches = 0  # kernel launches, counted where they happen
-q4_matmul.wgmma = _Count("q4_matmul.wgmma")  # of them, the wgmma instance's
-# of those, the launches whose epilogue wrote bf16 (and added the bias)
-q4_matmul.wgmma_bf16 = _Count("q4_matmul.wgmma_bf16")
+# of q4_matmul's launches, the wgmma instance's; of those, the launches
+# whose epilogue wrote bf16 (and added the bias)
+q4_matmul.wgmma = counted(Count("q4_matmul.wgmma"))
+q4_matmul.wgmma_bf16 = counted(Count("q4_matmul.wgmma_bf16"))

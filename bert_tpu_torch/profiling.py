@@ -63,8 +63,6 @@ class PhaseTimers:
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
         self.bucket_counts: Dict[tuple, int] = defaultdict(int)
-        # attention launches by (kind "full"/"band", rows, T)
-        self.attention_counts: Dict[tuple, int] = defaultdict(int)
         # row groups the engine's token budget split into more batches
         self.budget_splits = 0
         self.sentences = 0
@@ -86,15 +84,6 @@ class PhaseTimers:
     def record_bucket(self, batch: int, seq: int, kind: str = "") -> None:
         with self._lock:
             self.bucket_counts[(batch, seq, kind)] += 1
-
-    def record_attention(self, batch: int, seq: int, full: int,
-                         band: int) -> None:
-        """One batch's attention launches: ``full`` over every key,
-        ``band`` over a window."""
-        with self._lock:
-            for kind, n in (("full", full), ("band", band)):
-                if n:
-                    self.attention_counts[(kind, batch, seq)] += n
 
     def add_budget_splits(self, n: int) -> None:
         with self._lock:
@@ -118,13 +107,6 @@ class PhaseTimers:
                 },
             }
 
-    def attention_summary(self) -> Dict[str, int]:
-        """Attention launches by "<kind> <rows>x<T>" (kind full / band):
-        ``BertTorch.stats()["attention"]``, beside bert_tpu's summary."""
-        with self._lock:
-            return {f"{kind} {b}x{s}": c for (kind, b, s), c in sorted(
-                self.attention_counts.items())}
-
     def reset(self) -> None:
         """Zero every total, count, bucket count and the sentence count
         (between a benchmark's trials)."""
@@ -132,7 +114,6 @@ class PhaseTimers:
             self.totals.clear()
             self.counts.clear()
             self.bucket_counts.clear()
-            self.attention_counts.clear()
             self.budget_splits = 0
             self.sentences = 0
 

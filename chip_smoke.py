@@ -1274,7 +1274,7 @@ def modernbert_engine_phase(dev):
     from plain_modernbert import Reference
 
     from bert_tpu_torch import BertTorch
-    from bert_tpu_torch._graphs import COUNTERS
+    from bert_tpu_torch.ops.common import COUNTERS
     from gpubench import corpus
     from gpubench.archs import modernbert as arch
 
@@ -2068,7 +2068,7 @@ def kernels_differ(ran: dict, want: dict) -> dict:
 def counted_launches(model, request) -> dict:
     """Each counter's launches for one more ``request`` (int8_matmul's
     form (c) under int8_matmul, one kernel)."""
-    from bert_tpu_torch._graphs import COUNTERS
+    from bert_tpu_torch.ops.common import COUNTERS
 
     before = {c.__name__: c.launches for c in COUNTERS}
     model.encode_batch(request)

@@ -478,21 +478,24 @@ def test_rope_pass_is_the_reference_rotation():
 
 # -- the attention counters against gpubench's cost model -------------------
 
-def test_attention_counts_match_the_cost_model(model_dir):
+@pytest.mark.parametrize("packing", [False, True])
+def test_attention_counts_match_the_cost_model(model_dir, packing):
     sys.path.insert(0, REPO)
     from gpubench.costs import attention as costs
 
     from bert_tpu_torch.ops.fused_attention import band_bias
 
-    eng = BertTorch.from_file(model_dir, device="cpu", packing=False)
+    eng = BertTorch.from_file(model_dir, device="cpu", packing=packing)
     eng.eval_tokens(token_lists() + token_lists((40, 5, 12), seed=1))
     st = eng.stats()
     w = CFG["local_attention"] // 2
     want = {}
     for key, n in st["buckets"].items():
-        want[f"full {key}"] = 2 * n   # layers 0 and 3
-        want[f"band {key}"] = 4 * n
-    assert st["attention"] == want
+        shape = key.split()[0]  # packed and bucketed batches add up
+        want[f"full {shape}"] = want.get(f"full {shape}", 0) + 2 * n
+        want[f"band {shape}"] = want.get(f"band {shape}", 0) + 4 * n
+    assert st["attention"] == want  # layers 0 and 3 full, the others band
+    assert any(k.endswith("packed") for k in st["buckets"]) == packing
     h, dh = CFG["num_attention_heads"], 64 // CFG["num_attention_heads"]
     for key, n in st["attention"].items():
         kind, shape = key.split()

@@ -48,14 +48,8 @@ from bert_tpu_torch import model as t_model
 from bert_tpu_torch import native as t_native
 from bert_tpu_torch import packing as t_packing
 from bert_tpu_torch.formats import read_ggml as t_read_ggml
-from bert_tpu_torch.ops.attention import multi_head_attention
-from bert_tpu_torch.ops.fused_attention import fused_qkv_attention
-from bert_tpu_torch.ops.int8_matmul import (int8_matmul, int8_matmul_gelu,
-                                            quantize_activations_i8)
+from bert_tpu_torch.ops.common import COUNTERS
 from bert_tpu_torch.ops.int8_matmul import quantize_w8 as t_quantize_w8
-from bert_tpu_torch.ops.layer_norm import (fused_layer_norm,
-                                           fused_layer_norm_codes)
-from bert_tpu_torch.ops.q4_matmul import q4_matmul
 from bert_tpu_torch.profiling import PhaseTimers as TPhaseTimers
 from test_torch_engine import corpus, model_file  # noqa: F401 (fixtures)
 
@@ -550,9 +544,6 @@ def test_build_native_force_runs_make(tmp_path, monkeypatch):
 # 2c. BertTorch(use_kernels=...)
 # ---------------------------------------------------------------------------
 
-COUNTERS = (q4_matmul, fused_layer_norm, fused_qkv_attention,
-            multi_head_attention, int8_matmul, int8_matmul_gelu,
-            quantize_activations_i8, fused_layer_norm_codes)
 # the kernel wrappers the model calls (each takes its plain version on a
 # CPU tensor); use_kernels=False calls the plain versions directly
 WRAPPERS = ("q4_matmul", "fused_layer_norm", "fused_qkv_attention",
@@ -594,8 +585,8 @@ def test_use_kernels_false_is_the_default_bit_for_bit(model_file, corpus,
                                 **kw)
     assert (default.use_kernels, plain.use_kernels) == (None, False)
     calls = _spy_wrappers(monkeypatch)
-    for fn in COUNTERS:
-        fn.launches = 0
+    for fn in COUNTERS:  # every counter the op layer registers
+        monkeypatch.setattr(fn, "launches", 0)
     want = _embed(default, corpus, route)
     assert calls, "the default engine called no kernel wrapper"
     if "int8_threshold" in kw:  # 0: every batch int8; 512: the packed one

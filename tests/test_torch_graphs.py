@@ -19,12 +19,16 @@ runs:
 (e) a CPU engine makes no CUDA graph and launches no kernel;
 (f) the launch counters' rule: the warm-up run counts, the capture does
     not, each replay counts once (fake counters, and the card's code path
-    run with fake CUDA objects);
+    run with fake CUDA objects); every kernel wrapper the model and the
+    engine call has its counter in the op layer's registry, which a
+    program's replays add to by default;
 (g) threads sharing one engine get the results they get alone.
 """
 
 import contextlib
+import functools
 import gc
+import importlib
 import sys
 import threading
 from types import SimpleNamespace
@@ -35,7 +39,7 @@ import torch
 
 from bert_tpu import BertTPU
 from bert_tpu_torch import BertTorch, _graphs
-from bert_tpu_torch.ops.common import round_up
+from bert_tpu_torch.ops.common import COUNTERS, round_up
 from fixture_vocab import KNOWN_TOKENS
 from test_torch_engine import corpus, model_file  # noqa: F401 (fixtures)
 
@@ -165,7 +169,7 @@ def test_a_cpu_engine_makes_no_graph_and_launches_no_kernel(model_file,
     monkeypatch.setattr(torch.cuda, "CUDAGraph", no_graph)
     monkeypatch.setattr(torch.cuda, "graph", no_graph)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", no_graph)
-    for c in _graphs.COUNTERS:
+    for c in COUNTERS:
         monkeypatch.setattr(c, "launches", 0)
     eng = BertTorch.from_file(model_file, device="cpu", int8_eval=True,
                               int8_threshold=512)
@@ -173,8 +177,7 @@ def test_a_cpu_engine_makes_no_graph_and_launches_no_kernel(model_file,
     eng.encode_batch(corpus)
     assert eng._programs.table
     assert all(p.graph is None for p in eng._programs.table.values())
-    assert [c.launches for c in _graphs.COUNTERS] == [0] * len(
-        _graphs.COUNTERS)
+    assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
 
 
 # (f) -------------------------------------------------------------------------
@@ -268,6 +271,54 @@ def test_program_counts_warm_up_and_replays_not_the_capture(monkeypatch):
     assert seen[-1] == 6.0 and out is prog.output
     with pytest.raises(ValueError, match="shape"):
         prog(x=np.zeros(4))
+
+
+# the counter of each kernel wrapper the model and the engine call, and of
+# q4_matmul's wgmma instance and that instance's bf16 epilogue: (module of
+# bert_tpu_torch.ops, name)
+WRAPPER_COUNTERS = [
+    ("attention", "multi_head_attention"),
+    ("fused_attention", "fused_qkv_attention"),
+    ("fused_attention", "rope_qkv"),
+    ("int8_matmul", "int8_matmul"),
+    ("int8_matmul", "int8_matmul_gelu"),
+    ("int8_matmul", "quantize_activations_i8"),
+    ("layer_norm", "fused_layer_norm"),
+    ("layer_norm", "fused_layer_norm_codes"),
+    ("layer_norm", "fused_add_layer_norm"),
+    ("q4_matmul", "q4_matmul"),
+    ("q4_matmul", "q4_matmul.wgmma"),
+    ("q4_matmul", "q4_matmul.wgmma_bf16"),
+]
+
+
+@pytest.mark.parametrize("module,name", WRAPPER_COUNTERS,
+                         ids=[name for _, name in WRAPPER_COUNTERS])
+def test_every_wrapper_counter_is_registered_and_replayed(monkeypatch,
+                                                          module, name):
+    counter = functools.reduce(getattr, name.split("."),
+                               importlib.import_module(
+                                   f"bert_tpu_torch.ops.{module}"))
+    assert counter.__name__ == name
+    assert any(c is counter for c in COUNTERS)
+    capturing = _fake_cuda(monkeypatch)
+    monkeypatch.setattr(counter, "launches", 0)
+
+    def fn(x, counting=True):  # one launch of the wrapper's kernel
+        g = capturing.get("graph")
+        if g is not None:
+            g.fn = lambda counting: fn(x, counting)
+        if counting:
+            counter.launches += 1
+        return x + 1
+
+    # the program's counters by default: the registry
+    prog = _graphs.Program(fn, {"x": torch.zeros(2)}, pool="pool")
+    prog.device = torch.device("cuda")  # take the card's path
+    for _ in range(3):
+        prog(x=np.zeros(2))
+    # the warm-up and three replays count, the capture does not
+    assert counter.launches == 4
 
 
 # (g) -------------------------------------------------------------------------

@@ -250,9 +250,7 @@ def test_dh26_bert_forward_packed_matches_bert_tpu(mha_models, cfg):
                                           (64, True), (128, False),
                                           (160, False)])
 def test_fused_route(d_head, fused):
-    for t, pairwise in ((64, True), (512, False), (2048, False)):
-        assert fused_route(t, 12, d_head, torch.bfloat16,
-                           pairwise=pairwise) is fused
+    assert fused_route(d_head) is fused
 
 
 @pytest.mark.parametrize("cfg,route", [(DH26, "mha"), (SMALL, "fused"),

@@ -239,10 +239,10 @@ def test_q4_matmul_checks_its_bias_and_device():
 
 
 def test_q4_bf16_epilogue_has_a_counter_that_graphs_replay():
-    from bert_tpu_torch import _graphs
+    from bert_tpu_torch.ops.common import COUNTERS
 
     assert q4_matmul.wgmma_bf16.__name__ == "q4_matmul.wgmma_bf16"
-    assert q4_matmul.wgmma_bf16 in _graphs.COUNTERS
+    assert q4_matmul.wgmma_bf16 in COUNTERS
 
 
 @pytest.mark.parametrize("n, want", [

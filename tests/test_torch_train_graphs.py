@@ -40,6 +40,7 @@ from bert_tpu_torch import _graphs
 from bert_tpu_torch import model as tmodel
 from bert_tpu_torch import train as ttrain
 from bert_tpu_torch.checkpoint import load_train_state, save_train_state
+from bert_tpu_torch.ops.common import COUNTERS
 from bert_tpu_torch.params import params_to_numpy, train_state_from_jax
 from bert_tpu_torch.testing import key_bias_lanes, noise_rule
 from test_torch_train import (JCFG, TCFG, host,  # noqa: F401 (fixture)
@@ -83,7 +84,7 @@ def assert_equal_trees(got, want):
 
 
 def counts():
-    return [c.launches for c in _graphs.COUNTERS]
+    return [c.launches for c in COUNTERS]
 
 
 # (a) -------------------------------------------------------------------------
