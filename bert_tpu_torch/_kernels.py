@@ -63,6 +63,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # qkv, bias, out, B, T, H, d_head, pairwise, scale, stream
         **{f"fused_attention_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
            for t in ("f32", "bf16")},
+        # the long-T form: qkv, bias (key-side), out, B, T, H, d_head,
+        # scale, stream
+        "fused_attention_wgmma_bf16": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
         # qkv, bias, out, B, T, H, d_head, pairwise, window, scale, tiles
         # (nullable), stream
         **{f"fused_attention_band_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -84,7 +84,7 @@
 // the 128 tiles of T = 8,192) and drops the keys past the window inside
 // them to -FLT_MAX, as it drops keys past T; a nullable counter adds up the
 // tiles the blocks visit. ModernBERT's global layers run the instances
-// above unchanged.
+// above, and in bf16 at T >= 1,024 the long-T form below.
 //
 // RoPE (rope_qkv_*): one pass that rotates q and k of every head in place
 // in qkv before the attention reads it (rotate-half: x'[d] = x[d] cos -
@@ -97,11 +97,63 @@
 // inside the attention instead would rotate each k tile again for every
 // query block that visits it (128 times a tile at T = 8,192).
 
+// The long-T form (fused_attention_wgmma_bf16_kernel; ModernBERT's global
+// layers: bf16, dh 64, key-side bias, T >= 1,024, ops/fused_attention.py's
+// wgmma_route), a kernel of its own so that BERT's instances above compile
+// as they did. It replaces the same Pallas _fused_attn_kernel, at long T,
+// with the arithmetic above but for one step: exp(s - m) is the SFU's
+// 2^((s - m) log2 e) (ex2.approx, results below 2^-126 flushed to 0), not
+// expf, whose range reduction (seven more FMA-pipe instructions an
+// exponential) set the pace here: 5.24 against 3.92 ms at 8 x 8,192 on the
+// H100, all else equal. What bounds it: operations. At 8 x 8,192 (12
+// heads) the two products are 1.65 TFLOP, 1.668 ms at 989 TFLOP/s, against
+// 0.16 GB of qkv and context (0.05 ms at 3.35 TB/s); and its 6.4 G
+// exponentials, on the SFU's 16 lanes an SM a cycle, take about as long,
+// so the products, the exponentials and the softmax's other arithmetic
+// have to run under each other. At these T a query block streams 8-64 key
+// tiles, and the mma.sync instance's premise (few products a tile, the time
+// in the loads and the softmax) no longer holds. Design (FA-3's shape):
+//  - persistent blocks, one an SM, of 512 threads walking (query block of
+//    192 rows, head, batch row) items, query blocks fastest; producer and
+//    consumers walk the same items, so the ring runs on across them;
+//  - a producer warp (setmaxnreg 24) keeps a 4-stage ring of key and value
+//    tiles of 128 keys x 64 lanes (16 KB each) full by TMA on mbarriers:
+//    one 2-D map over qkv's rows [B*T, 3D] in place (no relayout), 128-byte
+//    swizzle, passed as a __grid_constant__ (CUDA graphs replay it); its 32
+//    lanes stage the tile's key-side bias beside it (-inf for keys past T:
+//    an exact 0 after exp, and never a row's max, since key 0 of every row
+//    is real; the keys of the next batch row that a tile reaches are read
+//    and masked so);
+//  - three consumer warpgroups (setmaxnreg 160) of 64 query rows each. A
+//    warpgroup scales its q rows once an item (in registers, as above) into
+//    shared memory in the same swizzle. Per key tile: S = q k^T by four
+//    wgmma.m64n128k16 (both operands by descriptor), f32; the online
+//    softmax in registers (a row's max and sum over the 4 lanes of a quad);
+//    p rounded to bf16 in place into the A fragments of o += p v, eight
+//    wgmma.m64n64k16 with v as the transposed (MN-major) B operand. A
+//    warpgroup issues the next tile's S and this tile's p v together, in
+//    its turn on named barriers (0, 1, 2, 0, ...), and hands the turn on
+//    once they retired: while one multiplies, the other two are in their
+//    softmax (issued at once, the warpgroups fell into step: all
+//    multiplying, then all in the softmax);
+//  - the context is divided by the sum once, staged in shared memory and
+//    written by 16-byte stores (rows past T are not stored).
+// Rejected on the H100 (PERF.md, same call each): two consumer warpgroups
+// of 128-row items (q in registers, two sets of p fragments), 4.28 against
+// 3.92-3.97 ms at 8 x 8,192 (but 0.091 against 0.104 at 8 x 1,024, where
+// 192-row blocks pad T); handing the turn over at issue (4.10 against
+// 3.97); with two warpgroups, the row sums as eight columns of ones beside
+// v (8% slower: the products, not the softmax's arithmetic, lead) and an
+// FMA-folded exponent with skipped all-zero bias adds and unit rescales
+// (20% slower: the exponentials then came back to back on the SFU).
+
 #include <cfloat>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include "hopper.cuh"
+#include "hopper_tma.cuh"
 
 namespace {
 
@@ -694,6 +746,409 @@ int launch_band_bf16(const void* qkv, const void* bias, void* out, int B,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at long T: warp-specialised, wgmma on TMA-fed key/value tiles (the
+// header's last form)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int DH = 64;
+constexpr int NC = 3;        // consumer warpgroups, 64 query rows each
+constexpr int BM = 64 * NC;  // query rows of an item
+constexpr int BN = 128;      // keys a tile
+constexpr int SN = BN / 8;   // n8 column tiles of S
+constexpr int STAGES = 4;
+constexpr int THREADS = (NC + 1) * 128;  // the consumers, the producer's
+// registers a thread after setmaxnreg: 128 each at launch (65,536 / 512);
+// the producer's go to the consumers
+constexpr int REG_P = 24, REG_C = 160;
+// named barriers: a consumer's own (its q and context staging) and its turn
+constexpr int BAR_STAGE = 1, BAR_TURN = 1 + NC;
+
+struct Smem {
+  // as TMA writes them: one key a 128-byte row, in the 128-byte swizzle
+  alignas(1024) bf16 k[STAGES][BN][DH];
+  alignas(1024) bf16 v[STAGES][BN][DH];
+  // each consumer's 64 query rows, scaled, in the same swizzle
+  alignas(1024) bf16 q[NC][64][DH];
+  alignas(16) float bias[STAGES][BN];
+  // each consumer's context, staged for 16-byte stores (rows of 144 bytes:
+  // a quad's words land in distinct banks)
+  alignas(16) bf16 o[NC][64][DH + 8];
+  uint64_t full[STAGES], empty[STAGES];
+};
+
+#define WG_R8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// S (+)= q k^T over one k16 step of dh: A 64 x 16 of q and B 128 keys x
+// 16, both K-major in shared memory (descriptors); scale_d = 0 overwrites
+// S.
+__device__ __forceinline__ void wgmma_s(float (&d)[4 * SN], uint64_t a,
+                                        uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_R8(0), WG_R8(8), WG_R8(16), WG_R8(24), WG_R8(32), WG_R8(40),
+        WG_R8(48), WG_R8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// o += p v over one k16 step of keys: A 64 x 16 of p in registers (the
+// mma.m16n8k16 A layout, a warp 16 rows), B 16 keys x 64 lanes of v, lanes
+// contiguous in shared memory (MN-major: the transposed B operand,
+// imm-trans-b 1).
+__device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_R8(0), WG_R8(8), WG_R8(16), WG_R8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef WG_R8
+
+template <int N>
+__device__ __forceinline__ void fence_all(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) hopper::fence_operand(r[i]);
+}
+
+// Keep the compiler from reusing a fragment's registers before the wgmma
+// that reads them has retired (it reads them behind the compiler's back).
+__device__ __forceinline__ void hold(uint32_t (&a)[BN / 16][4]) {
+#pragma unroll
+  for (int i = 0; i < BN / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// exp(x) for x <= 0 as the SFU's 2^(x log2 e), results below 2^-126
+// flushed to 0 (they round to 0 or to a bf16 subnormal after it): the
+// header's exponential. x = s - m is formed first, as for expf, so that a
+// row whose keys are all masked (scores near the mask's -1e9, m as large)
+// still gets the plain version's exponents.
+__device__ __forceinline__ float exp_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n"
+      : "=f"(y)
+      : "f"(__fmul_rn(x, 1.4426950408889634f)));
+  return y;
+}
+
+// Two f32 values rounded to bf16 (nearest even) in one word, `lo` in the
+// low half: one cvt (pack_bf16 goes through a bfloat162 and its halves).
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// The online softmax of one tile's S (the wgmma accumulator: s[4j + e] is
+// row g + 8 (e / 2) of the warp's 16, key 8j + 2t + e % 2 of the tile) with
+// its staged bias: the running max m and sum l of rows g and g + 8 move
+// past the tile's (corr = exp(m_old - m_new) rescales l here and the
+// context at the caller), and p = round(exp(s - m)), summed as rounded,
+// goes into the A fragments of p v: S's n8 tiles 2u and 2u + 1 are k16
+// step u.
+__device__ __forceinline__ void softmax(float (&s)[4 * SN],
+                                        const float* __restrict__ bias,
+                                        float (&m)[2], float (&l)[2],
+                                        float (&corr)[2],
+                                        uint32_t (&p)[BN / 16][4], int t) {
+  float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+  for (int j = 0; j < SN; ++j) {
+    const float2 bv = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * t);
+    s[4 * j] += bv.x;
+    s[4 * j + 1] += bv.y;
+    s[4 * j + 2] += bv.x;
+    s[4 * j + 3] += bv.y;
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    corr[i] = expf(m[i] - m_new);
+    l[i] *= corr[i];
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < SN; ++j) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const uint32_t w = bf16x2(exp_sfu(s[4 * j + 2 * hf] - m[hf]),
+                                exp_sfu(s[4 * j + 2 * hf + 1] - m[hf]));
+      l[hf] += __uint_as_float(w << 16) + __uint_as_float(w & 0xffff0000u);
+      p[j >> 1][2 * (j & 1) + hf] = w;
+    }
+  }
+}
+
+// The item's query block, head and batch row: query blocks fastest, so the
+// blocks in flight share their (batch row, head)'s keys in L2.
+__device__ __forceinline__ void item(int v, int seq, int H, int& q0, int& h,
+                                     int& b) {
+  const int qb = (seq + BM - 1) / BM;
+  q0 = v % qb * BM;
+  h = v / qb % H;
+  b = v / qb / H;
+}
+
+// The tensor cores in turns (the header's last design point): a consumer
+// issues its products only in its turn and passes the turn to the next
+// once they retired.
+__device__ __forceinline__ void my_turn(int wgi) {
+  hopper::named_bar_sync(BAR_TURN + wgi, 256);
+}
+__device__ __forceinline__ void your_turn(int wgi) {
+  hopper::named_bar_arrive(BAR_TURN + (wgi + 1) % NC, 256);
+}
+
+// A consumer warpgroup's pass over key tile `it` of the item (ring slot
+// (q + it) % STAGES, `q` the block's tiles before the item), in its turn:
+// the next tile's S (where NEXT) and o += p v of this tile. Once both
+// retired the turn passes and the slot is freed, and the next tile's
+// softmax leaves its p in `p` and rescales o by its corr.
+template <bool NEXT>
+__device__ __forceinline__ void step(Smem& s, int q, int it, int wgi,
+                                     float (&sacc)[4 * SN],
+                                     float (&o)[DH / 2], float (&m)[2],
+                                     float (&l)[2], uint32_t (&p)[BN / 16][4],
+                                     int t) {
+  const int st = (q + it) % STAGES, sn = (q + it + 1) % STAGES;
+  if (NEXT) hopper::mbar_wait(&s.full[sn], ((q + it + 1) / STAGES) & 1);
+  my_turn(wgi);
+  fence_all(o);
+  fence_all(sacc);
+  hopper::wgmma_fence();
+  if (NEXT) {
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_s(sacc, hopper::desc_sw128(&s.q[wgi][0][kk * 16]),
+              hopper::desc_sw128(&s.k[sn][0][kk * 16]), kk > 0);
+  }
+#pragma unroll
+  for (int u = 0; u < BN / 16; ++u)
+    wgmma_pv(o, p[u], hopper::desc_sw128(&s.v[st][u * 16][0]));
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  your_turn(wgi);
+  fence_all(o);
+  fence_all(sacc);
+  hold(p);
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(&s.empty[st]);
+  if (NEXT) {
+    float corr[2];
+    softmax(sacc, s.bias[sn], m, l, corr, p, t);
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+  }
+}
+
+__device__ __forceinline__ void consumer(Smem& s, const bf16* __restrict__ qkv,
+                                         bf16* __restrict__ out, int seq,
+                                         int H, int items, float scale) {
+  const int wgi = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int D = H * DH;
+  const size_t row_stride = 3 * (size_t)D;
+  const int tiles = (seq + BN - 1) / BN;
+  const float scale_t = __bfloat162float(__float2bfloat16(scale));
+  if (wgi == NC - 1) your_turn(wgi);  // the first turn is warpgroup 0's
+  int q = 0;  // the block's key tiles before this item
+  for (int v = blockIdx.x; v < items; v += gridDim.x, q += tiles) {
+    int q0, h, b;
+    item(v, seq, H, q0, h, b);
+    const bf16* base = qkv + (size_t)b * seq * row_stride + (size_t)h * 3 * DH;
+    // this warpgroup's 64 query rows, pre-scaled in bf16 (round(q *
+    // round(scale))), into shared memory in the 128-byte swizzle: 16-byte
+    // chunk c of row r at chunk c ^ (r % 8); rows past T are zero
+#pragma unroll
+    for (int i = 0; i < 64 * DH / 8 / 128; ++i) {
+      const int c = (threadIdx.x & 127) + 128 * i, r = c >> 3, ch = c & 7;
+      const int row = q0 + 64 * wgi + r;
+      uint4 w = make_uint4(0, 0, 0, 0);
+      if (row < seq) {
+        w = *reinterpret_cast<const uint4*>(base + (size_t)row * row_stride +
+                                            8 * ch);
+        uint32_t* x = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 f = hopper::unpack_bf16(x[k]);
+          x[k] = bf16x2(f.x * scale_t, f.y * scale_t);
+        }
+      }
+      *reinterpret_cast<uint4*>(&s.q[wgi][r][8 * (ch ^ (r & 7))]) = w;
+    }
+    hopper::fence_proxy_async();  // the wgmma (async proxy) reads them
+    hopper::named_bar_sync(BAR_STAGE + wgi, 128);
+    float o[DH / 2], sacc[4 * SN];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f}, corr[2];
+    uint32_t p[BN / 16][4];
+
+    // the first tile's S and softmax (o is 0: its corr is moot)
+    const int s0 = q % STAGES;
+    hopper::mbar_wait(&s.full[s0], (q / STAGES) & 1);
+    my_turn(wgi);
+    fence_all(sacc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_s(sacc, hopper::desc_sw128(&s.q[wgi][0][kk * 16]),
+              hopper::desc_sw128(&s.k[s0][0][kk * 16]), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    your_turn(wgi);
+    fence_all(sacc);
+    softmax(sacc, s.bias[s0], m, l, corr, p, t);
+    for (int it = 0; it + 1 < tiles; ++it)
+      step<true>(s, q, it, wgi, sacc, o, m, l, p, t);
+    step<false>(s, q, tiles - 1, wgi, sacc, o, m, l, p, t);
+
+    // the context: o / l, staged, then 16-byte stores of rows below T
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<uint32_t*>(
+            &s.o[wgi][16 * warp + g + 8 * hf][8 * j + 2 * t]) =
+            bf16x2(o[4 * j + 2 * hf] / l[hf], o[4 * j + 2 * hf + 1] / l[hf]);
+    hopper::named_bar_sync(BAR_STAGE + wgi, 128);
+#pragma unroll
+    for (int i = 0; i < 64 * DH / 8 / 128; ++i) {
+      const int c = (threadIdx.x & 127) + 128 * i, r = c >> 3;
+      const int row = q0 + 64 * wgi + r;
+      if (row < seq)
+        *reinterpret_cast<uint4*>(out + ((size_t)b * seq + row) * D +
+                                  (size_t)h * DH + 8 * (c & 7)) =
+            *reinterpret_cast<const uint4*>(&s.o[wgi][r][8 * (c & 7)]);
+    }
+    hopper::named_bar_sync(BAR_STAGE + wgi, 128);  // the staging is free
+  }
+  // the last warpgroup's last your_turn, met (every named barrier completes)
+  if (wgi == 0) my_turn(wgi);
+}
+
+// Roles (threads): consumers 0-383, then the producer's warpgroup, of which
+// one warp works. Items v = blockIdx.x, + gridDim.x, ...; q counts the
+// block's key tiles over its items, and tile q uses ring stage q % STAGES.
+__global__ void __launch_bounds__(THREADS, 1)
+    fused_attention_wgmma_bf16_kernel(const __grid_constant__ CUtensorMap map,
+                                      const bf16* __restrict__ qkv,
+                                      const float* __restrict__ bias,
+                                      bf16* __restrict__ out, int seq, int H,
+                                      int items, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  // aligned by an offset from smem_raw, not through an integer, so that
+  // the compiler still knows it for shared memory
+  Smem& s = *reinterpret_cast<Smem*>(
+      smem_raw + (-hopper::smem_addr(smem_raw) & 1023u));
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      hopper::mbar_init<33>(&s.full[i]);  // the TMA's thread + 32 bias lanes
+      hopper::mbar_init<4 * NC>(&s.empty[i]);  // the consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128 * NC) {
+    hopper::setmaxnreg_dec<REG_P>();
+    if (threadIdx.x < 128 * NC + 32) {
+      // producer: lane 0 issues the tiles' loads, every lane stages four
+      // keys' bias (read before the slot is free, so the latency hides)
+      const int lane = threadIdx.x & 31;
+      const int tiles = (seq + BN - 1) / BN;
+      int q = 0;
+      for (int v = blockIdx.x; v < items; v += gridDim.x) {
+        int q0, h, b;
+        item(v, seq, H, q0, h, b);
+        const float* brow = bias + (size_t)b * seq;
+        for (int it = 0; it < tiles; ++it, ++q) {
+          const int st = q % STAGES, k0 = it * BN;
+          float bv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = k0 + 4 * lane + i;
+            bv[i] = key < seq ? brow[key] : -CUDART_INF_F;
+          }
+          hopper::mbar_wait(&s.empty[st], ((q / STAGES) & 1) ^ 1);
+          if (lane == 0) {
+            uint64_t* bar = &s.full[st];
+            hopper::mbar_expect(bar, 2 * BN * DH * 2);
+            const int c = h * 3 * DH, r = b * seq + k0;
+            hopper::tma_2d(&s.k[st][0][0], &map, c + DH, r, bar);
+            hopper::tma_2d(&s.v[st][0][0], &map, c + 2 * DH, r, bar);
+          }
+          *reinterpret_cast<float4*>(&s.bias[st][4 * lane]) =
+              make_float4(bv[0], bv[1], bv[2], bv[3]);
+          hopper::mbar_arrive(&s.full[st]);
+        }
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<REG_C>();
+    consumer(s, qkv, out, seq, H, items, scale);
+  }
+}
+
+int launch(const void* qkv, const void* bias, void* out, int B, int seq,
+           int H, float scale, cudaStream_t st) {
+  constexpr int smem = sizeof(Smem) + 1024;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fused_attention_wgmma_bf16_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  const uint64_t cols = 3 * (uint64_t)H * DH;
+  if (!hopper::encode_map(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, qkv, cols,
+                          (uint64_t)B * seq, cols * 2, DH, BN,
+                          CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  const int items = (seq + BM - 1) / BM * H * B;
+  const int sms = hopper::sm_count();
+  fused_attention_wgmma_bf16_kernel<<<items < sms ? items : sms, THREADS,
+                                      smem, st>>>(
+      map, (const bf16*)qkv, (const float*)bias, (bf16*)out, seq, H, items,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
 // RoPE on q and k, in place
 // ---------------------------------------------------------------------------
 
@@ -805,6 +1260,16 @@ extern "C" int fused_attention_bf16(const void* qkv, const void* bias,
   if (B <= 0 || seq <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   return launch_bf16(qkv, bias, out, B, seq, H, dh, pairwise, scale,
                      (cudaStream_t)stream);
+}
+
+// The long-T form: bf16, dh 64, key-side bias [B, T] (the wrapper's
+// wgmma_route)
+extern "C" int fused_attention_wgmma_bf16(const void* qkv, const void* bias,
+                                          void* out, int B, int seq, int H,
+                                          int dh, float scale, void* stream) {
+  if (B <= 0 || seq <= 0 || H <= 0 || dh != wg::DH)
+    return (int)cudaErrorInvalidValue;
+  return wg::launch(qkv, bias, out, B, seq, H, scale, (cudaStream_t)stream);
 }
 
 // The band |i - j| <= window (window > 0); tiles (nullable): the key tiles

@@ -124,6 +124,11 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrive at barrier `id` over `threads` threads without waiting for it.
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // A 2-D TMA descriptor of a row-major [rows, cols] array with the given
 // row stride, boxes of box_rows x box_cols elements. A descriptor is a
 // function of these arguments alone, so each is encoded once and kept

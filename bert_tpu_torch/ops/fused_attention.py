@@ -24,7 +24,9 @@ ModernBERT (``modernbert.py``) rotates q and k first with
 :func:`rope_qkv` (RoPE, rotate-half, from the cos and sin tables [P, dh/2]
 of :func:`rope_tables` and optional int32 ``positions`` [B, T]): on the
 card one pass of its own kernel (``rope_qkv_*``), in place; then its
-global layers take the kernel above, and its local layers ``window`` w >
+global layers take the kernel above (in bf16 at T >= 1,024 its long-T
+form, ``fused_attention_wgmma_bf16``: :func:`wgmma_route`, counted apart
+by ``fused_qkv_attention.wgmma``), and its local layers ``window`` w >
 0: only the keys with |i - j| <= w, in a kernel of its own
 (``fused_attention_band_*``, an instance at dh 64,
 :data:`BAND_HEAD_DIMS`) that visits only the key tiles the band meets.
@@ -40,10 +42,11 @@ import torch
 
 from .. import _kernels
 from .attention import _mha_plain
-from .common import counted
+from .common import Count, counted
 
 HEAD_DIMS = (32, 64)  # the kernel's template instances
 BAND_HEAD_DIMS = (64,)  # the band instances
+WGMMA_MIN_T = 1024  # the long-T form's shortest T (wgmma_route)
 
 
 def fused_route(d_head: int) -> bool:
@@ -51,6 +54,21 @@ def fused_route(d_head: int) -> bool:
     exactly when it has an instance. The kernel streams key tiles, so T,
     the head count, the dtype and the bias form set no envelope."""
     return d_head in HEAD_DIMS
+
+
+def wgmma_route(dtype: torch.dtype, t: int, d_head: int, pairwise: bool,
+                window: int) -> bool:
+    """Whether a launch of T = ``t`` takes the kernel's long-T form
+    (``fused_attention_wgmma_bf16``: wgmma on TMA-fed key tiles, built for
+    ModernBERT's global layers): bf16, head dim 64, the key-side bias, no
+    band, T >= :data:`WGMMA_MIN_T`. Every other launch keeps its instance.
+    f32, packed rows, the band and dh 32 have no long-T form. T <= 512 (all
+    of BERT and MiniLM) stays on the mma.sync instance by choice, not by
+    measurement: called by its entry point, the long-T form ran faster at
+    32 x 512 and 128 x 256 too (PERF.md, "B6"), and the cut at 1,024 is
+    where ModernBERT's batches start, not a measured crossover."""
+    return (dtype == torch.bfloat16 and d_head == 64 and not pairwise
+            and not window and t >= WGMMA_MIN_T)
 
 
 def rope_tables(theta: float, d_head: int, n_pos: int, device=None):
@@ -195,9 +213,15 @@ def _launch(qkv, mask_bias, n_head, d_head, scale, window=0, tiles=None):
     if b == 0 or t == 0:
         return out
     dt = "f32" if qkv.dtype == torch.float32 else "bf16"
+    long_t = wgmma_route(qkv.dtype, t, d_head, pairwise, window)
     lib = _kernels.library("fused_attention")
     with torch.cuda.device(qkv.device):
-        if not window:
+        if long_t:
+            fn = "fused_attention_wgmma_bf16"
+            rc = getattr(lib, fn)(
+                qkv.data_ptr(), mask_bias.data_ptr(), out.data_ptr(), b, t,
+                n_head, d_head, float(scale), _kernels.stream_of(qkv))
+        elif not window:
             fn = f"fused_attention_{dt}"
             rc = getattr(lib, fn)(
                 qkv.data_ptr(), mask_bias.data_ptr(), out.data_ptr(), b, t,
@@ -212,6 +236,8 @@ def _launch(qkv, mask_bias, n_head, d_head, scale, window=0, tiles=None):
                 _kernels.stream_of(qkv))
     _kernels.check(rc, fn)
     fused_qkv_attention.launches += 1
+    if long_t:
+        fused_qkv_attention.wgmma.launches += 1
     return out
 
 
@@ -232,3 +258,7 @@ def fused_qkv_attention(qkv: torch.Tensor, mask_bias: torch.Tensor, *,
         raise ValueError(f"fused_qkv_attention: unsupported device "
                          f"{qkv.device}")
     return _launch(qkv, mask_bias, n_head, d_head, scale, window, tiles)
+
+
+# of fused_qkv_attention's launches, the long-T form's (wgmma_route)
+fused_qkv_attention.wgmma = counted(Count("fused_qkv_attention.wgmma"))

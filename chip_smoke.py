@@ -242,14 +242,29 @@ TOL = {"q4_matmul": {"f32": 1e-3, "bf16": 5e-2},
        # tolerances; RoPE's pass and the add form's stream are held bit for
        # bit
        "rope_attention": {"f32": 2e-4, "bf16": 2e-2},
+       # the full attention's long-T form (wgmma_route), bf16 only: 2.5x
+       # its worst max|Δ| on the card (1.95e-3 at 2 x 1,024, 3 x 1,100, 8 x
+       # 1,024 and 8 x 4,096). At T in the thousands a context value
+       # averages thousands of keys (std ~0.02 at 8 x 8,192), so 2e-2 would
+       # pass a kernel that dropped key tiles; each batch row is also held
+       # to ||Δ|| / ||plain|| <= LONG_T_REL_TOL
+       "long_t_attention": {"bf16": 5e-3},
        "rope_qkv": {"f32": 0.0, "bf16": 0.0},
        "fused_add_layer_norm": {"f32": 1e-4, "bf16": 3e-2},
        "add_layer_norm_stream": {"f32": 0.0, "bf16": 0.0}}
+# a row that lost one key tile in 64 at 8 x 8,192 reads ~0.1; one bf16
+# rounding of the output reads ~2e-3
+LONG_T_REL_TOL = 1e-2
 
 # gte-modernbert-base's attention and stream at the doc_bulk cell's batches
 # (rows, T): H 12, dh 64, the local layers' band +-64
 MODERNBERT_SHAPES = ((8, 8192), (8, 1024))
 MODERNBERT_H, MODERNBERT_DH, MODERNBERT_WINDOW = 12, 64, 64
+# the full attention's long-T form (wgmma_route) is timed at these batches
+# too, and, called by its entry point, at BERT's buckets (T <= 512, which
+# the route keeps on BERT's instance)
+WGMMA_SWEEP = ((8, 2048), (8, 4096))
+WGMMA_BERT_SHAPES = ((32, 512), (128, 256), (128, 128))
 
 REPLACES = {
     "q4_matmul": "bert_tpu/ops/q4_matmul.py:75 (_q4_matmul_kernel)",
@@ -359,7 +374,7 @@ def bound(nbytes: float, flops: float, dtype_name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name, out, ref, dtype_name, what) -> float:
+def compare(name, out, ref, dtype_name, what, quiet=False) -> float:
     import torch
 
     torch.cuda.synchronize()
@@ -370,8 +385,36 @@ def compare(name, out, ref, dtype_name, what) -> float:
     require(bool(torch.isfinite(out).all()), f"{name} {what}: non-finite")
     require(bool((err <= tol + tol * ref.abs()).all()),
             f"{name} {what}: max|Δ| {max_err:.3e} outside atol=rtol={tol}")
-    log(f"  ok  {name:20s} {what:42s} max|Δ| {max_err:.3e} (tol {tol})")
+    if not quiet:
+        log(f"  ok  {name:20s} {what:42s} max|Δ| {max_err:.3e} (tol {tol})")
     return max_err
+
+
+def compare_rows(name, out, plain_row, dtype_name, what, rel=None) -> float:
+    """``compare`` of every batch row r of ``out`` with ``plain_row(r)``,
+    one row at a time (the plain version's f32 scores of a whole batch at
+    8 x 8,192 take 26 GB); with ``rel``, each row's ||Δ|| / ||plain|| is
+    held to it too. One line of log; the largest max|Δ|."""
+    import torch
+
+    err = worst = 0.0
+    for r in range(out.shape[0]):
+        want = plain_row(r)
+        err = max(err, compare(name, out[r:r + 1], want, dtype_name,
+                               f"{what} row {r}", quiet=True))
+        if rel is not None:
+            d = out[r:r + 1].float() - want.float()
+            share = float(torch.linalg.vector_norm(d)
+                          / torch.linalg.vector_norm(want.float()))
+            require(share <= rel, f"{name} {what} row {r}: ||Δ|| / ||plain"
+                    f"|| {share:.3e} over {rel}")
+            worst = max(worst, share)
+        del want
+    log(f"  ok  {name:20s} {what:42s} max|Δ| {err:.3e} (tol "
+        f"{TOL[name][dtype_name]}) in each of {out.shape[0]} rows"
+        + (f", ||Δ||/||plain|| <= {worst:.3e} (tol {rel})"
+           if rel is not None else ""))
+    return err
 
 
 def q4_weights(rng, k: int, n: int, ftype: int, dev):
@@ -1072,10 +1115,14 @@ def modernbert_kernel_phase(dev, rng):
     """ModernBERT's kernel forms (bert_tpu_torch/modernbert.py), each held
     against its plain version through the public wrappers: RoPE's pass on
     q and k (in place in qkv, bit for bit), then the fused attention over
-    every key (the global layers: BERT's kernel) and over the band +-64
-    (the local layers), bf16 and f32, key-side padding, RoPE at the index
-    and, on packed rows (pairwise bias), at positions that restart per
-    segment; the band's visited key tiles against its launch geometry (an
+    every key (the global layers: BERT's kernel, and in bf16 at T >= 1,024
+    its long-T form, each launch of which must add one to
+    ``fused_qkv_attention.wgmma`` exactly where ``wgmma_route`` says so)
+    and over the band +-64 (the local layers), bf16 and f32, key-side
+    padding (a batch row all padding where B > 1), RoPE at the index and,
+    on packed rows (pairwise bias), at positions that restart per segment;
+    the long-T form also at 2 x 1,024 and at ragged T (3 x 1,000, 1 x
+    5,000); the band's visited key tiles against its launch geometry (an
     atomic counter in the kernel); and the LayerNorm's add form (the new
     stream bit for bit, its LN within the LayerNorm's tolerance). At the
     doc_bulk cell's batches (8 x 8,192 and 8 x 1,024, H 12, dh 64) each is
@@ -1083,9 +1130,12 @@ def modernbert_kernel_phase(dev, rng):
     (attention: operations 4·B·H·dh a pair the mask admits, bytes q, k, v
     read and the context written once; RoPE: q and k read and written
     once; the add form's y f32, x, s and LN(s) once) and SDPA on the
-    rotated q, k, v (the band as a boolean mask). Rows of 8,192 are
-    compared one batch row at a time: the plain version's scores of a row
-    are 3.2 GB."""
+    rotated q, k, v (the band as a boolean mask); the full attention at 8
+    x 2,048 and 8 x 4,096 too. The long-T form is also called by its entry
+    point at BERT's 32 x 512 and 128 x 256, held to the plain version and
+    timed beside BERT's instance there (the route keeps those on BERT's
+    instance). Rows of 8,192 are compared one batch row at a time: the
+    plain version's scores of a row are 3.2 GB."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1130,18 +1180,26 @@ def modernbert_kernel_phase(dev, rng):
         del plain_qkv
         tiles = torch.zeros(1, dtype=torch.int32, device=dev)
         before = FA.fused_qkv_attention.launches
+        before_wg = FA.fused_qkv_attention.wgmma.launches
         got = FA.fused_qkv_attention(
             rot, bias, scale=scale, window=window,
             tiles=tiles if window else None, **heads)
         require(FA.fused_qkv_attention.launches == before + 1,
                 "rope attention: the wrapper did not launch the kernel")
-        err = 0.0
-        for r in sorted({0, b - 1}):  # the plain version a row at a time
-            want = FA.attention_plain(rot[r:r + 1], bias[r:r + 1],
-                                      scale=scale, window=window, **heads)
-            err = max(err, compare("rope_attention", got[r:r + 1], want, dn,
-                                   f"{what} row {r}"))
-            del want
+        routed = FA.wgmma_route(dtype, t, dh, pairwise, window)
+        require(FA.fused_qkv_attention.wgmma.launches
+                == before_wg + int(routed),
+                f"rope attention {what}: long-T form launches "
+                f"{FA.fused_qkv_attention.wgmma.launches - before_wg}, the "
+                f"route implies {int(routed)}")
+        if routed:
+            what += " (long-T form)"
+        err = compare_rows(
+            "long_t_attention" if routed else "rope_attention", got,
+            lambda r: FA.attention_plain(rot[r:r + 1], bias[r:r + 1],
+                                         scale=scale, window=window,
+                                         **heads),
+            dn, what, rel=LONG_T_REL_TOL if routed else None)
         if window:
             want_tiles = b * h * band_tiles(t, window)
             require(int(tiles.item()) == want_tiles,
@@ -1157,8 +1215,12 @@ def modernbert_kernel_phase(dev, rng):
                            (1, 8192, False)):
         for window in (0, w):
             check_attention(b, t, torch.float32, window, pairwise)
-    for b, t in MODERNBERT_SHAPES:
-        for window in (0, w):
+    # the long-T form at its shortest T, with a batch row all padding, and
+    # at ragged T; 3 x 1,000, just under the route, stays on BERT's instance
+    for b, t in ((2, 1024), (3, 1000), (3, 1100), (1, 5000)):
+        check_attention(b, t, torch.bfloat16, 0)
+    for b, t in MODERNBERT_SHAPES + WGMMA_SWEEP:
+        for window in ((0, w) if (b, t) in MODERNBERT_SHAPES else (0,)):
             rot, bias, tab = check_attention(b, t, torch.bfloat16, window)
 
             def kernel(rot=rot, bias=bias, window=window):
@@ -1174,8 +1236,10 @@ def modernbert_kernel_phase(dev, rng):
                     torch.isfinite(FA.band_bias(t, window, dev)))
             sdpa = time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, scale=scale), reps=5, rounds=5)
-            r = dict(shape=f"B={b} T={t} H={h} dh={dh} "
-                     f"{'band +-%d' % window if window else 'full'} bf16",
+            form = ("band +-%d" % window if window else
+                    "full, long-T form" if FA.wgmma_route(
+                        torch.bfloat16, t, dh, False, 0) else "full")
+            r = dict(shape=f"B={b} T={t} H={h} dh={dh} {form} bf16",
                      ms=time_ms(kernel, reps=5, rounds=5),
                      eager_ms=eager_ms(kernel, reps=5, rounds=5),
                      bound_ms=b_ms, bound_by=b_by, sdpa_ms=sdpa,
@@ -1192,7 +1256,7 @@ def modernbert_kernel_phase(dev, rng):
                 + (f", plain {r['plain_ms']:.5f}" if "plain_ms" in r
                    else ""))
             del q, k, v, q5
-            if window:
+            if window or (b, t) not in MODERNBERT_SHAPES:
                 continue
             # RoPE's pass at the shape (it rotates in place: the timing
             # rotates the same buffer again and again)
@@ -1208,6 +1272,8 @@ def modernbert_kernel_phase(dev, rng):
                 f"{r['bound_ms']:.5f} ({r['bound_by']}), plain "
                 f"{r['plain_ms']:.5f}")
             del rot
+
+    out["wgmma_bert_shapes"] = wgmma_at_bert_shapes(dev, rng, qkv_of)
 
     for m in (b * t for b, t in MODERNBERT_SHAPES):
         for y_dtype, x_dtype in ((torch.float32, torch.bfloat16),
@@ -1251,6 +1317,63 @@ def modernbert_kernel_phase(dev, rng):
     return out
 
 
+def wgmma_at_bert_shapes(dev, rng, qkv_of):
+    """The full attention's long-T form called by its entry point
+    (``fused_attention_wgmma_bf16``) at BERT's buckets 32 x 512, 128 x 256
+    and 128 x 128 (H 12, dh 64, bf16, key-side padding), where the route
+    keeps BERT's instance: held to the plain version row by row under its
+    own tolerance and timed beside that instance (through the wrapper),
+    with the bound."""
+    import torch
+
+    from bert_tpu_torch import _kernels
+    from bert_tpu_torch.ops import fused_attention as FA
+
+    h, dh = MODERNBERT_H, MODERNBERT_DH
+    heads = dict(n_head=h, d_head=dh)
+    scale = 1.0 / dh ** 0.5
+    lib = _kernels.library("fused_attention")
+    rows = []
+    for b, t in WGMMA_BERT_SHAPES:
+        qkv = qkv_of(b, t, torch.bfloat16)
+        bias = torch.from_numpy(attention_bias(rng, b, t, False)).to(dev)
+        require(not FA.wgmma_route(torch.bfloat16, t, dh, False, 0),
+                f"wgmma_route takes BERT's T={t}")
+
+        def long_t(qkv=qkv, bias=bias, b=b, t=t):
+            y = torch.empty((b, t, h * dh), dtype=qkv.dtype, device=dev)
+            _kernels.check(lib.fused_attention_wgmma_bf16(
+                qkv.data_ptr(), bias.data_ptr(), y.data_ptr(), b, t, h, dh,
+                scale, _kernels.stream_of(qkv)), "fused_attention_wgmma_bf16")
+            return y
+
+        def bert(qkv=qkv, bias=bias):
+            return FA.fused_qkv_attention(qkv, bias, scale=scale, **heads)
+        err = compare_rows(
+            "long_t_attention", long_t(),
+            lambda r: FA.attention_plain(qkv[r:r + 1], bias[r:r + 1],
+                                         scale=scale, **heads),
+            "bf16", f"long-T form B={b} T={t} by its entry point",
+            rel=LONG_T_REL_TOL)
+        want = FA.attention_plain(qkv, bias, scale=scale, **heads)
+        compare("rope_attention", bert(), want, "bf16",
+                f"BERT's instance B={b} T={t}")
+        del want
+        b_ms, b_by = bound(2.0 * b * t * 4 * h * dh,
+                           4.0 * b * h * dh * t * t, "bf16")
+        r = dict(shape=f"B={b} T={t} H={h} dh={dh} full bf16",
+                 ms=time_ms(long_t, reps=5, rounds=5),
+                 eager_ms=eager_ms(long_t, reps=5, rounds=5),
+                 bert_ms=time_ms(bert, reps=5, rounds=5), bound_ms=b_ms,
+                 bound_by=b_by, max_abs_err=err)
+        rows.append(r)
+        log(f"  long-T form at BERT's {r['shape']} (not routed): "
+            f"{r['ms']:.5f} ms (eager {r['eager_ms']:.5f}), BERT's instance "
+            f"{r['bert_ms']:.5f}, bound {b_ms:.5f} ({b_by})")
+        del qkv, bias
+    return rows
+
+
 def modernbert_engine_phase(dev):
     """A ModernBERT checkpoint directory (gpubench's writer, random dense
     weights: D 256, 4 heads of 64, 6 layers, every third global, band
@@ -1264,7 +1387,8 @@ def modernbert_engine_phase(dev):
     ``encode_batch`` (its programs captured by the first) launches per
     batch what the route implies: 4·L ``q4_matmul`` (none of them the plain
     version), L RoPE passes, L attentions (the global layers' full, the
-    others' band, as ``stats()["attention"]`` counts them), 2·L of the
+    others' band, as ``stats()["attention"]`` counts them; of the full
+    ones, those at T >= 1,024 in the long-T form), 2·L of the
     LayerNorm's add form and one LayerNorm (the embeddings')."""
     import numpy as np
     import torch
@@ -1346,6 +1470,10 @@ def modernbert_launches(eng, texts, cfg, counters):
     captured, with every launch counter zeroed first: the counts against
     those the route implies for the batches it dispatched. Returns the
     embeddings."""
+    import torch
+
+    from bert_tpu_torch.ops import fused_attention as FA
+
     st0 = eng.stats()
     for c in counters:
         c.launches = 0
@@ -1359,6 +1487,7 @@ def modernbert_launches(eng, texts, cfg, counters):
     batches = sum(delta("buckets").values())
     layers = cfg["num_hidden_layers"]
     n_global = len(range(0, layers, cfg["global_attn_every_n_layers"]))
+    dh = cfg["hidden_size"] // cfg["num_attention_heads"]
     ran = {c.__name__: c.launches for c in counters}
     want = {name: 0 for name in ran}
     want.update({"q4_matmul": 4 * layers * batches,
@@ -1371,7 +1500,12 @@ def modernbert_launches(eng, texts, cfg, counters):
                  "q4_matmul.wgmma_bf16": ran["q4_matmul.wgmma"] // 2})
     kinds = {}
     for key, n in delta("attention").items():
-        kinds[key.split()[0]] = kinds.get(key.split()[0], 0) + n
+        kind, shape = key.split()
+        kinds[kind] = kinds.get(kind, 0) + n
+        # a bf16 engine; key-side bias (packed rows, pairwise, are short)
+        if kind == "full" and FA.wgmma_route(
+                torch.bfloat16, int(shape.split("x")[1]), dh, False, 0):
+            want["fused_qkv_attention.wgmma"] += n
     log(f"  launches of {batches} batches: {ran}; attention by kind "
         f"{kinds}")
     require(batches > 0 and ran == want,
@@ -2039,6 +2173,7 @@ PROFILE_NAMES = {
     "fused_layer_norm_codes": (("ln_rows_kernel", ", true>("),
                                ("ln_block_kernel", ", true>(")),
     "fused_qkv_attention": (("fused_attention_",),),
+    "fused_qkv_attention.wgmma": (("fused_attention_wgmma_bf16_kernel",),),
     "fused_add_layer_norm": (("ln_add_",),),
     "rope_qkv": (("rope_qkv_kernel",),),
     "multi_head_attention": (("mha_", "_kernel<"),),
@@ -5101,8 +5236,12 @@ def main() -> int:
     results = kernel_phase(dev, np.random.default_rng(17))
     counters = [q4_matmul, fused_layer_norm, fused_qkv_attention,
                 multi_head_attention]
+    fused_qkv_attention.wgmma.launches = 0
     launches, rate, main_split_rows, main_prof, main = main_path(
         dev, np.random.default_rng(18), counters)
+    require(fused_qkv_attention.wgmma.launches == 0,
+            "main path: the attention's long-T form launched at T <= 512 "
+            f"({fused_qkv_attention.wgmma.launches})")
     int8_counters = [int8_matmul, int8_matmul_gelu, quantize_activations_i8,
                      fused_layer_norm_codes]
     api = api_phase(main, rate, main_prof, counters + int8_counters)

@@ -279,6 +279,7 @@ def test_program_counts_warm_up_and_replays_not_the_capture(monkeypatch):
 WRAPPER_COUNTERS = [
     ("attention", "multi_head_attention"),
     ("fused_attention", "fused_qkv_attention"),
+    ("fused_attention", "fused_qkv_attention.wgmma"),
     ("fused_attention", "rope_qkv"),
     ("int8_matmul", "int8_matmul"),
     ("int8_matmul", "int8_matmul_gelu"),

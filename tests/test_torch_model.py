@@ -29,7 +29,7 @@ from bert_tpu.params import params_from_named_tensors as j_params_from_named
 from bert_tpu.params import random_named_tensors as j_random_named
 from bert_tpu.tokenizer import WordPieceTokenizer as JTokenizer
 from bert_tpu_torch import model as tmodel
-from bert_tpu_torch.ops.fused_attention import fused_route
+from bert_tpu_torch.ops.fused_attention import fused_route, wgmma_route
 from bert_tpu_torch.ops.q4_matmul import q4_matmul_plain
 from bert_tpu_torch.params import BertConfig as TConfig
 from bert_tpu_torch.params import (
@@ -251,6 +251,22 @@ def test_dh26_bert_forward_packed_matches_bert_tpu(mha_models, cfg):
                                           (160, False)])
 def test_fused_route(d_head, fused):
     assert fused_route(d_head) is fused
+
+
+@pytest.mark.parametrize("t", [512, 1023, 1024, 8192])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("pairwise", [False, True],
+                         ids=["key_side", "pairwise"])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("d_head", [32, 64])
+def test_wgmma_route(t, dtype, pairwise, window, d_head):
+    """The fused attention's long-T form takes bf16, head dim 64, the
+    key-side bias, no band and T >= 1,024, and nothing else: BERT's T <=
+    512, f32, packed rows, the band and dh 32 keep their instances."""
+    want = (dtype == torch.bfloat16 and d_head == 64 and not pairwise
+            and window == 0 and t >= 1024)
+    assert wgmma_route(dtype, t, d_head, pairwise, window) is want
 
 
 @pytest.mark.parametrize("cfg,route", [(DH26, "mha"), (SMALL, "fused"),
