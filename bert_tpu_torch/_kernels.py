@@ -58,6 +58,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # stream
         **{f"layer_norm_add_{t}": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]
            for t in ("f32", "bf16", "f32_bf16")},
+        # the RMS form: x, row stride, scale, out, M, D, eps, stream
+        "rms_norm_bf16": [_P, _I, _P, _P, _I, _I, _F, _P],
+        # its add form: y (f32), x, scale, out, sum_out, M, D, eps, stream
+        "rms_norm_add_f32_bf16": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
     },
     "fused_attention": {
         # qkv, bias, out, B, T, H, d_head, pairwise, scale, stream
@@ -75,6 +79,27 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # stream
         **{f"rope_qkv_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _P]
            for t in ("f32", "bf16")},
+    },
+    "mla_attention": {
+        # q, kva (rotated in place), cos, sin, pos (nullable), B, T, H, ldq,
+        # ldkv, rank, stream
+        "rope_mla_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # q, kva, kvb, out, B, T, H, ldq, ldkv, ldkvb, rank, scale, stream
+        "causal_mla_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _I, _F, _P],
+    },
+    "moe": {
+        # logits, M, E, K, scaling, topi, topw, stream
+        "moe_topk": [_P, _I, _I, _I, _F, _P, _P, _P],
+        # topi, R, K, E, sorted_tok, slot_pos, counts, tile_e, tile_r0,
+        # tile_r1, n_tiles, acc (nullable), stream
+        "moe_sort": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        # x, ldx, gather (nullable), packed, scales, tile_e, tile_r0,
+        # tile_r1, n_tiles, max_tiles, out, ldo, K, N, swiglu, stream
+        "expert_q4_matmul_bf16": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                                  _I, _I, _I, _I, _P],
+        # shared, y, w, pos, out, M, K, D, stream
+        "moe_combine": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "attention": {
         # q, k, v, bias, out, B, H, T, d_head, pairwise, scale, stream

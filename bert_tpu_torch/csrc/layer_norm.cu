@@ -76,6 +76,22 @@
 // the statistics. One store of s a row more than the plain form, and no
 // launch or read of s to normalise it. Kernels of their own, so that BERT's
 // compile as they did.
+//
+// The RMS forms (entries rms_norm_bf16, rms_norm_add_f32_bf16; kernels
+// rms_kernel),
+// for DeepSeek-V2's pre-RMSNorm blocks: out = x * rsqrt(mean(x^2) + eps) *
+// scale, with no mean taken out and no bias, in f32, rounded to bf16; the
+// add form writes the new stream s = y + x first, as the LayerNorm's add
+// form forms it (y rounded to bf16, the sum rounded to bf16). They replace
+// no TPU kernel: the JAX package has no RMSNorm. The same bound as the
+// LayerNorm's, bytes and the latency of a row's round trip (a 2,048-wide
+// bf16 row is 4 KB). One warp owns a row and moves 16 bytes a lane-access
+// (D % 8 == 0, 16-byte aligned rows, which the wrapper checks): it forms
+// the sum of squares in a first pass, writing s in the add form, and reads
+// the row again (from L1, which the first pass filled) to scale it. The
+// plain form reads rows at a stride of its own, so that the latent half
+// of DeepSeek-V2's kv_a output [M, 576] is normalised where it lies.
+// Kernels of their own beside the LayerNorm's, which compile as they did.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -712,4 +728,114 @@ extern "C" int layer_norm_add_f32_bf16(const void* x, const void* residual,
          (cudaStream_t)stream};
   a.sum_out = sum_out;
   return launch<float, bf16>(a);
+}
+
+namespace {
+
+constexpr int RMS_ROWS = 8;  // rows (warps) a block
+
+__device__ __forceinline__ void ld8(float (&v)[8], const bf16* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = hopper::unpack_bf16(w[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void ld8(float (&v)[8], const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void st8(bf16* p, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(hopper::pack_bf16(v[0], v[1]), hopper::pack_bf16(v[2], v[3]),
+                 hopper::pack_bf16(v[4], v[5]), hopper::pack_bf16(v[6], v[7]));
+}
+
+__device__ __forceinline__ float rnd(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// ADD: s = bf16(bf16(y) + x) written to sum_out, out = RMS(s); else out =
+// RMS(x), x's rows at stride ldx
+template <typename Ty, bool ADD>
+__global__ void __launch_bounds__(RMS_ROWS * 32)
+    rms_kernel(const Ty* __restrict__ y, const bf16* __restrict__ x, int ldx,
+               const float* __restrict__ scale, bf16* __restrict__ out,
+               bf16* __restrict__ sum_out, int M, int D, float eps) {
+  const int row = blockIdx.x * RMS_ROWS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const bf16* xr = x + (size_t)row * ldx;
+  float ss = 0.f;
+  for (int c = lane * 8; c < D; c += 256) {
+    float v[8];
+    ld8(v, xr + c);
+    if constexpr (ADD) {
+      float u[8];
+      ld8(u, y + (size_t)row * D + c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = rnd(rnd(u[i]) + v[i]);
+      st8(sum_out + (size_t)row * D + c, v);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ss += v[i] * v[i];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  const float r = rsqrtf(ss / (float)D + eps);
+  if constexpr (ADD) __syncwarp();  // the lane's own s stores are visible
+  const bf16* src = ADD ? sum_out + (size_t)row * D : xr;
+  for (int c = lane * 8; c < D; c += 256) {
+    float v[8];
+    ld8(v, src + c);
+    const float4 s0 = *reinterpret_cast<const float4*>(scale + c);
+    const float4 s1 = *reinterpret_cast<const float4*>(scale + c + 4);
+    const float w[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = v[i] * r * w[i];
+    st8(out + (size_t)row * D + c, v);
+  }
+}
+
+template <typename Ty, bool ADD>
+int launch_rms(const Ty* y, const void* x, int ldx, const void* scale,
+               void* out, void* sum_out, int M, int D, float eps,
+               void* stream) {
+  if (M <= 0 || D <= 0 || D % 8 || ldx % 8 || ldx < D)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned(x, 16) || !aligned(out, 16) || !aligned(scale, 16) ||
+      !aligned(y, 16) || !aligned(sum_out, 16))
+    return (int)cudaErrorMisalignedAddress;
+  const int blocks = (M + RMS_ROWS - 1) / RMS_ROWS;
+  rms_kernel<Ty, ADD><<<blocks, RMS_ROWS * 32, 0, (cudaStream_t)stream>>>(
+      y, (const bf16*)x, ldx, (const float*)scale, (bf16*)out,
+      (bf16*)sum_out, M, D, eps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// out[M, D] = RMS(x) * scale in bf16, x bf16 rows at stride ldx elements
+extern "C" int rms_norm_bf16(const void* x, int ldx, const void* scale,
+                             void* out, int M, int D, float eps,
+                             void* stream) {
+  return launch_rms<bf16, false>(nullptr, x, ldx, scale, out, nullptr, M, D,
+                                 eps, stream);
+}
+
+// The add form: sum_out = bf16(bf16(y) + x), out = RMS(sum_out) * scale;
+// y f32 (a matmul's product), x, out and sum_out bf16 [M, D]
+extern "C" int rms_norm_add_f32_bf16(const void* y, const void* x,
+                                     const void* scale, void* out,
+                                     void* sum_out, int M, int D, float eps,
+                                     void* stream) {
+  return launch_rms<float, true>((const float*)y, x, D, scale, out, sum_out,
+                                 M, D, eps, stream);
 }

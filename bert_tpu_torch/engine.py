@@ -89,7 +89,8 @@ from .batching import (
     size_bucket as _size_bucket,
 )
 from .loader import LoadedModel, load_model
-from .model import BertModel, bert_forward, bert_forward_packed
+from .deepseek_v2 import DeepseekV2Model
+from .model import POOLINGS, BertModel, bert_forward, bert_forward_packed
 from .modernbert import ModernBertModel
 from .ops.common import round_up as _round_up
 from .ops.int8_matmul import Int8Tensor
@@ -99,8 +100,8 @@ from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, axis_group, axis_size,
                             local_rows, make_mesh, rank_device)
 from .parallel.sharding import check_tp_divisibility
 from .parallel.spmd import shard_params
-from .params import (BertConfig, ModernBertConfig, params_to_int8,
-                     params_to_torch)
+from .params import (BertConfig, DeepseekV2Config, ModernBertConfig,
+                     params_to_int8, params_to_torch)
 from .profiling import PhaseTimers
 from .quant import QuantTensor
 from .tokenizer import WordPieceTokenizer
@@ -150,11 +151,16 @@ class BertTorch:
         tp: Optional[int] = None,
     ):
         self.device = resolve_device(device, use_kernels)
-        if isinstance(loaded.config, ModernBertConfig) and (
-                mesh is not None or dp or tp):
+        model_cls = {ModernBertConfig: ModernBertModel,
+                     DeepseekV2Config: DeepseekV2Model}.get(
+                         type(loaded.config), BertModel)
+        if model_cls is not BertModel and (mesh is not None or dp or tp):
             raise NotImplementedError(
-                "ModernBERT runs on one device: a mesh (dp/tp) is not "
-                "supported for it")
+                f"{model_cls.__name__} runs on one device: a mesh (dp/tp) "
+                "is not supported for it")
+        if model_cls is DeepseekV2Model and int8_eval:
+            raise NotImplementedError(
+                "DeepSeek-V2 has no int8 regime: its experts are Q4_0")
         # multi-device execution: mesh OR dp/tp build a (data, model) mesh
         # over the process group's ranks; this rank computes on its device
         if mesh is None and (dp or tp):
@@ -174,12 +180,14 @@ class BertTorch:
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                              f"got {compute_dtype}")
+        if (model_cls is DeepseekV2Model and self.device.type == "cuda"
+                and use_kernels is not False
+                and compute_dtype != torch.bfloat16):
+            raise ValueError("DeepSeek-V2's kernels on the card compute in "
+                             "bfloat16")
         self.compute_dtype = compute_dtype
         self.use_kernels = use_kernels
         self.max_batch = max_batch
-        model_cls = (ModernBertModel if isinstance(self.config,
-                                                   ModernBertConfig)
-                     else BertModel)
         self.seq_buckets = list(seq_buckets) if seq_buckets is not None else \
             default_seq_buckets(self.config.n_max_tokens)
         # Wire dtype of the device→host result copy. bf16 compute keeps 8
@@ -195,8 +203,8 @@ class BertTorch:
         self.wire_dtype = wire_dtype
         if pooling is None:
             pooling = loaded.pooling or "mean"
-        if pooling not in ("mean", "cls"):
-            raise ValueError(f"pooling must be 'mean' or 'cls', "
+        if pooling not in POOLINGS:
+            raise ValueError(f"pooling must be one of {POOLINGS}, "
                              f"got {pooling!r}")
         self.pooling = pooling
         self.timers = PhaseTimers()
@@ -212,7 +220,11 @@ class BertTorch:
             quantized = any(isinstance(w, QuantTensor)
                             for w in loaded.params["layers"].values())
             check_tp_divisibility(self.config, self._tp, quantized=quantized)
-        self._packing = packing
+        # a causal model's rows are bucketed alone: packed rows would need
+        # a causal mask within each segment, and last-token pooling per
+        # segment, which the port does not have
+        self._packing = (packing and not getattr(model_cls, "causal", False)
+                         and pooling != "last")
         self._pack_seq = min(pack_seq, self.config.n_max_tokens)
         self._pack_segments = pack_segments
 
@@ -611,16 +623,20 @@ class BertTorch:
         """Host-side phase timings + bucket execution counts, plus the
         load-phase breakdown (parse / emb_dequant / repack / quantize /
         to_device, seconds; ModernBERT: parse / relayout / quantize /
-        to_device). A model that counts its attention launches a batch
-        (ModernBERT's ``attention_launches``) adds them by kind and shape
-        (``attention``: "full 8x8192" / "band 8x8192"), each shape's
-        batch count, packed and bucketed together, times the launches a
-        batch; any engine adds the row groups its token budget split
+        to_device; DeepSeek-V2: parse / repack / emb_dequant / to_device).
+        A model that counts its attention launches a batch
+        (``attention_launches``) adds them by kind and shape
+        (``attention``: "full 8x8192" / "band 8x8192" / "causal 96x512"),
+        each shape's batch count, packed and bucketed together, times the
+        launches a batch; a model with experts (DeepSeek-V2's
+        ``expert_counts``, read from the device here alone) the tokens
+        routed to each expert of each MoE layer (``experts``: layer →
+        [E]); any engine adds the row groups its token budget split
         (``budget_splits``), where there are any."""
         out = self.timers.summary()
         launches = getattr(self.model, "attention_launches", None)
         if launches is not None:
-            per_batch = dict(zip(("full", "band"), launches()))
+            per_batch = launches()
             counts = Counter()
             for (b, s, _), n in list(self.timers.bucket_counts.items()):
                 for kind, k in per_batch.items():
@@ -629,6 +645,9 @@ class BertTorch:
                          for (kind, b, s), c in sorted(counts.items()) if c}
             if attention:
                 out["attention"] = attention
+        experts = getattr(self.model, "expert_counts", None)
+        if experts is not None:
+            out["experts"] = experts()
         if self.timers.budget_splits:
             out["budget_splits"] = self.timers.budget_splits
         out["load_phases"] = dict(self.load_phases)

@@ -6,7 +6,9 @@ end]}`` (plus an optional ``"__metadata__"`` entry), then one byte buffer
 that the offsets index. The port reads it itself so that loading an HF
 checkpoint needs no ``safetensors`` package. BERT checkpoints store their
 weights in F32 or F16, and many carry the I64 ``embeddings.position_ids``
-buffer (which the loader drops); any other dtype raises.
+buffer (which the loader drops); a DeepSeek-V2 checkpoint of the port's
+stores its Q4_0 matrices as U8 blocks (``deepseek_v2.py``); any other dtype
+raises.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Dict
 import numpy as np
 
 _DTYPES = {"F32": np.dtype("<f4"), "F16": np.dtype("<f2"),
-           "I64": np.dtype("<i8")}
+           "I64": np.dtype("<i8"), "U8": np.dtype("u1")}
 
 
 def read_safetensors(path: str) -> Dict[str, np.ndarray]:
@@ -37,8 +39,8 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
         dtype = _DTYPES.get(info["dtype"])
         if dtype is None:
             raise ValueError(f"{path}: tensor {name!r} has dtype "
-                             f"{info['dtype']}; only F32, F16 and I64 are "
-                             "read")
+                             f"{info['dtype']}; only F32, F16, I64 and U8 "
+                             "are read")
         begin, end = info["data_offsets"]
         shape = tuple(info["shape"])
         if end - begin != dtype.itemsize * int(np.prod(shape, dtype=np.int64)) \

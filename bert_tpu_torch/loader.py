@@ -12,7 +12,9 @@ densified (gathers want dense rows; the values equal ggml's per-use
 dequantization). HF directories are read from ``model.safetensors`` (by the
 port's own reader, formats/safetensors.py) or ``pytorch_model.bin``; a
 directory whose ``config.json`` says ``"model_type": "modernbert"`` loads
-as ModernBERT (:func:`load_modernbert`, ``modernbert.py``).
+as ModernBERT (:func:`load_modernbert`, ``modernbert.py``), one that says
+``"deepseek_v2"`` as DeepSeek-V2 (:func:`load_deepseek_v2`,
+``deepseek_v2.py``).
 """
 
 from __future__ import annotations
@@ -181,7 +183,8 @@ def load_ggml_model(path: str,
 def _detect_pooling(model_dir: str) -> Optional[str]:
     """Pooling mode declared by a sentence-transformers checkpoint
     (``1_Pooling/config.json``: ``pooling_mode_cls_token`` → "cls",
-    ``pooling_mode_mean_tokens`` → "mean"); None when nothing is declared."""
+    ``pooling_mode_mean_tokens`` → "mean", ``pooling_mode_lasttoken`` →
+    "last"); None when nothing is declared."""
     try:
         with open(os.path.join(model_dir, "1_Pooling", "config.json"),
                   encoding="utf-8") as f:
@@ -192,6 +195,8 @@ def _detect_pooling(model_dir: str) -> Optional[str]:
         return "cls"
     if pc.get("pooling_mode_mean_tokens"):
         return "mean"
+    if pc.get("pooling_mode_lasttoken"):
+        return "last"
     return None
 
 
@@ -208,6 +213,8 @@ def load_hf_model(model_dir: str,
         hf_cfg = json.load(f)
     if hf_cfg.get("model_type") == "modernbert":
         return load_modernbert(model_dir, hf_cfg, quantize_ftype)
+    if hf_cfg.get("model_type") == "deepseek_v2":
+        return load_deepseek_v2(model_dir, hf_cfg, quantize_ftype)
     # the tanh-approximate GELU variants; plain "gelu" is exact erf
     approx_acts = ("gelu_new", "gelu_fast", "gelu_pytorch_tanh")
     config = BertConfig(
@@ -264,6 +271,31 @@ def load_modernbert(model_dir: str, hf_cfg: dict,
     named = _hf_state_dict(model_dir)
     phases["parse"] = round(time.perf_counter() - t0, 3)
     params = params_from_named(named, config, quantize_ftype, phases)
+    return LoadedModel(config=config, params=params,
+                       vocab=_hf_vocab(model_dir, config),
+                       pooling=_detect_pooling(model_dir),
+                       load_phases=phases)
+
+
+def load_deepseek_v2(model_dir: str, hf_cfg: dict,
+                     quantize_ftype: Optional[int] = None) -> LoadedModel:
+    """A DeepSeek-V2 checkpoint directory whose matrices are stored in
+    Q4_0 (``deepseek_v2.py``): repacked bit-exactly, the rope rows
+    de-interleaved, the experts stacked (``repack``), the embedding table
+    dequantized (``emb_dequant``). ``quantize_ftype`` may only name Q4_0,
+    which the weights already are. The front end is WordPiece over the
+    directory's ``vocab.txt``."""
+    from .deepseek_v2 import config_from_hf, params_from_named
+
+    if quantize_ftype not in (None, GGML_FTYPE_Q4_0):
+        raise ValueError(f"deepseek_v2: the checkpoint is Q4_0; refusing "
+                         f"a requantization to ftype {quantize_ftype}")
+    phases: Dict[str, float] = {}
+    config = config_from_hf(hf_cfg)
+    t0 = time.perf_counter()
+    named = _hf_state_dict(model_dir)
+    phases["parse"] = round(time.perf_counter() - t0, 3)
+    params = params_from_named(named, config, phases)
     return LoadedModel(config=config, params=params,
                        vocab=_hf_vocab(model_dir, config),
                        pooling=_detect_pooling(model_dir),

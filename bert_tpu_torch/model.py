@@ -18,8 +18,8 @@ the JAX package's jnp path, so the two packages compute the same thing
 there.
 
 :func:`bert_forward` and :func:`bert_forward_packed` are the pooled
-forwards of every encoder class, ModernBERT's (``modernbert.py``)
-included: each builds the mask bias, calls the model's ``hidden`` (the
+forwards of every encoder class, ModernBERT's (``modernbert.py``) and
+DeepSeek-V2's (``deepseek_v2.py``, bucketed rows only) included: each builds the mask bias, calls the model's ``hidden`` (the
 embeddings, then the layers) and pools. ``hidden`` takes the rows'
 positions, which BERT's position table reads and ModernBERT's RoPE. The
 kernel wrappers count their launches in the op layer's registry
@@ -587,9 +587,25 @@ def segment_cls_pool_l2(x: torch.Tensor, segment_ids: torch.Tensor,
     return _l2(torch.where(present, cls, torch.zeros_like(cls)))
 
 
-def _check_pooling(pooling: str) -> None:
-    if pooling not in ("mean", "cls"):
-        raise ValueError(f"pooling must be 'mean' or 'cls', got {pooling!r}")
+def last_pool_l2(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Last-token pool + L2 normalize, in f32: each row's last real token
+    under ``mask`` [B, T] (rows are right-padded), as sentence-transformers'
+    ``pooling_mode_lasttoken`` pools a decoder's states."""
+    last = torch.clamp(mask.sum(dim=-1).long() - 1, min=0)
+    rows = torch.arange(x.shape[0], device=x.device)
+    return _l2(x[rows, last].float())
+
+
+POOLINGS = ("mean", "cls", "last")
+
+
+def _check_pooling(pooling: str, packed: bool = False) -> None:
+    if pooling not in POOLINGS:
+        raise ValueError(f"pooling must be one of {POOLINGS}, got "
+                         f"{pooling!r}")
+    if packed and pooling == "last":
+        raise ValueError("last-token pooling takes bucketed rows: a causal "
+                         "model has no packed form")
 
 
 def bert_forward(model, token_ids: torch.Tensor, mask: torch.Tensor, *,
@@ -598,8 +614,9 @@ def bert_forward(model, token_ids: torch.Tensor, mask: torch.Tensor, *,
                  pooling: str = "mean") -> torch.Tensor:
     """token_ids [B, T] int, mask [B, T] → L2-normalized embeddings
     [B, n_embd] f32 (``bert_tpu.model.bert_forward``), through any encoder
-    class's ``hidden``: :class:`BertModel`, :class:`TrainableBertModel` or
-    ``modernbert.ModernBertModel``."""
+    class's ``hidden``: :class:`BertModel`, :class:`TrainableBertModel`,
+    ``modernbert.ModernBertModel`` or ``deepseek_v2.DeepseekV2Model``;
+    ``pooling`` "mean", "cls" or "last" (the last real token)."""
     _check_pooling(pooling)
     # 0 for real tokens, NEG_INF for padding
     mask_bias = (mask.float() - 1.0) * (-NEG_INF)
@@ -607,6 +624,8 @@ def bert_forward(model, token_ids: torch.Tensor, mask: torch.Tensor, *,
                      use_kernels=use_kernels, remat=remat)
     if pooling == "cls":
         return cls_pool_l2(x)
+    if pooling == "last":
+        return last_pool_l2(x, mask)
     return mean_pool_l2(x, mask)
 
 
@@ -622,7 +641,7 @@ def bert_forward_packed(model, token_ids: torch.Tensor,
     (``bert_tpu.model.bert_forward_packed``): per-segment positions,
     block-diagonal attention, per-segment pooling, through any encoder
     class's ``hidden``, as :func:`bert_forward`."""
-    _check_pooling(pooling)
+    _check_pooling(pooling, packed=True)
     x = model.hidden(token_ids, segment_attention_bias(segment_ids),
                      position_ids, dtype=compute_dtype,
                      use_kernels=use_kernels, remat=remat)

@@ -268,9 +268,9 @@ class ModernBertModel(nn.Module):
                            use_kernels=use_kernels)
 
     def attention_launches(self):
-        """(full, band) attention launches of one batch: times the batch
-        counts of each shape, ``BertTorch.stats()["attention"]``."""
+        """Attention launches of one batch by kind, full and band: times
+        the batch counts of each shape, ``BertTorch.stats()["attention"]``."""
         n_global = sum(self.config.is_global(i)
                        for i in range(self.config.n_layer))
-        return n_global, self.config.n_layer - n_global
+        return {"full": n_global, "band": self.config.n_layer - n_global}
 

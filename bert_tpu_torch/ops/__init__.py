@@ -4,4 +4,4 @@ tensors. Importing the package imports every wrapper module, so the
 registry of their launch counters (``common.COUNTERS``) is complete."""
 
 from . import (attention, fused_attention, int8_matmul,  # noqa: F401
-               layer_norm, q4_matmul)
+               layer_norm, mla_attention, moe, q4_matmul)

@@ -38,6 +38,8 @@ row is empty).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .. import _kernels
@@ -71,12 +73,16 @@ def wgmma_route(dtype: torch.dtype, t: int, d_head: int, pairwise: bool,
             and not window and t >= WGMMA_MIN_T)
 
 
-def rope_tables(theta: float, d_head: int, n_pos: int, device=None):
+def rope_tables(theta: float, d_head: int, n_pos: int, device=None,
+                inv_freq: Optional[torch.Tensor] = None):
     """RoPE's (cos, sin) [n_pos, d_head/2] f32: angle p · θ^(−2i/d_head)
     for position p and lane i, as transformers' default rotary embedding
-    forms it (inv_freq in f32, one f32 product)."""
-    inv_freq = 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.int64,
-                                             device=device).float() / d_head))
+    forms it (inv_freq in f32, one f32 product); or p · ``inv_freq[i]``
+    where it is given (YaRN's, ``mla_attention.yarn_inv_freq``)."""
+    if inv_freq is None:
+        inv_freq = 1.0 / (theta ** (torch.arange(
+            0, d_head, 2, dtype=torch.int64, device=device).float()
+            / d_head))
     freqs = torch.arange(n_pos, device=device).float()[:, None] * inv_freq
     return freqs.cos().contiguous(), freqs.sin().contiguous()
 

@@ -42,6 +42,14 @@ dtype) and the stream x and writes both the new stream ``s = y + x``, y
 rounded to the stream's dtype first and the sum rounded to it, and
 ``LN(s)``, in one pass. Its plain version, :func:`add_layer_norm_plain`,
 computes the same bits.
+
+The RMS forms (:func:`rms_norm`, :func:`add_rms_norm`; kernels of their own
+in the same source), for DeepSeek-V2's pre-RMSNorm blocks
+(``deepseek_v2.py``): ``x · rsqrt(mean(x²) + eps) · scale`` in f32 from
+bf16 rows, rounded to bf16, no mean taken out and no bias; the add form
+forms the new stream ``s = y + x`` as the LayerNorm's add form does. The
+plain form reads rows at a stride (the latent half of a wider row). Their
+plain versions are :func:`rms_norm_plain` and :func:`add_rms_norm_plain`.
 """
 
 from __future__ import annotations
@@ -254,4 +262,98 @@ def fused_add_layer_norm(y: torch.Tensor, x: torch.Tensor,
                               m, d, float(eps), _kernels.stream_of(x))
     _kernels.check(rc, fn)
     fused_add_layer_norm.launches += 1
+    return s, out
+
+
+def rms_norm_plain(x, scale, eps):
+    """Plain version of the RMS form: ``x · rsqrt(mean(x²) + eps) · scale``
+    in f32, rounded to x's dtype."""
+    xf = x.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (xf * r * scale).to(x.dtype)
+
+
+def add_rms_norm_plain(y, x, scale, eps):
+    """Plain version of the RMS add form: ``s = y.to(x.dtype) + x``, then
+    :func:`rms_norm_plain` of s; returns (s, RMS(s))."""
+    s = y.to(x.dtype) + x
+    return s, rms_norm_plain(s, scale, eps)
+
+
+def _check_rms(name, x, scale, d, rows_aligned=True):
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the stream must be bf16, got {x.dtype}")
+    if d % 8:
+        raise ValueError(f"{name}: D = {d} is not a multiple of 8")
+    if (tuple(scale.shape) != (d,) or scale.dtype != torch.float32
+            or scale.device != x.device or not scale.is_contiguous()):
+        raise ValueError(f"{name}: scale must be contiguous f32 [{d}] on "
+                         f"{x.device}")
+    for t in (x, scale):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: an operand at 0x{t.data_ptr():x} is "
+                             "not 16-byte aligned")
+
+
+@counted
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float
+             ) -> torch.Tensor:
+    """RMSNorm over the last axis of ``x`` [M, D] (bf16; rows may lie at a
+    stride, a column slice of a wider row) → a new contiguous [M, D]. CPU
+    tensors take :func:`rms_norm_plain`; CUDA tensors launch the kernel or
+    raise."""
+    if x.device.type == "cpu":
+        return rms_norm_plain(x, scale, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rms_norm: unsupported device {x.device}")
+    if x.dim() != 2 or x.stride(1) != 1 or x.stride(0) % 8:
+        raise ValueError("rms_norm: x must be [M, D] with unit column "
+                         "stride and a row stride that 8 divides")
+    m, d = x.shape
+    _check_rms("rms_norm", x, scale, d)
+    out = torch.empty((m, d), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out
+    with torch.cuda.device(x.device):
+        rc = _kernels.library("layer_norm").rms_norm_bf16(
+            x.data_ptr(), x.stride(0), scale.data_ptr(), out.data_ptr(), m,
+            d, float(eps), _kernels.stream_of(x))
+    _kernels.check(rc, "rms_norm_bf16")
+    rms_norm.launches += 1
+    return out
+
+
+@counted
+def add_rms_norm(y: torch.Tensor, x: torch.Tensor, scale: torch.Tensor, *,
+                 eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pre-RMSNorm step: the new stream ``s = y + x`` (y, a product's
+    f32 output, rounded to bf16 first, the sum rounded to bf16) and
+    ``RMS(s)``, from one launch. CPU tensors take
+    :func:`add_rms_norm_plain`; CUDA tensors launch the kernel or raise."""
+    if x.device.type == "cpu":
+        return add_rms_norm_plain(y, x, scale, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"add_rms_norm: unsupported device {x.device}")
+    d = x.shape[-1]
+    if y.dtype != torch.float32:
+        raise TypeError(f"add_rms_norm: y must be f32, got {y.dtype}")
+    if (y.shape != x.shape or y.device != x.device
+            or not (y.is_contiguous() and x.is_contiguous())):
+        raise ValueError(f"add_rms_norm: y and x must be contiguous "
+                         f"{tuple(x.shape)} on {x.device}")
+    _check_rms("add_rms_norm", x, scale, d)
+    if y.data_ptr() % 16:
+        raise ValueError("add_rms_norm: y is not 16-byte aligned")
+    out = torch.empty_like(x)
+    s = torch.empty_like(x)
+    m = x.numel() // d
+    if m == 0:
+        return s, out
+    fn = "rms_norm_add_f32_bf16"
+    with torch.cuda.device(x.device):
+        rc = getattr(_kernels.library("layer_norm"), fn)(
+            y.data_ptr(), x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            s.data_ptr(), m, d, float(eps), _kernels.stream_of(x))
+    _kernels.check(rc, fn)
+    add_rms_norm.launches += 1
     return s, out

@@ -90,10 +90,72 @@ class ModernBertConfig(BertConfig):
                 else self.rope_theta_local)
 
 
+@dataclass(frozen=True)
+class DeepseekV2Config(BertConfig):
+    """A DeepSeek-V2 decoder used as an embedding backbone
+    (``bert_tpu_torch/deepseek_v2.py``): pre-RMSNorm blocks of latent
+    attention (MLA, expanded per head for prefill, causal) and, after the
+    first ``first_k_dense`` dense SwiGLU layers of width
+    ``n_intermediate``, mixture-of-experts layers: ``n_experts`` routed
+    experts of width ``moe_intermediate`` of which each token takes
+    ``top_k`` by softmax score (greedy, not renormalised) plus
+    ``n_shared_experts`` shared ones. ``layer_norm_eps`` is its
+    ``rms_norm_eps``. RoPE is YaRN-scaled where ``rope_factor`` > 1."""
+
+    arch: str = "deepseek_v2"
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    kv_lora_rank: int = 512
+    first_k_dense: int = 1
+    n_experts: int = 64
+    top_k: int = 6
+    n_shared_experts: int = 2
+    moe_intermediate: int = 1408
+    routed_scaling: float = 1.0
+    rope_theta: float = 10000.0
+    rope_factor: float = 1.0
+    rope_original_positions: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 1.0
+    rope_mscale_all_dim: float = 0.0
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+    @property
+    def n_moe_layers(self) -> int:
+        return self.n_layer - self.first_k_dense
+
+    def is_moe(self, layer: int) -> bool:
+        return layer >= self.first_k_dense
+
+    @property
+    def softmax_scale(self) -> float:
+        """qk_head_dim^-½, times m² where YaRN sets ``mscale_all_dim``
+        (the published ``modeling_deepseek.py``)."""
+        s = self.qk_head_dim ** -0.5
+        if self.rope_factor > 1 and self.rope_mscale_all_dim:
+            m = yarn_mscale(self.rope_factor, self.rope_mscale_all_dim)
+            s *= m * m
+        return s
+
+
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """YaRN's magnitude factor: 0.1 · mscale · ln(factor) + 1 (1 at factor
+    ≤ 1)."""
+    import math
+
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
 def config_class(meta: Dict[str, Any]):
     """The config class of a saved config's fields."""
-    return ModernBertConfig if meta.get("arch") == "modernbert" else \
-        BertConfig
+    return {"modernbert": ModernBertConfig,
+            "deepseek_v2": DeepseekV2Config}.get(meta.get("arch"),
+                                                 BertConfig)
 
 
 # The params tree is a plain nested dict:

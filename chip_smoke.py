@@ -5185,6 +5185,391 @@ def sharded_path():
     return summary
 
 
+# DeepSeek-V2-Lite's kernels (python3 chip_smoke.py --deepseek): the grouped
+# expert product at M tokens of the passage_bulk cell's batches, the causal
+# latent attention at its rows x T, the RMS forms and the routing
+DEEPSEEK_EXPERT_M = (8192, 32768)
+DEEPSEEK_ATTENTION = ((32, 512), (128, 512))
+DEEPSEEK_TOL = {
+    # one bf16 rounding of O(1) outputs, and the card's rsqrtf against
+    # torch's rsqrt: 1-2 ulp (4e-3 each)
+    "rms_norm": 1.6e-2,
+    # f32 rotation of bf16 lanes, rounded once: the card may contract
+    # x1*c - x2*s into an fma, one ulp
+    "rope_mla": 1e-2,
+    # flash form: p rounded to bf16 before p.v, the sum over key tiles
+    # in another order; the fused attention's bf16 tolerance
+    "causal_attention": 2e-2,
+    # f32 accumulation of bf16 operands in another order than cuBLAS f32,
+    # SwiGLU in f32, one bf16 rounding of the output
+    "expert_matmul": 2e-2,
+    # the same f32 sum in the same order: exact
+    "moe_combine": 0.0}
+
+
+def _ds_compare(name, got, want, what, rel_atol=True) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    tol = DEEPSEEK_TOL[name]
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    require(bool(torch.isfinite(got).all()), f"{name} {what}: non-finite")
+    require(bool((err <= tol + tol * want.abs()).all()),
+            f"{name} {what}: max|Δ| {max_err:.3e} outside atol=rtol={tol}")
+    log(f"  ok  {name:18s} {what:44s} max|Δ| {max_err:.3e} (tol {tol})")
+    return max_err
+
+
+def deepseek_kernel_phase(dev, rng):
+    """DeepSeek-V2's kernels (bert_tpu_torch/deepseek_v2.py), each held to
+    its plain version through its public wrapper with a launch check and
+    timed in bf16 by graph replay (eager beside it) with its bound and,
+    where one exists, the library's time: the RMS form (rows of 2,048 and
+    the strided latent 512 of 576) and its add form; the RoPE pass over q
+    and kr; the causal attention (B x T = 32 x 512 and 128 x 512, H 16,
+    q.k 192, v 128) beside SDPA (is_causal, v zero-padded to 192); the
+    routing (softmax, top-6, the counting sort) at M = 8,192 and 32,768
+    tokens of random hidden states through an N(0, 0.03^2) router, the
+    skew the cell's draw gives; the grouped Q4_0 product's gate and up
+    (SwiGLU) and down forms over that routing, against a loop over the
+    experts of their rows (bf16 W dequantized as the kernel does, f32
+    products), beside cuBLAS bf16 per expert on the dequantized W (64
+    products); and the combine, bit for bit."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from bert_tpu_torch.ops import layer_norm as L
+    from bert_tpu_torch.ops import mla_attention as A
+    from bert_tpu_torch.ops import moe as MO
+    from bert_tpu_torch.ops.fused_attention import rope_tables
+    from bert_tpu_torch.ops.q4_matmul import q4_dequantize
+    from bert_tpu_torch.quant import QuantTensor
+    from gpubench.costs import deepseek_v2 as cost
+
+    log("DeepSeek-V2: RMS forms, RoPE, causal attention, routing, grouped "
+        "expert product, combine")
+    cfg = json.load(open(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "gpubench", "configs",
+        "deepseek_v2_lite_q4_0.json")))
+    d, h, rank, e_all, k = 2048, 16, 512, 64, 6
+    fe = 1408
+    out = {"rows": [], "max_abs_err": {}}
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=bf, std=1.0):
+        return (std * torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))).to(dev).to(dtype)
+
+    def row(name, what, fn, nbytes, flops, library=None, launches=1):
+        ms = time_ms(fn)
+        eager = eager_ms(fn)
+        b_ms, b_by = bound(nbytes, flops, "bf16")
+        r = {"kernel": name, "shape": what, "device_ms": ms,
+             "eager_ms": eager, "bound_ms": b_ms, "bound_by": b_by,
+             "roofline_pct": 100.0 * b_ms / ms, "launches": launches}
+        if library is not None:
+            r["library_ms"] = time_ms(library)
+        out["rows"].append(r)
+        log(f"  time {name:18s} {what:30s} {ms:.4f} ms (eager {eager:.4f}) "
+            f"bound {b_ms:.4f} ms ({b_by}) "
+            + (f"library {r['library_ms']:.4f} ms" if library else ""))
+
+    # -- RMS forms ----------------------------------------------------------
+    for m in (8192, 32768):
+        x = randn(m, d)
+        y = randn(m, d, dtype=torch.float32)
+        w = 1 + 0.1 * randn(d, dtype=torch.float32)
+        wl = 1 + 0.1 * randn(rank, dtype=torch.float32)
+        kva = randn(m, rank + 64)
+        n0 = L.rms_norm.launches
+        got = L.rms_norm(x, w, eps=1e-6)
+        require(L.rms_norm.launches == n0 + 1, "rms_norm: not one launch")
+        out["max_abs_err"][f"rms_norm {m}"] = _ds_compare(
+            "rms_norm", got, L.rms_norm_plain(x, w, 1e-6), f"{m}x{d}")
+        _ds_compare("rms_norm", L.rms_norm(kva[:, :rank], wl, eps=1e-6),
+                    L.rms_norm_plain(kva[:, :rank], wl, 1e-6),
+                    f"{m}x{rank} of {rank + 64} (strided)")
+        s, o = L.add_rms_norm(y, x, w, eps=1e-6)
+        s2, o2 = L.add_rms_norm_plain(y, x, w, 1e-6)
+        require(torch.equal(s, s2), "add_rms_norm: the stream differs")
+        _ds_compare("rms_norm", o, o2, f"add form {m}x{d}")
+        lib = getattr(F, "rms_norm", None)
+        row("rms_norm", f"{m}x{d}", lambda: L.rms_norm(x, w, eps=1e-6),
+            4 * m * d + 4 * d, 0,
+            (lambda: lib(x, (d,), w.to(bf), 1e-6)) if lib else None)
+        row("add_rms_norm", f"{m}x{d} (f32 y)",
+            lambda: L.add_rms_norm(y, x, w, eps=1e-6),
+            m * d * (4 + 2 + 2 + 2) + 4 * d, 0)
+        del x, y, kva, s, o, s2, o2
+
+    # -- RoPE and the causal attention -------------------------------------
+    inv = A.yarn_inv_freq(64, 10000.0, 40.0, 4096, 32.0, 1.0, device=dev)
+    cos, sin = rope_tables(10000.0, 64, 163840, dev, inv)
+    scale = 192 ** -0.5 * (0.1 * 0.707 * np.log(40) + 1) ** 2
+    for b, t in DEEPSEEK_ATTENTION:
+        m = b * t
+        q = randn(m, h * 192)
+        kva = randn(m, rank + 64)
+        kvb = randn(m, h * 256)
+        pq, pk = A.rope_mla_plain(q, kva, cos, sin, t=t, n_head=h,
+                                  rank=rank)
+        n0 = A.rope_mla.launches
+        rq, rk = A.rope_mla(q, kva, cos, sin, t=t, n_head=h, rank=rank)
+        require(A.rope_mla.launches == n0 + 1 and rq.data_ptr() ==
+                q.data_ptr(), "rope_mla: not one launch, in place")
+        _ds_compare("rope_mla", rq, pq, f"q {b}x{t}")
+        _ds_compare("rope_mla", rk, pk, f"kva {b}x{t}")
+        n0 = A.causal_attention.launches
+        got = A.causal_attention(q, kva, kvb, t=t, n_head=h, rank=rank,
+                                 scale=scale)
+        require(A.causal_attention.launches == n0 + 1,
+                "causal_attention: not one launch")
+        err = 0.0
+        for r in range(0, b, 8):  # the plain scores a few rows at a time
+            sl = slice(r * t, (r + 8) * t)
+            want = A.causal_attention_plain(q[sl], kva[sl], kvb[sl], t=t,
+                                            n_head=h, rank=rank,
+                                            scale=scale)
+            err = max(err, _ds_compare("causal_attention", got[sl], want,
+                                       f"{b}x{t} rows {r}-{r + 7}"))
+        out["max_abs_err"][f"causal_attention {b}x{t}"] = err
+        qh = q.view(b, t, h, 192).transpose(1, 2)
+        kn = kvb.view(b, t, h, 256)[..., :128].transpose(1, 2)
+        kr = kva.view(b, t, 1, rank + 64)[..., rank:].transpose(1, 2)
+        kk = torch.cat([kn, kr.expand(b, h, t, 64)], -1).contiguous()
+        vv = F.pad(kvb.view(b, t, h, 256)[..., 128:].transpose(1, 2),
+                   (0, 64)).contiguous()
+        qh = qh.contiguous()
+        row("causal_attention", f"{b}x{t} H{h} 192/128",
+            lambda: A.causal_attention(q, kva, kvb, t=t, n_head=h,
+                                       rank=rank, scale=scale),
+            2 * m * (h * 192 + h * 128 + 64 + 2 * h * 128),
+            cost.pair_flops(cfg) * b * cost.pairs(t),
+            lambda: F.scaled_dot_product_attention(qh, kk, vv,
+                                                   is_causal=True,
+                                                   scale=scale))
+        row("rope_mla", f"{b}x{t}",
+            lambda: A.rope_mla(q, kva, cos, sin, t=t, n_head=h, rank=rank),
+            2 * 2 * m * (h * 64 + 64) + 8 * t * 32, 0)
+        del q, kva, kvb, got, qh, kk, vv
+
+    # -- routing, grouped product, combine ----------------------------------
+    qts = {}
+    for name, (kk_, nn_) in (("gu", (d, 2 * fe)), ("down", (fe, d))):
+        packed = torch.randint(0, 256, (e_all, kk_ // 2, nn_),
+                               dtype=torch.uint8, device=dev)
+        sc = ((0.5 + torch.rand(e_all, kk_ // 32, nn_, device=dev))
+              * (0.025 / 4.64)).to(torch.float16).float()
+        qts[name] = QuantTensor(packed=packed, scales=sc)
+    router = randn(d, e_all, dtype=torch.float32, std=0.03)
+    for m in DEEPSEEK_EXPERT_M:
+        x = randn(m, d)
+        logits = torch.matmul(x.float(), router)
+        n0 = MO.moe_route.launches
+        r = MO.moe_route(logits, k, 1.0)
+        require(MO.moe_route.launches == n0 + 2, "moe_route: not 2 launches")
+        p = MO.moe_route_plain(logits, k, 1.0)
+        agree = float((r.topi == p.topi).all(dim=1).float().mean())
+        counts = torch.bincount(r.topi.reshape(-1).long(), minlength=e_all)
+        require(torch.equal(counts.to(torch.int32), r.counts),
+                "moe_route: counts differ from the choices")
+        require(torch.equal(r.sorted_tok[r.slot_pos.long()].long(),
+                            torch.arange(m * k, device=dev) // k),
+                "moe_route: the sort does not invert")
+        require(torch.allclose(r.topw, p.topw, atol=1e-6),
+                "moe_route: weights differ")
+        log(f"  ok  moe_route          M={m}: top-6 as torch.topk on "
+            f"{100 * agree:.3f}% of tokens; rows an expert "
+            f"{int(counts.min())}-{int(counts.max())}")
+        out["max_abs_err"][f"moe_route agree {m}"] = agree
+        act = MO.expert_matmul(x, qts["gu"], r, gather=True, swiglu=True)
+        y = MO.expert_matmul(act, qts["down"], r, gather=False, swiglu=False)
+        ends = torch.cumsum(r.counts.long(), 0).tolist()
+        err_gu = err_d = 0.0
+        xs = x[r.sorted_tok.long()]
+        for e in range(e_all):
+            lo, hi = (ends[e - 1] if e else 0), ends[e]
+            if hi == lo:
+                continue
+            wg = q4_dequantize(QuantTensor(qts["gu"].packed[e],
+                                           qts["gu"].scales[e])).to(bf)
+            v = xs[lo:hi].float() @ wg.float()
+            v4 = v.view(hi - lo, -1, 2, 8)
+            want = (F.silu(v4[:, :, 0]) * v4[:, :, 1]).reshape(hi - lo, fe)
+            err_gu = max(err_gu, _ds_compare(
+                "expert_matmul", act[lo:hi], want, f"gate-up M={m} e={e}")
+                if e in (0, e_all - 1) else float(
+                    (act[lo:hi].float() - want).abs().max()))
+            wd = q4_dequantize(QuantTensor(qts["down"].packed[e],
+                                           qts["down"].scales[e])).to(bf)
+            want = act[lo:hi].float() @ wd.float()
+            got = y[lo:hi].float()
+            tol = DEEPSEEK_TOL["expert_matmul"]
+            require(bool(((got - want).abs() <= tol + tol * want.abs())
+                         .all()), f"expert_matmul down M={m} e={e}")
+            err_d = max(err_d, float((got - want).abs().max()))
+        log(f"  ok  expert_matmul      M={m} every expert: gate-up max|Δ| "
+            f"{err_gu:.3e}, down {err_d:.3e}")
+        out["max_abs_err"][f"expert_matmul {m}"] = max(err_gu, err_d)
+        shared = randn(m, d, dtype=torch.float32)
+        n0 = MO.moe_combine.launches
+        comb = MO.moe_combine(shared, y, r)
+        require(MO.moe_combine.launches == n0 + 1, "moe_combine: launches")
+        _ds_compare("moe_combine", comb, MO.moe_combine_plain(shared, y, r),
+                    f"M={m}")
+        # times: the routing, each product, cuBLAS bf16 a expert
+        rows = m * k
+        row("moe_route", f"M={m} E64 top6",
+            lambda: MO.moe_route(logits, k, 1.0), 4 * m * e_all
+            + 8 * rows, 0, launches=2)
+        wg_all = [q4_dequantize(QuantTensor(qts["gu"].packed[e],
+                                            qts["gu"].scales[e])).to(bf)
+                  for e in range(e_all)]
+        wd_all = [q4_dequantize(QuantTensor(qts["down"].packed[e],
+                                            qts["down"].scales[e])).to(bf)
+                  for e in range(e_all)]
+        spans = [((ends[e - 1] if e else 0), ends[e]) for e in range(e_all)]
+
+        def cublas(a, ws):
+            for (lo, hi), wt in zip(spans, ws):
+                if hi > lo:
+                    torch.matmul(a[lo:hi], wt)
+        for label, (kk_, nn_), fn, lib in (
+                ("gate-up", (d, 2 * fe),
+                 lambda: MO.expert_matmul(x, qts["gu"], r, gather=True,
+                                          swiglu=True),
+                 lambda: cublas(xs, wg_all)),
+                ("down", (fe, d),
+                 lambda: MO.expert_matmul(act, qts["down"], r, gather=False,
+                                          swiglu=False),
+                 lambda: cublas(act, wd_all))):
+            n_out = nn_ // 2 if label == "gate-up" else nn_
+            row("expert_matmul", f"{label} M={m} ({rows} rows)", fn,
+                e_all * kk_ * nn_ * 18 / 32 + 2 * rows * (kk_ + n_out),
+                2.0 * rows * kk_ * nn_, lib)
+        row("moe_combine", f"M={m}", lambda: MO.moe_combine(shared, y, r),
+            m * d * 8 + rows * d * 2, 0)
+        del x, act, y, shared, comb, wg_all, wd_all, xs
+        torch.cuda.empty_cache()
+    log(f"deepseek kernels: {json.dumps(out)}")
+    return out
+
+
+def deepseek_engine_phase(dev):
+    """DeepSeek-V2-Lite at its published widths, 3 layers (the dense one
+    and 2 MoE layers, all 64 experts), a checkpoint directory from
+    gpubench's writer (random Q4_0 codes from seed 41), through
+    ``BertTorch.from_file`` on the card: ``encode_batch`` over texts of 3 to
+    about 600 tokens, ``encode_iter`` and a text through the server, each
+    against the plain reference (tests/plain_deepseek_v2.py, f32) on the
+    card: the widest L2 gap. A second ``encode_batch`` (its programs
+    captured by the first) launches per batch what the route implies: 6·L
+    ``q4_matmul`` (4 attention products a layer, 2 of the dense MLP or the
+    shared experts), L RoPE passes and causal attentions, 2 routing
+    launches, 2 grouped products and 1 combine a MoE layer, 1 + L RMS
+    forms and 2·L of the add form; ``stats()["experts"]`` grows by 6 x the
+    launched tokens in each MoE layer, and no program is captured."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from plain_deepseek_v2 import Reference
+
+    from bert_tpu_torch import BertTorch
+    from bert_tpu_torch.ops.common import COUNTERS
+    from gpubench import corpus
+    from gpubench.archs import deepseek_v2 as arch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = json.load(open(os.path.join(here, "gpubench", "configs",
+                                      "deepseek_v2_lite_q4_0.json")))
+    cfg["num_hidden_layers"] = 3
+    log("DeepSeek-V2 engine: from_file(HF directory of Q4_0 blocks), "
+        "3 layers at the published widths")
+    w = arch.draw(cfg, 41, dev)
+    corp = corpus.load(cfg)
+    tok = corp.tokenizer()
+    sent = corp.sentences
+    texts = ([sent[i] for i in range(0, 60, 3)]
+             + [" ".join(sent[i:i + n]) for i, n in
+                ((0, 10), (50, 25), (200, 40), (400, 3), (500, 45))])
+    ids = [tok(t, cfg["max_position_embeddings"]) for t in texts]
+    log(f"  token counts {sorted(len(i) for i in ids)}")
+    ref = Reference(w, cfg, dev).embed(ids).cpu().numpy()
+    torch.cuda.empty_cache()
+    gaps = {}
+    with tempfile.TemporaryDirectory() as dd:
+        path, nbytes = arch.write(dd, cfg, corp.vocab, w)
+        del w
+        torch.cuda.empty_cache()
+        eng = BertTorch.from_file(path)
+        got = eng.encode_batch(texts)
+        gaps["encode_batch"] = float(np.linalg.norm(got - ref, axis=1).max())
+        it = np.concatenate(list(eng.encode_iter(texts, window=7)))
+        gaps["encode_iter_vs_batch"] = float(np.abs(it - got).max())
+        st0 = eng.stats()
+        programs = len(eng._programs.table)
+        for c in COUNTERS:
+            c.launches = 0
+        again = eng.encode_batch(texts)
+        st1 = eng.stats()
+        ran = {c.__name__: c.launches for c in COUNTERS if c.launches}
+        batches = sum(n - st0["buckets"].get(key, 0)
+                      for key, n in st1["buckets"].items())
+        tokens = sum((n - st0["buckets"].get(key, 0)) * int(
+            key.split()[0].split("x")[0]) * int(key.split()[0].split("x")[1])
+            for key, n in st1["buckets"].items())
+        lay, moe = 3, 2
+        want = {"q4_matmul": 6 * lay * batches,
+                "rope_mla": lay * batches, "causal_attention": lay * batches,
+                "moe_route": 2 * moe * batches,
+                "expert_matmul": 2 * moe * batches,
+                "expert_matmul.gate_up": moe * batches,
+                "expert_matmul.down": moe * batches,
+                "moe_combine": moe * batches,
+                "rms_norm": (1 + lay) * batches,
+                "add_rms_norm": 2 * lay * batches}
+        for name in ("q4_matmul.wgmma", "q4_matmul.wgmma_bf16"):
+            if name in ran:
+                want[name] = ran[name]
+        log(f"  launches of {batches} batches ({tokens} tokens): {ran}")
+        require(ran == want, f"deepseek engine: launches {ran}, the route "
+                f"implies {want}")
+        require(len(eng._programs.table) == programs,
+                "deepseek engine: a program was captured in the second call")
+        require(np.array_equal(again, got), "deepseek engine: the replay "
+                "differs from the first call")
+        for layer, counts in st1["experts"].items():
+            grew = sum(counts) - sum(st0["experts"][layer])
+            require(grew == 6 * tokens, f"deepseek engine: layer {layer}'s "
+                    f"experts counted {grew} rows, not 6 x {tokens}")
+        log(f"  attention {st1.get('attention')}; load "
+            f"{st1['load_phases']}; model file {nbytes} bytes")
+        from bert_tpu_torch.server import ServerThread
+
+        n = cfg["hidden_size"]
+        with ServerThread(eng) as srv, socket.create_connection(
+                ("127.0.0.1", srv.port)) as sock:
+            require(struct.unpack("<i", sock.recv(4)) == (n,),
+                    "deepseek server: n_embd")
+            sock.sendall(texts[-2].encode("utf-8"))
+            buf = b""
+            while len(buf) < 4 * n:
+                buf += sock.recv(4 * n - len(buf))
+        gaps["server"] = float(np.linalg.norm(
+            np.frombuffer(buf, "<f4") - ref[-2]))
+        del eng
+        torch.cuda.empty_cache()
+    require(gaps["encode_batch"] < 0.2, f"deepseek bf16: gap {gaps}")
+    require(gaps["encode_iter_vs_batch"] < 2e-3, f"deepseek iter: {gaps}")
+    log(f"deepseek engine: {json.dumps(gaps)}")
+    return gaps
+
+
 def main() -> int:
     import torch
 
@@ -5223,6 +5608,14 @@ def main() -> int:
                 f"{name}: an instance spills: {line.strip()}")
 
     dev = torch.device("cuda")
+    # DeepSeek-V2's kernels and engine: python3 chip_smoke.py --deepseek
+    # runs only these, after the build
+    if "--deepseek" in sys.argv[1:]:
+        deepseek = {"kernels": deepseek_kernel_phase(
+            dev, np.random.default_rng(29)),
+            "engine": deepseek_engine_phase(dev)}
+        print(json.dumps({"ok": True, "deepseek": deepseek}), flush=True)
+        return 0
     # ModernBERT's kernel forms and engine (python3 chip_smoke.py
     # --modernbert runs only these, after the build)
     modernbert = {"kernels": modernbert_kernel_phase(

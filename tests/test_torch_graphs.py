@@ -274,8 +274,8 @@ def test_program_counts_warm_up_and_replays_not_the_capture(monkeypatch):
 
 
 # the counter of each kernel wrapper the model and the engine call, and of
-# q4_matmul's wgmma instance and that instance's bf16 epilogue: (module of
-# bert_tpu_torch.ops, name)
+# q4_matmul's wgmma instance and that instance's bf16 epilogue, and of the
+# grouped expert product's two forms: (module of bert_tpu_torch.ops, name)
 WRAPPER_COUNTERS = [
     ("attention", "multi_head_attention"),
     ("fused_attention", "fused_qkv_attention"),
@@ -290,6 +290,15 @@ WRAPPER_COUNTERS = [
     ("q4_matmul", "q4_matmul"),
     ("q4_matmul", "q4_matmul.wgmma"),
     ("q4_matmul", "q4_matmul.wgmma_bf16"),
+    ("layer_norm", "rms_norm"),
+    ("layer_norm", "add_rms_norm"),
+    ("mla_attention", "rope_mla"),
+    ("mla_attention", "causal_attention"),
+    ("moe", "moe_route"),
+    ("moe", "expert_matmul"),
+    ("moe", "expert_matmul.gate_up"),
+    ("moe", "expert_matmul.down"),
+    ("moe", "moe_combine"),
 ]
 
 
