@@ -81,9 +81,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
            for t in ("f32", "bf16")},
     },
     "mla_attention": {
-        # q, kva (rotated in place), cos, sin, pos (nullable), B, T, H, ldq,
-        # ldkv, rank, stream
-        "rope_mla_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # q, kva (rotated in place), cos, sin, B, T, H, ldq, ldkv, rank,
+        # stream
+        "rope_mla_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # q, kva, kvb, out, B, T, H, ldq, ldkv, ldkvb, rank, scale, stream
         "causal_mla_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                       _I, _F, _P],

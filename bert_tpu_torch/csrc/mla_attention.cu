@@ -58,26 +58,11 @@ constexpr int QS = DQK + 8;  // smem row of q and k: 400 bytes
 constexpr int VS = DV + 8;   // smem row of v: 272 bytes
 constexpr int SMEM = (BQ * QS + BKV * QS + BKV * VS) * 2;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16(v);
-}
-
 // one thread a rotated pair: slot h < H is head h's rope lanes of q, slot
-// H the token's kr
-template <typename V>
-__global__ void rope_mla_kernel(V* __restrict__ q, V* __restrict__ kva,
+// H the token's kr; token t of each row at position t
+__global__ void rope_mla_kernel(bf16* __restrict__ q, bf16* __restrict__ kva,
                                 const float* __restrict__ cosv,
-                                const float* __restrict__ sinv,
-                                const int* __restrict__ pos, int BT, int T,
+                                const float* __restrict__ sinv, int BT, int T,
                                 int H, int ldq, int ldkv, int rank) {
   constexpr int HALF = ROPE / 2;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -86,28 +71,14 @@ __global__ void rope_mla_kernel(V* __restrict__ q, V* __restrict__ kva,
   const int tok = (int)(idx / per_tok);
   const int rem = (int)(idx % per_tok);
   const int slot = rem / HALF, i = rem % HALF;
-  const int p = pos != nullptr ? pos[tok] : tok % T;
+  const int p = tok % T;
   const float c = cosv[(size_t)p * HALF + i], s = sinv[(size_t)p * HALF + i];
-  V* base = slot < H ? q + (size_t)tok * ldq + slot * DQK + NOPE
-                     : kva + (size_t)tok * ldkv + rank;
-  const float x1 = to_f(base[i]), x2 = to_f(base[i + HALF]);
-  base[i] = from_f<V>(x1 * c - x2 * s);
-  base[i + HALF] = from_f<V>(x2 * c + x1 * s);
-}
-
-template <typename V>
-int launch_rope(void* q, void* kva, const void* cosv, const void* sinv,
-                const void* pos, int B, int T, int H, int ldq, int ldkv,
-                int rank, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)B * T * (H + 1) * (ROPE / 2);
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  rope_mla_kernel<V><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (V*)q, (V*)kva, (const float*)cosv, (const float*)sinv,
-      (const int*)pos, B * T, T, H, ldq, ldkv, rank);
-  return (int)cudaGetLastError();
+  bf16* base = slot < H ? q + (size_t)tok * ldq + slot * DQK + NOPE
+                        : kva + (size_t)tok * ldkv + rank;
+  const float x1 = __bfloat162float(base[i]);
+  const float x2 = __bfloat162float(base[i + HALF]);
+  base[i] = __float2bfloat16(x1 * c - x2 * s);
+  base[i + HALF] = __float2bfloat16(x2 * c + x1 * s);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -270,14 +241,20 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // In place: the rope lanes of every head of q [B*T, ldq] and kr at
-// kva[:, rank:rank+64], rotate-half at positions pos [B*T] (null: t of
-// each row), cos and sin [P, 32] f32
+// kva[:, rank:rank+64], rotate-half at position t of each row, cos and sin
+// [P >= T, 32] f32
 extern "C" int rope_mla_bf16(void* q, void* kva, const void* cosv,
-                             const void* sinv, const void* pos, int B, int T,
-                             int H, int ldq, int ldkv, int rank,
-                             void* stream) {
-  return launch_rope<bf16>(q, kva, cosv, sinv, pos, B, T, H, ldq, ldkv, rank,
-                           stream);
+                             const void* sinv, int B, int T, int H, int ldq,
+                             int ldkv, int rank, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * T * (H + 1) * (ROPE / 2);
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  rope_mla_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (bf16*)q, (bf16*)kva, (const float*)cosv, (const float*)sinv, B * T, T,
+      H, ldq, ldkv, rank);
+  return (int)cudaGetLastError();
 }
 
 // out [B*T, H*128] = causal softmax(scale * q.k) v per (row, head)

@@ -72,7 +72,8 @@ from .ops.moe import (expert_matmul, expert_matmul_plain, moe_combine,
                       moe_combine_plain, moe_route, moe_route_plain,
                       swiglu_order)
 from .params import DeepseekV2Config, yarn_mscale
-from .quant import GGML_FTYPE_Q4_0, QK, QuantTensor, repack_ggml_stream_tpu
+from .quant import (GGML_FTYPE_Q4_0, QK, QuantTensor, dequantize_tpu,
+                    repack_ggml_stream_tpu)
 
 IGNORED_PREFIXES = ("lm_head.",)
 Q4_RECORD = 20  # bytes of a ggml Q4_0 block as the port's files hold it
@@ -167,8 +168,6 @@ def _strip(named: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 def q4_dense(records: np.ndarray) -> np.ndarray:
     """Q4_0 records [N, K/32, 20] → the dense [N, K] f32 matrix."""
-    from .quant import dequantize_tpu
-
     return dequantize_tpu(_repack(records)).T
 
 
@@ -291,10 +290,14 @@ class DeepseekV2Model(nn.Module):
     :func:`params_from_named`'s tree). Same ``hidden`` call as the other
     encoder classes, so ``model.bert_forward`` runs it; its attention is
     causal, so it pools at the last token and takes no packed rows
-    (``causal``). Tokens routed to each expert of each MoE layer are
+    (``causal``). Its experts are Q4_0 alone, so it has no int8 regime
+    (``int8``), and its kernels on the card compute in bf16
+    (``kernel_dtypes``). Tokens routed to each expert of each MoE layer are
     counted on the device in ``expert_tokens`` [n_moe_layers, E]."""
 
     causal = True
+    int8 = False
+    kernel_dtypes = (torch.bfloat16,)
 
     def __init__(self, params: Dict[str, Dict[str, object]],
                  config: DeepseekV2Config, tp_group=None):

@@ -158,9 +158,9 @@ class BertTorch:
             raise NotImplementedError(
                 f"{model_cls.__name__} runs on one device: a mesh (dp/tp) "
                 "is not supported for it")
-        if model_cls is DeepseekV2Model and int8_eval:
+        if int8_eval and not getattr(model_cls, "int8", True):
             raise NotImplementedError(
-                "DeepSeek-V2 has no int8 regime: its experts are Q4_0")
+                f"{model_cls.__name__} has no int8 regime")
         # multi-device execution: mesh OR dp/tp build a (data, model) mesh
         # over the process group's ranks; this rank computes on its device
         if mesh is None and (dp or tp):
@@ -180,11 +180,14 @@ class BertTorch:
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                              f"got {compute_dtype}")
-        if (model_cls is DeepseekV2Model and self.device.type == "cuda"
+        kernel_dtypes = getattr(model_cls, "kernel_dtypes", None)
+        if (kernel_dtypes and self.device.type == "cuda"
                 and use_kernels is not False
-                and compute_dtype != torch.bfloat16):
-            raise ValueError("DeepSeek-V2's kernels on the card compute in "
-                             "bfloat16")
+                and compute_dtype not in kernel_dtypes):
+            raise ValueError(
+                f"{model_cls.__name__}'s kernels on the card compute in "
+                + " or ".join(str(d).removeprefix("torch.")
+                              for d in kernel_dtypes))
         self.compute_dtype = compute_dtype
         self.use_kernels = use_kernels
         self.max_batch = max_batch

@@ -19,8 +19,9 @@ there.
 
 :func:`bert_forward` and :func:`bert_forward_packed` are the pooled
 forwards of every encoder class, ModernBERT's (``modernbert.py``) and
-DeepSeek-V2's (``deepseek_v2.py``, bucketed rows only) included: each builds the mask bias, calls the model's ``hidden`` (the
-embeddings, then the layers) and pools. ``hidden`` takes the rows'
+DeepSeek-V2's (``deepseek_v2.py``, bucketed rows only) included: each
+builds the mask bias, calls the model's ``hidden`` (the embeddings, then
+the layers) and pools. ``hidden`` takes the rows'
 positions, which BERT's position table reads and ModernBERT's RoPE. The
 kernel wrappers count their launches in the op layer's registry
 (``ops.common.COUNTERS``).

@@ -280,7 +280,7 @@ def add_rms_norm_plain(y, x, scale, eps):
     return s, rms_norm_plain(s, scale, eps)
 
 
-def _check_rms(name, x, scale, d, rows_aligned=True):
+def _check_rms(name, x, scale, d):
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the stream must be bf16, got {x.dtype}")
     if d % 8:
@@ -349,11 +349,10 @@ def add_rms_norm(y: torch.Tensor, x: torch.Tensor, scale: torch.Tensor, *,
     m = x.numel() // d
     if m == 0:
         return s, out
-    fn = "rms_norm_add_f32_bf16"
     with torch.cuda.device(x.device):
-        rc = getattr(_kernels.library("layer_norm"), fn)(
+        rc = _kernels.library("layer_norm").rms_norm_add_f32_bf16(
             y.data_ptr(), x.data_ptr(), scale.data_ptr(), out.data_ptr(),
             s.data_ptr(), m, d, float(eps), _kernels.stream_of(x))
-    _kernels.check(rc, fn)
+    _kernels.check(rc, "rms_norm_add_f32_bf16")
     add_rms_norm.launches += 1
     return s, out

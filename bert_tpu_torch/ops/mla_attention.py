@@ -63,23 +63,16 @@ def yarn_inv_freq(dim: int, base: float, factor: float,
     return interpolation * (1 - extra) + extrapolation * extra
 
 
-def _tables(cos, sin, positions, rows, t):
-    if positions is None:
-        p = torch.arange(rows, device=cos.device) % t
-    else:
-        p = positions.reshape(-1).long()
-    return cos[p], sin[p]
-
-
 def rope_mla_plain(q: torch.Tensor, kva: torch.Tensor, cos: torch.Tensor,
-                   sin: torch.Tensor, positions=None, *, t: int, n_head: int,
-                   rank: int, nope: int = NOPE, rope: int = ROPE
+                   sin: torch.Tensor, *, t: int, n_head: int, rank: int,
+                   nope: int = NOPE, rope: int = ROPE
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rotate-half RoPE of each head's ``rope`` lanes of q (after its
-    ``nope`` ones) and of kr at ``positions`` [M] (None: each row's t), in
-    f32, rounded to the operands' dtype; new tensors."""
+    ``nope`` ones) and of kr, token t of each row of ``t`` tokens at
+    position t, in f32, rounded to the operands' dtype; new tensors."""
     m = q.shape[0]
-    c, s = _tables(cos, sin, positions, m, t)  # [M, rope/2]
+    p = torch.arange(m, device=cos.device) % t
+    c, s = cos[p], sin[p]  # [M, rope/2]
     half = rope // 2
 
     def rot(x):  # x [M, ..., 64]
@@ -99,15 +92,15 @@ def rope_mla_plain(q: torch.Tensor, kva: torch.Tensor, cos: torch.Tensor,
 
 @counted
 def rope_mla(q: torch.Tensor, kva: torch.Tensor, cos: torch.Tensor,
-             sin: torch.Tensor, positions=None, *, t: int, n_head: int,
-             rank: int, nope: int = NOPE, rope: int = ROPE
+             sin: torch.Tensor, *, t: int, n_head: int, rank: int,
+             nope: int = NOPE, rope: int = ROPE
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`rope_mla_plain`'s rotation. CUDA tensors (bf16): the
     ``rope_mla_bf16`` kernel (128 nope and 64 rope lanes) rotates q and kva
     in place and returns them; CPU tensors take :func:`rope_mla_plain`."""
     if q.device.type == "cpu":
-        return rope_mla_plain(q, kva, cos, sin, positions, t=t,
-                              n_head=n_head, rank=rank, nope=nope, rope=rope)
+        return rope_mla_plain(q, kva, cos, sin, t=t, n_head=n_head,
+                              rank=rank, nope=nope, rope=rope)
     if q.device.type != "cuda":
         raise ValueError(f"rope_mla: unsupported device {q.device}")
     if (nope, rope) != (NOPE, ROPE):
@@ -131,23 +124,17 @@ def rope_mla(q: torch.Tensor, kva: torch.Tensor, cos: torch.Tensor,
                 or not tab.is_contiguous()):
             raise ValueError(f"rope_mla: {name} must be contiguous f32 [P, "
                              f"{ROPE // 2}] on {q.device}")
-    if positions is not None and (positions.numel() != m
-                                  or positions.dtype != torch.int32
-                                  or not positions.is_contiguous()):
-        raise ValueError(f"rope_mla: positions must be contiguous int32 "
-                         f"[{m}]")
-    if positions is None and cos.shape[0] < t:
+    if cos.shape[0] < t:
         raise ValueError(f"rope_mla: tables hold {cos.shape[0]} positions, "
                          f"fewer than T = {t}")
     if m == 0:
         return q, kva
-    fn = "rope_mla_bf16"
     with torch.cuda.device(q.device):
-        rc = getattr(_kernels.library("mla_attention"), fn)(
+        rc = _kernels.library("mla_attention").rope_mla_bf16(
             q.data_ptr(), kva.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            None if positions is None else positions.data_ptr(), m // t, t,
-            n_head, q.shape[1], kva.shape[1], rank, _kernels.stream_of(q))
-    _kernels.check(rc, fn)
+            m // t, t, n_head, q.shape[1], kva.shape[1], rank,
+            _kernels.stream_of(q))
+    _kernels.check(rc, "rope_mla_bf16")
     rope_mla.launches += 1
     return q, kva
 

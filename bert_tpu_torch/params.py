@@ -16,6 +16,7 @@ parameters back to a host tree.
 from __future__ import annotations
 
 import functools as _functools
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Union
 
@@ -146,8 +147,6 @@ class DeepseekV2Config(BertConfig):
 def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
     """YaRN's magnitude factor: 0.1 · mscale · ln(factor) + 1 (1 at factor
     ≤ 1)."""
-    import math
-
     return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
 
 

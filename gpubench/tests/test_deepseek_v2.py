@@ -11,7 +11,7 @@ import time
 import pytest
 import torch
 
-from gpubench import moe_readers, run
+from gpubench import fp8_control, moe_readers, run
 from gpubench.costs import deepseek_v2 as cost
 from gpubench.costs import q4_matmul
 from gpubench.registry import Registry, load_benchmark
@@ -111,6 +111,19 @@ def test_fp8_reference_is_far(tiny_ds):
     assert gap > 20 * LIMIT, gap
 
 
+def test_fp8_control_is_not_correct(tiny_ds):
+    """The control through the harness's run (gpubench.fp8_control): the
+    fp8 reference in the program's place reads ``correct`` false at the
+    cell's limit, and the f32 reference's routing choices are counted."""
+    bench, reg = tiny_ds
+    r = fp8_control.control(bench, TINY_CELL, SEED, 0.5, 3, "cpu", reg)
+    assert not r["correct"], r["checks"]
+    assert r["checks"]["emb_gap_max"]["value"] > 20 * LIMIT
+    assert r["notes"]["compared"] >= 3
+    ties = r["near_ties"]
+    assert ties["pairs"] > 0 and 0 <= ties["near"] <= ties["pairs"]
+
+
 # -- the readers on a synthetic trace ---------------------------------------
 
 def _ctx(counted=True, launches=None):
@@ -124,12 +137,12 @@ def _ctx(counted=True, launches=None):
                          "expert_matmul_kernel<true>": 0.8,
                          "expert_matmul_kernel<false>": 0.5,
                          "causal_mla_kernel": 0.05,
-                         "rope_mla_kernel<__nv_bfloat16>": 0.01},
+                         "rope_mla_kernel": 0.01},
              "launches": {"q4_matmul_wgmma_kernel": 4 * 27 * 6,
                           "expert_matmul_kernel<true>": 4 * 26,
                           "expert_matmul_kernel<false>": 4 * 26,
                           "causal_mla_kernel": 108,
-                          "rope_mla_kernel<__nv_bfloat16>": 108},
+                          "rope_mla_kernel": 108},
              "idle_gaps": {}}
     trace["launches"].update(launches or {})
     return {"trace": trace, "stats0": {"buckets": {}, "sentences": 0},
@@ -182,7 +195,7 @@ def test_metric_files_read_the_readers():
 # -- the cost model ---------------------------------------------------------
 
 def test_weights_a_token_touches():
-    """DeepSeek-V2-Lite: about 2.24 B weights a token (the issue's count:
+    """DeepSeek-V2-Lite: about 2.24 B weights a token (by component:
     1.80 B in the experts, 0.37 B in attention, 0.07 B in layer 0)."""
     cfg = Registry().config("deepseek_v2_lite_q4_0")
     w = cost.weights_per_token(cfg)
